@@ -1,0 +1,118 @@
+"""Build and bind the hand-written CUDA kernels in `csrc/`.
+
+The sources are compiled at first use with nvcc into one shared library
+with a plain C interface, loaded with ctypes. The library lands in
+`build/kernels/` at the repository root, named by a hash of the sources
+and flags, so an edited source is rebuilt and an unchanged one reused.
+Nothing here runs at import time: the CPU tests import every module on a
+machine without nvcc.
+
+Each C entry point launches on the stream it is given and returns
+cudaGetLastError(); `check` turns a nonzero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None   # wall time of this process's build
+build_log: str = ""                     # nvcc/ptxas output (registers, spills)
+
+
+def _nvcc() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, PATH, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into one shared library (cached by content)."""
+    global build_seconds, build_log
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    out = BUILD_DIR / f"libdct_kernels_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.dct_flash_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                      i32, f32, ptr]
+        lib.dct_flash_fwd.restype = i32
+        lib.dct_small_t_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                        i32, i32, f32, ptr]
+        lib.dct_small_t_fwd.restype = i32
+        lib.dct_error_string.argtypes = [i32]
+        lib.dct_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        msg = library().dct_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def check_operands(name: str, *tensors: torch.Tensor) -> None:
+    """What every kernel wrapper requires of its CUDA operands."""
+    t0 = tensors[0]
+    if t0.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {t0.dtype} not supported "
+                        "(bfloat16 or float32)")
+    for t in tensors:
+        if t.device != t0.device or t.dtype != t0.dtype:
+            raise ValueError(f"{name}: operands differ in device or dtype")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be 16-byte aligned")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
