@@ -13,7 +13,7 @@ YAML 1.1 does (int, float, bool, null, str). Anything else raises.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 _TARGET_ROLES = {
     "UNetModel": "unet",
@@ -221,3 +221,50 @@ class ModelConfig:
     @classmethod
     def from_yaml(cls, path: str) -> "ModelConfig":
         return cls(load_yaml(path))
+
+
+def deep_update(base: Dict[str, Any], extra: Dict[str, Any]) -> Dict[str, Any]:
+    """Merge `extra` into `base` recursively (later configs win)."""
+    for k, v in extra.items():
+        if isinstance(v, dict) and isinstance(base.get(k), dict):
+            deep_update(base[k], v)
+        else:
+            base[k] = v
+    return base
+
+
+def _node(d: Optional[Dict[str, Any]], *keys: str) -> Dict[str, Any]:
+    for k in keys:
+        d = (d or {}).get(k)
+    return d or {}
+
+
+class TrainingConfig:
+    """The three roots of a reference training YAML (`model:`, `data:`,
+    `lightning:`), read with the defaults `scripts/train.py` of the JAX
+    package applies. `paths` are merged left to right (the reference's
+    `--base a.yaml b.yaml`)."""
+
+    def __init__(self, raw: Dict[str, Any]):
+        self.raw = raw
+        self.model = ModelConfig(raw)
+        model_node = raw.get("model", {})
+        self.base_learning_rate = model_node.get("base_learning_rate", 1e-5)
+        self.scale_lr = model_node.get("scale_lr", False)
+        trainer = _node(raw, "lightning", "trainer")
+        self.accumulate_grad_batches = trainer.get("accumulate_grad_batches", 1)
+        self.max_steps = trainer.get("max_steps", 100000)
+        self.gradient_clip_val = trainer.get("gradient_clip_val", 0.5)
+        self.checkpoint = _node(raw, "lightning", "callbacks", "model_checkpoint", "params")
+        data = _node(raw, "data", "params")
+        self.batch_size = data.get("batch_size", 1)
+        self.num_workers = data.get("num_workers", 4)
+        self.train_data = _node(data, "train", "params")
+        self.validation_data = _node(data, "validation", "params")
+
+    @classmethod
+    def from_yaml(cls, paths: Sequence[str]) -> "TrainingConfig":
+        raw: Dict[str, Any] = {}
+        for path in ([paths] if isinstance(paths, str) else paths):
+            deep_update(raw, load_yaml(path))
+        return cls(raw)

@@ -1,16 +1,26 @@
-// K1: spatial flash-attention forward for Hopper (sm_90a).
+// K1 and K3: spatial flash-attention forward for Hopper (sm_90a).
 //
-// Replaces dynamicrafter_tpu/ops/flash_attention.py::_fwd_kernel_nlhd (the
-// Pallas kernel behind `_flash_fwd_nlhd`). Same function: non-causal,
-// unmasked softmax(Q K^T * scale) V per head, with online softmax (fp32
-// running max m, sum l and accumulator), KV columns >= Lk masked, and a
+// K1 replaces dynamicrafter_tpu/ops/flash_attention.py::_fwd_kernel_nlhd (the
+// Pallas kernel behind `_flash_fwd_nlhd`, the inference path). Same function:
+// non-causal, unmasked softmax(Q K^T * scale) V per head, with online softmax
+// (fp32 running max m, sum l and accumulator), KV columns >= Lk masked, and a
 // guard for l == 0. Inputs and output are (N, L, H*D) row-major with heads
 // as D-wide slices of the last axis, so no head transpose touches memory.
 //
-// What bounds it: at 320x512 (N = 32, L = 2560, H = 5, D = 64) one call is
+// K3 replaces the same file's `_fwd_kernel` with save_lse=True (the forward
+// `_nlhd_vjp_fwd` runs under a gradient): K1's math, plus the logsumexp
+// lse = m + log l of every query row, written as (N, H, Lq) fp32 for the
+// backward kernels in flash_attention_bwd.cu (0 where l == 0, as in the
+// Pallas kernel). The Pallas path transposes q, k, v to head-major and
+// stores lse replicated over 128 lanes; both were TPU layout conveniences
+// and are not carried over: K3 reads and writes the same transpose-free
+// layout as K1 and stores one float per row. K1 and K3 are one template;
+// the lse store is compiled in only for K3.
+//
+// What bounds them: at 320x512 (N = 32, L = 2560, H = 5, D = 64) one call is
 // 4*N*H*L^2*D = 268 GFLOP against 4*N*L*H*D*2 = 42 MB of bf16 traffic, i.e.
 // ~6400 FLOP per byte -- far above the H100's ~295 FLOP/byte ridge. It is
-// bound by arithmetic throughput, never by bytes.
+// bound by arithmetic throughput, never by bytes; K3's lse adds 1.6 MB.
 //
 // Design of this first version (right before fast): one 256-thread block per
 // (64-row Q tile, head, n). Q, K, V tiles are converted to fp32 in shared
@@ -30,49 +40,16 @@ constexpr int kD = 64;        // head dim (the wrapper requires 64)
 constexpr int kBQ = 64;       // query rows per block
 constexpr int kBK = 64;       // key/value rows per KV tile
 constexpr int kThreads = 256; // 16 x 16 threads, each a 4 x 4 patch
-constexpr int kTS = kBQ + 4;  // row stride of the transposed tiles (floats)
+constexpr int kTS = dct::kTileStride;  // row stride of the transposed tiles
 constexpr int kSmemFloats = 3 * kD * kTS + kBK * kD;  // Qt, Kt, Pt, V
 constexpr int kSmemBytes = kSmemFloats * 4;
 
-// Load a 64 x 64 tile (rows row0.., row stride `stride` elements) into fp32
-// shared memory; rows >= nvalid read as zero. Transposed tiles are stored
-// [col][row] with stride kTS, plain tiles [row][col] with stride kD.
-template <typename T, bool kTranspose>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, size_t stride,
-                                          int row0, int nvalid, int tid) {
-  using V = dct::Vec16<T>;
-  constexpr int kVec = V::kVec;
-  constexpr int kPerRow = kD / kVec;
-  constexpr int kTotal = 64 * kPerRow;
-#pragma unroll
-  for (int idx = tid; idx < kTotal; idx += kThreads) {
-    // transposed: lanes walk rows (conflict-free column-major stores);
-    // plain: lanes walk along a row (coalesced 16-byte loads and stores)
-    const int row = kTranspose ? idx % 64 : idx / kPerRow;
-    const int vec = kTranspose ? idx / 64 : idx % kPerRow;
-    float f[kVec];
-    if (row0 + row < nvalid) {
-      V::load(src + (size_t)(row0 + row) * stride + vec * kVec, f);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) f[i] = 0.f;
-    }
-    if (kTranspose) {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) dst[(vec * kVec + i) * kTS + row] = f[i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVec; i += 4)
-        dct::store4(dst + row * kD + vec * kVec + i, f[i], f[i + 1], f[i + 2], f[i + 3]);
-    }
-  }
-}
-
-template <typename T>
+template <typename T, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 int lq, int lk, int heads, float scale_log2) {
+                 float* __restrict__ lse, int lq, int lk, int heads,
+                 float scale_log2) {
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;              // [kD][kTS]  Q^T
   float* kt = qt + kD * kTS;     // [kD][kTS]  K^T
@@ -91,7 +68,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + n * lk * hd + h * kD;
   T* ob = o + n * lq * hd + h * kD;
 
-  load_tile<T, true>(qt, qb, hd, q0, lq, tid);
+  dct::load_tile<T, true, kThreads>(qt, qb, hd, q0, lq, tid);
 
   float m[4], l[4], acc[4][4];
 #pragma unroll
@@ -106,8 +83,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kv = 0; kv < num_kv; ++kv) {
     const int k0 = kv * kBK;
     __syncthreads();  // the previous tile's P^T and V reads are done
-    load_tile<T, true>(kt, kb, hd, k0, lk, tid);
-    load_tile<T, false>(vs, vb, hd, k0, lk, tid);
+    dct::load_tile<T, true, kThreads>(kt, kb, hd, k0, lk, tid);
+    dct::load_tile<T, false, kThreads>(vs, vb, hd, k0, lk, tid);
     __syncthreads();
 
     float s[4][4];
@@ -183,21 +160,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float inv = l[i] == 0.f ? 1.f : 1.f / l[i];
       dct::store4(ob + (size_t)row * hd + tx * 4, acc[i][0] * inv, acc[i][1] * inv,
                   acc[i][2] * inv, acc[i][3] * inv);
+      // m is in the log2 domain: lse = ln(2^m * l) = m * ln 2 + ln l
+      if (kLse && tx == 0)
+        lse[((size_t)n * heads + h) * lq + row] =
+            l[i] == 0.f ? 0.f : m[i] * 0.6931471805599453f + logf(l[i]);
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int n,
-                   int lq, int lk, int heads, float scale, cudaStream_t stream) {
+template <typename T, bool kLse>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   int n, int lq, int lk, int heads, float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      flash_fwd_kernel<T, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((lq + kBQ - 1) / kBQ, heads, n);
   const float log2e = 1.4426950408889634f;
-  flash_fwd_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
+  flash_fwd_kernel<T, kLse><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lq, lk, heads, scale * log2e);
+      static_cast<T*>(o), lse, lq, lk, heads, scale * log2e);
   return cudaGetLastError();
 }
 
@@ -208,9 +189,21 @@ extern "C" int dct_flash_fwd(const void* q, const void* k, const void* v, void* 
                              float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dct::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, o, n, lq, lk, heads, scale, s);
+    return launch<__nv_bfloat16, false>(q, k, v, o, nullptr, n, lq, lk, heads, scale, s);
   if (dtype == dct::kFloat32)
-    return launch<float>(q, k, v, o, n, lq, lk, heads, scale, s);
+    return launch<float, false>(q, k, v, o, nullptr, n, lq, lk, heads, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int dct_flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                                 void* lse, int dtype, int n, int lq, int lk, int heads,
+                                 float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (dtype == dct::kBFloat16)
+    return launch<__nv_bfloat16, true>(q, k, v, o, l, n, lq, lk, heads, scale, s);
+  if (dtype == dct::kFloat32)
+    return launch<float, true>(q, k, v, o, l, n, lq, lk, heads, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -9,14 +9,31 @@ shared by the frames of a clip.
 
 Block indices follow the reference construction loops, so the state_dict
 keys are the released checkpoint's `model.diffusion_model.*` keys.
+
+`use_checkpoint` (set by every shipped config) turns on per-layer gradient
+checkpointing while gradients are being recorded: each ResBlock,
+SpatialTransformer, TemporalTransformer and `init_attn` is its own
+`torch.utils.checkpoint` segment, as the JAX package's
+`remat_layers=True` ("blocks", the policy its training CLI picks above
+32x32 latents). The segments keep the flash-attention op's outputs (o and
+lse) across the boundary (`flash_residual_policy`, the JAX package's
+`_flash_residual_policy`), so the backward pass feeds K4a/K4b from them and
+K3 runs once per spatial self-attention per step. Without gradients (the
+sampler) nothing is checkpointed.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from dynamicrafter_tpu_torch import schedule as sched
 from dynamicrafter_tpu_torch.models.blocks import (
@@ -27,6 +44,22 @@ from dynamicrafter_tpu_torch.models.blocks import (
     Upsample,
 )
 from dynamicrafter_tpu_torch.ops.norms import GroupNorm
+
+
+def flash_residual_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Selective-checkpoint policy: save the flash op's (o, lse), recompute
+    everything else (projections, norms, convs, K2)."""
+    if op is torch.ops.dct.flash_attn.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpointed(layer: nn.Module, *args):
+    """Run `layer(*args)` as one checkpoint segment under
+    `flash_residual_policy`."""
+    return checkpoint(layer, *args, use_reentrant=False,
+                      context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                   flash_residual_policy))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,15 +216,19 @@ class UNetModel(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.out[2].weight.dtype
 
-    @staticmethod
-    def _run_layers(layers, h, emb, context, t):
+    def _call(self, layer: nn.Module, *args):
+        if self.config.use_checkpoint and torch.is_grad_enabled():
+            return checkpointed(layer, *args)
+        return layer(*args)
+
+    def _run_layers(self, layers, h, emb, context, t):
         for layer in layers:
             if isinstance(layer, ResBlock):
-                h = layer(h, emb, t)
+                h = self._call(layer, h, emb, t)
             elif isinstance(layer, SpatialTransformer):
-                h = layer(h, context, t)
+                h = self._call(layer, h, context, t)
             elif isinstance(layer, TemporalTransformer):
-                h = layer(h, t)
+                h = self._call(layer, h, t)
             else:  # first conv, down, up
                 h = layer(h)
         return h
@@ -223,7 +260,7 @@ class UNetModel(nn.Module):
         for i, layers in enumerate(self.input_blocks):
             h = self._run_layers(layers, h, emb, context, t)
             if i == 0 and cfg.addition_attention:
-                h = self.init_attn[0](h, t)
+                h = self._call(self.init_attn[0], h, t)
             hs.append(h)
         h = self._run_layers(self.middle_block, h, emb, context, t)
         for layers in self.output_blocks:

@@ -7,22 +7,26 @@ package (`dynamicrafter_tpu/ops/attention.py`):
     fp32 softmax, K/V with fewer leading batch dims broadcast over q's
     (text context shared by all frames).
   * `dot_product_attention` — routes unmasked self-attention with
-    Lq >= 2048, Lk >= 512 and head dim 64 to K1 (`ops/flash_attention.py`),
-    everything else to `plain_attention`.
+    Lq >= 2048, Lk >= 512 and head dim 64 to `flash_attention`
+    (`ops/flash_attention.py`: K1, or under a gradient K3 forward and
+    K4a/K4b backward), everything else to `plain_attention`.
   * `attention_axis1` — self-attention over axis 1 of (B, T, G, H, D);
-    unmasked with T <= 32 goes to K2 (`ops/small_attention.py`).
+    unmasked with T <= 32 goes to `small_t_attention_tmajor`
+    (`ops/small_attention.py`: K2, differentiable).
 
 The thresholds are the JAX package's, measured on a TPU; they are kept
 until they are measured again on the card. The kernel wrappers pick their
 plain version for CPU tensors and launch the kernel (or raise) for CUDA
 tensors. `use_backend("plain")` makes every call inside the `with` take the
 plain path instead; only tests and `chip_smoke.py` use it, to hold the
-kernels against their plain versions.
+kernels against their plain versions. The setting is process-wide, not
+per-thread: a checkpointed layer is recomputed during the backward pass on
+autograd's device thread, and must take the same path there as in its
+forward.
 """
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import math
 from typing import Optional
 
@@ -31,19 +35,20 @@ import torch
 from dynamicrafter_tpu_torch.ops.flash_attention import HEAD_DIM, flash_attention
 from dynamicrafter_tpu_torch.ops.small_attention import MAX_T, small_t_attention_tmajor
 
-_BACKEND = contextvars.ContextVar("dct_attention_backend", default="auto")
+_backend = "auto"
 
 
 @contextlib.contextmanager
 def use_backend(name: str):
     """"auto" (kernels where the routing rule says so) or "plain"."""
+    global _backend
     if name not in ("auto", "plain"):
         raise ValueError(f"unknown attention backend {name!r}")
-    token = _BACKEND.set(name)
+    saved, _backend = _backend, name
     try:
         yield
     finally:
-        _BACKEND.reset(token)
+        _backend = saved
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,7 +79,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
                           scale: Optional[float] = None,
                           backend: Optional[str] = None) -> torch.Tensor:
-    backend = backend or _BACKEND.get()
+    backend = backend or _backend
     if _use_flash(q, k, mask, backend):
         while k.dim() < q.dim():
             k, v = k.unsqueeze(-4), v.unsqueeze(-4)
@@ -90,7 +95,7 @@ def attention_axis1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     backend: Optional[str] = None) -> torch.Tensor:
     """Self-attention over the axis-1 tokens of (B, T, G, H, D), the UNet's
     time-major temporal layout, with no transpose on the kernel path."""
-    backend = backend or _BACKEND.get()
+    backend = backend or _backend
     if (backend == "auto" and mask is None and q.dim() == 5
             and q.shape == k.shape == v.shape and q.shape[1] <= MAX_T):
         return small_t_attention_tmajor(q, k, v, scale=scale)

@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels in `csrc/`.
 
-The sources are compiled at first use with nvcc into one shared library
-with a plain C interface, loaded with ctypes. The library lands in
+The sources are compiled at first use with nvcc, one nvcc process per
+source, all started together, and linked into one shared library with a
+plain C interface, loaded with ctypes. The library lands in
 `build/kernels/` at the repository root, named by a hash of the sources
 and flags, so an edited source is rebuilt and an unchanged one reused.
 Nothing here runs at import time: the CPU tests import every module on a
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -25,8 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -58,19 +61,35 @@ def build() -> Path:
     for p in sorted(CSRC.glob("*.cu*")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
-    out = BUILD_DIR / f"libdct_kernels_{digest.hexdigest()[:16]}.so"
+    tag = digest.hexdigest()[:16]
+    out = BUILD_DIR / f"libdct_kernels_{tag}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.{os.getpid()}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    run = lambda cmd: subprocess.run(cmd, capture_output=True, text=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            procs = list(pool.map(run, cmds))
+        build_log = "".join(p.stdout + p.stderr for p in procs)
+        for cmd, proc in zip(cmds, procs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        proc = run(link)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{build_log}")
     os.replace(tmp, out)
     return out
 
@@ -84,6 +103,15 @@ def library() -> ctypes.CDLL:
         lib.dct_flash_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                       i32, f32, ptr]
         lib.dct_flash_fwd.restype = i32
+        lib.dct_flash_fwd_lse.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                          i32, i32, f32, ptr]
+        lib.dct_flash_fwd_lse.restype = i32
+        lib.dct_flash_bwd_dq.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                                         i32, i32, i32, i32, f32, ptr]
+        lib.dct_flash_bwd_dq.restype = i32
+        lib.dct_flash_bwd_dkv.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                          i32, i32, i32, i32, i32, f32, ptr]
+        lib.dct_flash_bwd_dkv.restype = i32
         lib.dct_small_t_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                         i32, i32, f32, ptr]
         lib.dct_small_t_fwd.restype = i32

@@ -9,7 +9,11 @@ CPU tensor it runs `small_t_fwd_tmajor_plain`. `small_t_fwd_tmajor.launches`
 counts kernel launches.
 
 `small_t_attention_tmajor` is the entry point on (B, T, G, H, D), as in the
-JAX package.
+JAX package. When no input needs a gradient it calls the kernel wrapper
+directly. Under a gradient it goes through `SmallTAttention`, whose forward
+is the same kernel and whose backward is autograd of
+`small_t_fwd_tmajor_plain` on the saved q, k and v: the JAX package's
+`_vjp_bwd_tmajor`, which has no Pallas backward either.
 """
 from __future__ import annotations
 
@@ -71,6 +75,24 @@ def small_t_fwd_tmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 small_t_fwd_tmajor.launches = 0
 
 
+class SmallTAttention(torch.autograd.Function):
+    """K2 forward; backward through the plain version's autograd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads: int, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.heads, ctx.scale = heads, scale
+        return small_t_fwd_tmajor(q, k, v, heads, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = small_t_fwd_tmajor_plain(q, k, v, ctx.heads, ctx.scale)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad)
+        return dq, dk, dv, None, None
+
+
 def small_t_attention_tmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              scale: Optional[float] = None) -> torch.Tensor:
     """Self-attention over axis 1 of (B, T, G, H, D); returns the same shape."""
@@ -81,5 +103,8 @@ def small_t_attention_tmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = 1.0 / math.sqrt(q.shape[-1])
     b, t, g, heads, d = q.shape
     flat = lambda x: x.reshape(b, t, g, heads * d).contiguous()
-    out = small_t_fwd_tmajor(flat(q), flat(k), flat(v), heads, scale)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        out = SmallTAttention.apply(flat(q), flat(k), flat(v), heads, scale)
+    else:
+        out = small_t_fwd_tmajor(flat(q), flat(k), flat(v), heads, scale)
     return out.view(b, t, g, heads, d)

@@ -112,6 +112,28 @@ class DynamiCrafterPipeline:
             use_dynamic_rescale=config.use_dynamic_rescale,
             base_scale=config.base_scale, turning_step=config.turning_step)
 
+    @classmethod
+    def for_training(cls, config: ModelConfig, device,
+                     frozen_dtype: torch.dtype = torch.bfloat16, tokenizer=None,
+                     train_resampler: bool = True) -> "DynamiCrafterPipeline":
+        """The training construction (JAX `scripts/train.py` with
+        `cast_storage=False`): the UNet, and the Resampler when
+        `train_resampler`, stay fp32 and require gradients (they are the
+        optimizer's master weights; compute dtype comes from autocast);
+        the frozen VAE and CLIP towers are stored in `frozen_dtype` with fp32
+        norms and require none. Weights are uninitialised, as in __init__."""
+        pipe = cls(config, device, torch.float32, tokenizer)
+        frozen = [pipe.vae, pipe.text_encoder, pipe.vision_encoder]
+        if not train_resampler:
+            frozen.append(pipe.resampler)
+        if frozen_dtype != torch.float32:
+            for m in frozen:
+                keep_norms_fp32(m.to(frozen_dtype))
+        pipe.unet.requires_grad_(True)
+        if train_resampler:
+            pipe.resampler.requires_grad_(True)
+        return pipe
+
     # ------------------------------------------------------------------
     # weights
     # ------------------------------------------------------------------
@@ -124,21 +146,24 @@ class DynamiCrafterPipeline:
     def load_state_dict(self, sd) -> None:
         load_reference_state_dict(self, sd)
 
+    def load_checkpoint(self, ckpt_path: str) -> None:
+        """Load a released checkpoint (plain, 256-model or deepspeed format)."""
+        from dynamicrafter_tpu.utils.weights import normalize_state_dict
+
+        self.load_state_dict(normalize_state_dict(
+            torch.load(ckpt_path, map_location="cpu", weights_only=True)))
+
     @classmethod
     def from_checkpoint(cls, config_path: str, ckpt_path: str, device,
                         dtype: torch.dtype = torch.float32, tokenizer=None,
                         allow_hash_tokenizer: bool = False) -> "DynamiCrafterPipeline":
-        """Load a released checkpoint (plain, 256-model or deepspeed format)."""
-        from dynamicrafter_tpu.utils.weights import normalize_state_dict
-
+        """A pipeline with the weights of a released checkpoint."""
         pipe = cls(ModelConfig.from_yaml(config_path), device, dtype, tokenizer)
         if isinstance(pipe.tokenizer, HashTokenizer) and not allow_hash_tokenizer:
             raise FileNotFoundError(
                 "a real checkpoint needs the CLIP BPE vocab (the tokenizer fell "
                 "back to HashTokenizer): pass tokenizer= or --vocab_path")
-        sd = normalize_state_dict(torch.load(ckpt_path, map_location="cpu",
-                                             weights_only=True))
-        pipe.load_state_dict(sd)
+        pipe.load_checkpoint(ckpt_path)
         return pipe
 
     # ------------------------------------------------------------------

@@ -131,6 +131,13 @@ def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor,
     return guidance_rescale * rescaled + (1 - guidance_rescale) * noise_cfg
 
 
+def extract_into_tensor(a: np.ndarray, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Gather the fp32 table `a` at the per-sample timesteps t (B,), shaped
+    (B, 1, ..., 1) to broadcast against an ndim-dimensional batch."""
+    out = torch.as_tensor(a, device=t.device)[t]
+    return out.reshape(out.shape[0], *((1,) * (ndim - 1)))
+
+
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
     """DDPM schedule tables, float32 numpy, length num_timesteps."""
@@ -153,6 +160,18 @@ class DiffusionSchedule:
     @property
     def num_timesteps(self) -> int:
         return int(self.betas.shape[0])
+
+    # forward process at per-sample timesteps t (B,), as in training
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        nd = x_start.dim()
+        return (extract_into_tensor(self.sqrt_alphas_cumprod, t, nd) * x_start
+                + extract_into_tensor(self.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
+
+    def get_v(self, x: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        nd = x.dim()
+        return (extract_into_tensor(self.sqrt_alphas_cumprod, t, nd) * noise
+                - extract_into_tensor(self.sqrt_one_minus_alphas_cumprod, t, nd) * x)
 
     # v-parameterization at one DDPM timestep t shared by the whole batch
     def predict_start_from_z_and_v(self, x_t: torch.Tensor, t: int,

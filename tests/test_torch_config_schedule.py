@@ -1,6 +1,7 @@
 """Config loading and schedule math of the PyTorch package against the JAX
-package: the PyYAML-free loader against yaml.safe_load, schedule and DDIM
-tables bit for bit, and the timestep embedding to 1e-6."""
+package: the PyYAML-free loader against yaml.safe_load, the training roots
+as the JAX training CLI reads them, schedule and DDIM tables bit for bit,
+the batched-t forward process, and the timestep embedding to 1e-6."""
 import glob
 import os
 
@@ -53,6 +54,57 @@ def test_yaml_scalar_resolution(text, expected):
 def test_yaml_outside_subset_raises():
     with pytest.raises(ValueError):
         tconfig.parse_yaml("a:\n- b: 1\n")
+
+
+@pytest.mark.parametrize("name", ["training_512_v1.0.yaml", "training_512_interp.yaml"])
+def test_training_config_reads_data_and_lightning(name):
+    """The `data:` and `lightning:` roots, with the defaults
+    scripts/train.py of the JAX package applies."""
+    path = os.path.join(REPO, "configs", name)
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    tc = tconfig.TrainingConfig.from_yaml([path])
+    assert tc.raw == raw
+    assert vars(tc.model) == vars(jconfig.ModelConfig(raw))
+    trainer = raw["lightning"]["trainer"]
+    data = raw["data"]["params"]
+    assert (tc.accumulate_grad_batches, tc.max_steps, tc.gradient_clip_val) == (
+        trainer["accumulate_grad_batches"], trainer["max_steps"], trainer["gradient_clip_val"])
+    assert (tc.batch_size, tc.num_workers) == (data["batch_size"], data["num_workers"])
+    assert tc.train_data == data["train"]["params"] and tc.validation_data == {}
+    assert tc.checkpoint == raw["lightning"]["callbacks"]["model_checkpoint"]["params"]
+    assert (tc.base_learning_rate, tc.scale_lr) == (raw["model"]["base_learning_rate"],
+                                                    raw["model"]["scale_lr"])
+
+
+def test_training_configs_merge_left_to_right(tmp_path):
+    extra = tmp_path / "extra.yaml"
+    extra.write_text("lightning:\n  trainer:\n    max_steps: 7\n")
+    tc = tconfig.TrainingConfig.from_yaml(
+        [os.path.join(REPO, "configs", "training_512_v1.0.yaml"), str(extra)])
+    assert tc.max_steps == 7 and tc.accumulate_grad_batches == 2
+
+
+def test_q_sample_and_get_v_match_jax():
+    """Per-sample timesteps, as the train step uses them."""
+    kw = SCHEDULES[0]
+    ours, ref = tsched.build_schedule(**kw), jsched.build_schedule(**kw)
+    rng = np.random.default_rng(1)
+    x, noise = (rng.standard_normal((3, 4, 5, 6, 4)).astype(np.float32) for _ in range(2))
+    t = np.array([0, 417, 999])
+    tt = torch.from_numpy(t)
+    np.testing.assert_allclose(
+        ours.q_sample(torch.from_numpy(x), tt, torch.from_numpy(noise)).numpy(),
+        np.asarray(ref.q_sample(jnp.asarray(x), jnp.asarray(t), jnp.asarray(noise))),
+        rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        ours.get_v(torch.from_numpy(x), torch.from_numpy(noise), tt).numpy(),
+        np.asarray(ref.get_v(jnp.asarray(x), jnp.asarray(noise), jnp.asarray(t))),
+        rtol=1e-6, atol=1e-6)
+    scale = tsched.extract_into_tensor(ours.scale_arr, tt, 5)
+    assert scale.shape == (3, 1, 1, 1, 1)
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(
+        jsched.extract_into_tensor(ref.scale_arr, jnp.asarray(t), 5)))
 
 
 def _tables(obj):

@@ -5,16 +5,25 @@ The file imports no JAX, so it runs on the GPU machine as it is:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances: relative L2 <= 1e-5 in fp32 (the kernels accumulate in fp32,
-in another order than cuBLAS) and <= 1e-2 in bf16 (the inputs' own
-rounding). TF32 is off for the plain versions' fp32 matmuls.
+Tolerances: forward outputs relative L2 <= 1e-5 in fp32 (the kernels
+accumulate in fp32, in another order than cuBLAS) and <= 1e-2 in bf16 (the
+inputs' own rounding); lse max abs <= 1e-3; the backward's dq, dk, dv
+<= 1e-4 in fp32 and <= 2e-2 in bf16 (ds is rounded to bf16 before its
+products, as in the Pallas kernels); weight gradients through a whole
+transformer in bf16 <= 2e-2. TF32 is off for the plain versions' fp32
+matmuls.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from dynamicrafter_tpu_torch.models.blocks import (  # noqa: E402
+    SpatialTransformer, TemporalTransformer,
+)
+from dynamicrafter_tpu_torch.ops import attention as tattn  # noqa: E402
 from dynamicrafter_tpu_torch.ops import flash_attention as tflash  # noqa: E402
 from dynamicrafter_tpu_torch.ops import small_attention as tsmall  # noqa: E402
+from dynamicrafter_tpu_torch.ops.norms import keep_norms_fp32  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -73,3 +82,94 @@ def test_k2_refuses_long_t(cuda):
     q = torch.zeros(1, 33, 4, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="T=33"):
         tsmall.small_t_fwd_tmajor(q, q, q, 1, 0.125)
+
+
+SHAPES = [(2, 300, 300, 2), (4, 2560, 2560, 5), (2, 130, 77, 1)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("n,lq,lk,h", SHAPES)
+def test_k3_kernel_matches_plain(cuda, dtype, tol, n, lq, lk, h):
+    q = _qkv((n, lq, h * 64), dtype, cuda)[0]
+    _, k, v = _qkv((n, lk, h * 64), dtype, cuda, seed=1)
+    before = tflash.flash_fwd_lse.launches
+    out, lse = tflash.flash_fwd_lse(q, k, v, h, 0.125)
+    ref, ref_lse = tflash.flash_fwd_lse_plain(q.float(), k.float(), v.float(), h, 0.125)
+    torch.cuda.synchronize()
+    assert tflash.flash_fwd_lse.launches == before + 1
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert lse.shape == (n, h, lq)
+    assert _rel(out, ref) <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n,lq,lk,h", SHAPES)
+def test_k4_kernels_match_plain(cuda, dtype, tol, n, lq, lk, h):
+    """K4a and K4b from the plain forward's o and lse, against
+    `flash_bwd_plain` on the same (fp32) inputs."""
+    q, do = _qkv((n, lq, h * 64), dtype, cuda)[:2]
+    _, k, v = _qkv((n, lk, h * 64), dtype, cuda, seed=1)
+    o, lse = tflash.flash_fwd_lse_plain(q.float(), k.float(), v.float(), h, 0.125)
+    refs = tflash.flash_bwd_plain(q.float(), k.float(), v.float(), o, lse, do.float(),
+                                  h, 0.125)
+    before = (tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches)
+    grads = tflash.flash_bwd(q, k, v, o.to(dtype), lse, do, h, 0.125)
+    torch.cuda.synchronize()
+    assert (tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    for name, g, ref, x in zip(("dq", "dk", "dv"), grads, refs, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape, name
+        assert _rel(g, ref) <= tol, (name, _rel(g, ref))
+
+
+def _weight_grads(module, run, backend):
+    module.zero_grad(set_to_none=True)
+    with tattn.use_backend(backend):
+        run().float().square().mean().backward()
+    return {name: p.grad.clone() if p.grad is not None else None
+            for name, p in module.named_parameters()}
+
+
+@pytest.mark.parametrize("kind", ["spatial", "temporal"])
+def test_attention_weights_receive_kernel_gradients(cuda, kind):
+    """A backward pass through K3/K4 (spatial, L = 2560) and K2 (temporal,
+    T = 16) reaches to_q, to_k and to_v of every self-attention, with the
+    plain backend's gradients. Before K1 and K2 were differentiable, the
+    kernel outputs had no grad_fn and these gradients were None."""
+    torch.manual_seed(0)
+    if kind == "spatial":
+        mod = SpatialTransformer(320, 5, 64, context_dim=1024, image_cross_attention=True)
+        x = torch.randn(2, 320, 40, 64, device=cuda)
+        ctx = (torch.randn(1, 77, 1024, device=cuda), torch.randn(1, 2, 16, 1024, device=cuda))
+        attns = ["transformer_blocks.0.attn1"]
+        counter = tflash.flash_fwd_lse
+    else:
+        mod = TemporalTransformer(320, 5, 64)
+        x = torch.randn(16, 320, 8, 8, device=cuda)
+        attns = ["transformer_blocks.0.attn1", "transformer_blocks.0.attn2"]
+        counter = tsmall.small_t_fwd_tmajor
+    mod = keep_norms_fp32(mod.to(cuda, torch.bfloat16))
+    xb = x.to(torch.bfloat16)
+    run = (lambda: mod(xb, (ctx[0].bfloat16(), ctx[1].bfloat16()), 2)) if kind == "spatial" \
+        else (lambda: mod(xb, 16))
+    before = counter.launches
+    got = _weight_grads(mod, run, "auto")
+    assert counter.launches > before
+    ref = _weight_grads(mod, run, "plain")
+    for a in attns:
+        for proj in ("to_q", "to_k", "to_v"):
+            name = f"{a}.{proj}.weight"
+            assert got[name] is not None, name
+            assert _rel(got[name], ref[name]) <= 2e-2, (name, _rel(got[name], ref[name]))
+
+
+def test_k3_k4_refuse_other_head_dims(cuda):
+    q = torch.zeros(1, 64, 2 * 32, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_fwd_lse(q, q, q, 2, 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_bwd_dq(q, q, q, q, lse, q, 2, 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_bwd_dkv(q, q, q, q, lse, q, 2, 0.125)

@@ -30,6 +30,11 @@ MODULES = [
     "dynamicrafter_tpu_torch.utils.weights",
     "dynamicrafter_tpu_torch.utils.video",
     "dynamicrafter_tpu_torch.inference",
+    "dynamicrafter_tpu_torch.training.ema",
+    "dynamicrafter_tpu_torch.training.trainer",
+    "dynamicrafter_tpu_torch.training.checkpoints",
+    "dynamicrafter_tpu_torch.training.logging",
+    "dynamicrafter_tpu_torch.train",
 ]
 
 _PROBE = """
@@ -39,7 +44,7 @@ for name in sys.argv[1:]:
     importlib.import_module(name)
 added = sorted(set(sys.modules) - before)
 print(json.dumps({
-    "jax": [m for m in added if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")],
+    "jax": [m for m in added if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")],
     "yaml": [m for m in added if m.split(".")[0] == "yaml"],
     "jax_package": [m for m in added if m.split(".")[0] == "dynamicrafter_tpu"],
 }))

@@ -1,9 +1,11 @@
-"""The two attention kernels of the PyTorch package.
+"""The attention kernels of the PyTorch package.
 
 On the CPU: each kernel's plain PyTorch version against the JAX package's
 Pallas kernel in interpret mode (and its XLA reference), fp32, at the
-tolerance of the JAX package's own kernel tests (atol 2e-5, rtol 1e-4);
-the wrappers take the plain path for CPU tensors without building or
+tolerance of the JAX package's own kernel tests (atol 2e-5, rtol 1e-4):
+K1 and K2, K3 (`_flash_fwd(save_lse=True)`), K4a/K4b (`_flash_bwd`), and
+the gradients of the differentiable entries against `jax.grad`; the
+wrappers take the plain path for CPU tensors without building or
 launching anything; the routing rule; a missing nvcc is a clear error.
 
 The CUDA kernels themselves are tested on the card in test_torch_cuda.py.
@@ -13,9 +15,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from dynamicrafter_tpu.ops.attention import dot_product_attention, xla_attention  # noqa: E402
+from dynamicrafter_tpu.ops.flash_attention import _flash_bwd, _flash_fwd  # noqa: E402
 from dynamicrafter_tpu.ops.flash_attention import flash_attention as j_flash  # noqa: E402
 from dynamicrafter_tpu.ops.small_attention import (  # noqa: E402
     small_t_attention_tmajor as j_small_t,
@@ -112,6 +116,107 @@ def test_wrappers_refuse_other_devices():
     m = torch.empty(1, 64, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tflash.flash_fwd(m, m, m, 1, 0.125)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tflash.flash_fwd_lse(m, m, m, 1, 0.125)
+    lse = torch.empty(1, 1, 64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tflash.flash_bwd_dq(m, m, m, m, lse, m, 1, 0.125)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tflash.flash_bwd_dkv(m, m, m, m, lse, m, 1, 0.125)
     m5 = torch.empty(1, 16, 4, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tsmall.small_t_fwd_tmajor(m5, m5, m5, 1, 0.125)
+
+
+def _head_major(x, heads):
+    """(N, L, H*D) numpy -> (N, H, L, D) jnp."""
+    n, l, hd = x.shape
+    return jnp.asarray(x.reshape(n, l, heads, hd // heads).transpose(0, 2, 1, 3))
+
+
+def _nlhd(x):
+    """(N, H, L, D) -> (N, L, H*D) numpy."""
+    n, h, l, d = x.shape
+    return np.asarray(x).transpose(0, 2, 1, 3).reshape(n, l, h * d)
+
+
+LENGTHS = [(200, 200), (300, 300), (130, 77)]
+
+
+def _k34_inputs(lq, lk, heads=2, n=2, seed=4):
+    rng = np.random.default_rng(seed + lq + lk)
+    q, do = (rng.standard_normal((n, lq, heads * 64)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((n, lk, heads * 64)).astype(np.float32) for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("lq,lk", LENGTHS)
+def test_k3_plain_matches_jax_fwd_with_lse(lq, lk):
+    """Ragged L = 200 and 300 (not a multiple of the 128 blocks) and Lq != Lk."""
+    q, k, v, _ = _k34_inputs(lq, lk)
+    o_ref, lse_ref = _flash_fwd(*(_head_major(x, 2) for x in (q, k, v)), 0.125, 128, 128,
+                                True, save_lse=True)
+    before = tflash.flash_fwd_lse.launches
+    o, lse = tflash.flash_fwd_lse(*(torch.from_numpy(x) for x in (q, k, v)), 2, 0.125)
+    assert tflash.flash_fwd_lse.launches == before
+    np.testing.assert_allclose(o.numpy(), _nlhd(o_ref), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref)[:, :, :lq, 0],
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("lq,lk", LENGTHS)
+def test_k4_plain_matches_jax_bwd(lq, lk):
+    """dq, dk, dv from the same o and lse (JAX's), ragged and Lq != Lk."""
+    q, k, v, do = _k34_inputs(lq, lk)
+    jq, jk, jv, jdo = (_head_major(x, 2) for x in (q, k, v, do))
+    o, lse = _flash_fwd(jq, jk, jv, 0.125, 128, 128, True, save_lse=True)
+    refs = _flash_bwd(jq, jk, jv, o, lse, jdo, 0.125, 128, 128, True)
+    before = (tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches)
+    got = tflash.flash_bwd(*(torch.from_numpy(x) for x in (q, k, v)),
+                           torch.from_numpy(_nlhd(o)),
+                           torch.from_numpy(np.ascontiguousarray(np.asarray(lse)[:, :, :lq, 0])),
+                           torch.from_numpy(do), 2, 0.125)
+    assert (tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches) == before
+    for g, ref in zip(got, refs):
+        np.testing.assert_allclose(g.numpy(), _nlhd(ref), atol=ATOL, rtol=RTOL)
+
+
+def _grads_match(t_fn, j_fn, shape, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.standard_normal(shape).astype(np.float32) for _ in range(4))
+    _, vjp = jax.vjp(j_fn, *(jnp.asarray(x) for x in (q, k, v)))
+    refs = vjp(jnp.asarray(g))
+    xs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(t_fn(*xs), xs, torch.from_numpy(g))
+    for a, ref in zip(got, refs):
+        np.testing.assert_allclose(a.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
+
+
+def test_flash_attention_grads_match_jax():
+    """The differentiable entry (K3 forward, K4a/K4b backward; their plain
+    versions on the CPU) against jax.vjp of the JAX entry, ragged L = 200."""
+    _grads_match(tflash.flash_attention, lambda q, k, v: j_flash(q, k, v, interpret=True),
+                 (2, 200, 2, 64), 5)
+
+
+def test_small_t_attention_grads_match_jax():
+    """K2's autograd Function: backward through the plain version, as the
+    JAX package's `_vjp_bwd_tmajor`."""
+    _grads_match(tsmall.small_t_attention_tmajor,
+                 lambda q, k, v: j_small_t(q, k, v, interpret=True), (2, 16, 12, 2, 32), 6)
+
+
+def test_wrappers_without_grad_take_the_inference_path(monkeypatch):
+    """No input needs a gradient: K1 and K2 as before, not the autograd
+    entries (so the sampler's launch counts stay 5 and 34 per UNet call)."""
+    calls = []
+    monkeypatch.setattr(tflash, "flash_fwd", lambda *a: calls.append("k1") or a[0])
+    monkeypatch.setattr(tflash, "flash_fwd_lse", lambda *a: calls.append("k3"))
+    monkeypatch.setattr(tsmall, "small_t_fwd_tmajor", lambda *a: calls.append("k2") or a[0])
+    x = torch.zeros(1, 64, 1, 64)
+    tflash.flash_attention(x, x, x)
+    x5 = torch.zeros(1, 4, 3, 1, 64)
+    tsmall.small_t_attention_tmajor(x5, x5, x5)
+    with torch.no_grad():
+        tflash.flash_attention(x.requires_grad_(), x, x)
+    assert calls == ["k1", "k2", "k1"]
