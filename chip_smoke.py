@@ -9,8 +9,9 @@ Run from the repository root. Phases, each printing one line:
      kernels from `dynamicrafter_tpu_torch/csrc/` with nvcc;
   2. K1 (spatial flash attention) against its plain version at the 320x512
      shape (32, 2560, 5*64) bf16, a ragged L = 300 case, and fp32 checks;
-  3. K2 (temporal attention) against its plain version at the five 320x512
-     shapes (bf16) and one fp32 shape;
+  3. K2 (temporal attention) against its plain version at the shapes the
+     320x512 (B = 2), 256x256 --bs 8 (B = 16) and 576x1024 (B = 1, G up to
+     9216) paths give it (bf16) and one fp32 shape;
   4. one full-width UNet forward of configs/inference_512_v1.0.yaml on a
      batched-CFG input (2, 16, 40, 64, 8), bf16, N(0, 0.02) weights,
      through the kernels and through the plain versions, compared; counts
@@ -34,11 +35,33 @@ Run from the repository root. Phases, each printing one line:
      (the `python -m dynamicrafter_tpu_torch.train` entry point): 4
      micro-steps at accumulation 2 from N(0, 0.02) weights on synthetic
      clips; checks finite losses, moved trainable and unmoved frozen
-     weights, the checkpoint, and the kernel launches.
+     weights, the checkpoint, and the kernel launches;
+ 10. K5 (position-major small-sequence attention) against its plain version
+     at the 256x256 middle-block shape (256, 16, 20*64) bf16 and fp32 and
+     at ragged shapes (G not a multiple of the row tile, T = 8 and 32, other
+     head counts); K5 against plain attention at several G;
+ 11. K1 at the 576x1024 shapes (L = 9216 x 5 heads, L = 2304 x 10 heads)
+     at N = 16, every row against its plain version (taken two rows of N at
+     a time: the plain logits are N*H*L^2);
+ 12. one full-width UNet forward of configs/inference_256_v1.0.yaml on the
+     batched-CFG input of 8 clips (16, 16, 32, 32, 8), bf16, kernels against
+     plain, with the launches of one UNet call;
+ 13. the 256x256 slice end to end through `inference.main`: 8 prompts in one
+     batch (--bs 8), DDIM-50, eta 1, CFG 7.5 batched, fs 3;
+ 14. the 576x1024 slice end to end through `inference.main`: one prompt,
+     sequential CFG (the CLI's default at this width), per-frame encode,
+     tiled decode, at a reduced DDIM step count; before it, the full-width
+     UNet of that config cut to 2 frames, kernels against plain;
+ 15. interpolation and looping through `inference.main --interp` / `--loop`
+     on the 320x512 model at a reduced step count.
 
-Then a JSON line with each kernel's launches (K1 and K2 on the phase-5 path,
-K3, K4a and K4b on the phase-9 path), error and times, the nvidia-smi line,
-and last `{"ok": true, "device": {...}}`.
+Then a JSON line with, for each kernel, its launches on its main path (K1 and
+K2 phase 5, K3, K4a and K4b phase 9, K5 phase 13; `launches_by_path` has every
+path), error against the plain version, and times: the kernel, the plain
+version, the bound (the larger of bytes over 3.35 TB/s and operations over
+the peak rate of the input type, from the shapes) and one library call
+(`F.scaled_dot_product_attention`, timed here and used nowhere in the
+package); the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 Any failure raises, so the script exits nonzero; without a CUDA device it
 exits 1 before printing any result. Float32 matmuls and convolutions run
 without TF32 (both flags set False) in every comparison.
@@ -47,6 +70,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -54,9 +78,16 @@ import time
 
 CONFIG = "configs/inference_512_v1.0.yaml"
 TRAIN_CONFIG = "configs/training_512_v1.0.yaml"
+CONFIG_256 = "configs/inference_256_v1.0.yaml"
+CONFIG_1024 = "configs/inference_1024_v1.0.yaml"
 PROMPTS = "prompts/512"
 STEPS = 50
+STEPS_1024 = 8
+STEPS_INTERP = 4
 TRAIN_STEPS = 4
+# published peaks of one H100 SXM at 700 W: HBM bytes/s, FLOP/s by input type
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SEED = 123
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -86,6 +117,26 @@ def errors(out, ref):
     return d.abs().max().item(), (d.norm() / ref.float().norm()).item()
 
 
+def bound(n_bytes: float, flops: float, dtype) -> dict:
+    """The least milliseconds the card could take: every input read and every
+    output written once at the memory rate, or the operations at the peak
+    rate of the input type, whichever is larger."""
+    by_bytes = 1e3 * n_bytes / PEAK_BYTES
+    by_ops = 1e3 * flops / PEAK_FLOPS[str(dtype)[6:]]
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def attention_bound(n, lq, lk, h, d, dtype, products: int = 2, extra_tensors: int = 0,
+                    lse: bool = False) -> dict:
+    """Attention over (n, l, h*d) operands: q and o-sized tensors of lq rows,
+    k and v of lk rows, `extra_tensors` more of lq rows (do, dq, ...), an
+    fp32 lse, and `products` matrix products of 2*n*h*lq*lk*d operations."""
+    size = 4 if str(dtype).endswith("float32") else 2
+    n_bytes = size * n * h * d * ((2 + extra_tensors) * lq + 2 * lk) + (4 * n * h * lq if lse else 0)
+    return bound(n_bytes, products * 2.0 * n * h * lq * lk * d, dtype)
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -103,6 +154,7 @@ def reset(*wrappers) -> None:
 def main() -> int:
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke test "
@@ -120,7 +172,8 @@ def main() -> int:
         flash_fwd_lse, flash_fwd_lse_plain, flash_fwd_plain)
     from dynamicrafter_tpu_torch.ops.norms import keep_norms_fp32
     from dynamicrafter_tpu_torch.ops.small_attention import (
-        small_t_attention_tmajor, small_t_fwd_tmajor, small_t_fwd_tmajor_plain)
+        small_t_attention, small_t_attention_tmajor, small_t_fwd, small_t_fwd_plain,
+        small_t_fwd_tmajor, small_t_fwd_tmajor_plain)
     from dynamicrafter_tpu_torch.pipeline import DynamiCrafterPipeline
     from dynamicrafter_tpu_torch.training.trainer import TrainConfig, Trainer
     from dynamicrafter_tpu_torch.utils.weights import init_normal_
@@ -149,6 +202,15 @@ def main() -> int:
 
     report = {}
 
+    def heads_first(x, h):
+        """(..., L, h*64) -> the (..., h, L, 64) view the library call takes."""
+        return x.unflatten(-1, (h, 64)).transpose(-3, -2)
+
+    def sdpa_ms(q, k, v, h, iters=10):
+        """One `F.scaled_dot_product_attention` forward on the same data."""
+        qh, kh, vh = (heads_first(x, h) for x in (q, k, v))
+        return cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=iters)
+
     # -- phase 2: K1 ------------------------------------------------------
     t0 = time.perf_counter()
     h1 = 5
@@ -166,17 +228,28 @@ def main() -> int:
             f"rel_l2 {rel:.3e} (tol {tol:g}) | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
         check(rel <= tol, f"K1 rel L2 {rel} > {tol} at {(n, l, dtype)}")
         if (n, l, dtype) == (32, 2560, torch.bfloat16):
-            report["flash_fwd"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+            report["flash_fwd"] = dict(
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                **attention_bound(n, l, l, h1, 64, dtype), library_ms=sdpa_ms(q, k, v, h1))
         del q, k, v, out, ref
 
     phase_s["2"] = time.perf_counter() - t0
 
     # -- phase 3: K2 ------------------------------------------------------
     t0 = time.perf_counter()
-    for g, h, dtype, tol in [(2560, 5, torch.bfloat16, 1e-2), (2560, 8, torch.bfloat16, 1e-2),
-                             (640, 10, torch.bfloat16, 1e-2), (160, 20, torch.bfloat16, 1e-2),
-                             (40, 20, torch.bfloat16, 1e-2), (2560, 5, torch.float32, 1e-5)]:
-        q, k, v = (torch.randn(2, 16, g, h * 64, device=dev, generator=gen).to(dtype)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    k2_cases = [
+        # 320x512, batched CFG (B = 2): the init attention (8 heads), levels 0-3
+        (2, 2560, 5, bf16, 1e-2), (2, 2560, 8, bf16, 1e-2), (2, 640, 10, bf16, 1e-2),
+        (2, 160, 20, bf16, 1e-2), (2, 40, 20, bf16, 1e-2), (2, 2560, 5, fp32, 1e-5),
+        # 256x256, 8 clips under batched CFG (B = 16)
+        (16, 1024, 5, bf16, 1e-2), (16, 1024, 8, bf16, 1e-2), (16, 256, 10, bf16, 1e-2),
+        (16, 64, 20, bf16, 1e-2), (16, 16, 20, bf16, 1e-2),
+        # 576x1024, one pass of sequential CFG (B = 1)
+        (1, 9216, 5, bf16, 1e-2), (1, 9216, 8, bf16, 1e-2), (1, 2304, 10, bf16, 1e-2),
+        (1, 576, 20, bf16, 1e-2), (1, 144, 20, bf16, 1e-2)]
+    for b, g, h, dtype, tol in k2_cases:
+        q, k, v = (torch.randn(b, 16, g, h * 64, device=dev, generator=gen).to(dtype)
                    for _ in range(3))
         out = small_t_fwd_tmajor(q, k, v, h, 0.125)
         ref = small_t_fwd_tmajor_plain(q.float(), k.float(), v.float(), h, 0.125)
@@ -184,12 +257,16 @@ def main() -> int:
         max_abs, rel = errors(out, ref)
         ms = cuda_ms(lambda: small_t_fwd_tmajor(q, k, v, h, 0.125), iters=50)
         plain_ms = cuda_ms(lambda: small_t_fwd_tmajor_plain(q, k, v, h, 0.125), iters=50)
-        log(f"[3] K2 small_t_fwd_tmajor (2, 16, {g}, {h}*64) {str(dtype)[6:]}: max_abs "
+        log(f"[3] K2 small_t_fwd_tmajor ({b}, 16, {g}, {h}*64) {str(dtype)[6:]}: max_abs "
             f"{max_abs:.3e} rel_l2 {rel:.3e} (tol {tol:g}) | kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms")
-        check(rel <= tol, f"K2 rel L2 {rel} > {tol} at {(g, h, dtype)}")
-        if (g, h, dtype) == (2560, 5, torch.bfloat16):
-            report["small_t_fwd_tmajor"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        check(rel <= tol, f"K2 rel L2 {rel} > {tol} at {(b, g, h, dtype)}")
+        if (b, g, h, dtype) == (2, 2560, 5, bf16):
+            # the library call on the (B, G, h, T, 64) view of the same data
+            lib_ms = sdpa_ms(*(x.transpose(1, 2) for x in (q, k, v)), h, iters=50)
+            report["small_t_fwd_tmajor"] = dict(
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                **attention_bound(b * g, 16, 16, h, 64, dtype), library_ms=lib_ms)
         del q, k, v, out, ref
 
     phase_s["3"] = time.perf_counter() - t0
@@ -251,7 +328,8 @@ def main() -> int:
         launches = (flash_fwd.launches, small_t_fwd_tmajor.launches)
         frames = np.load(result["paths"][0])
         videos = result["videos"][0]
-    peak = torch.cuda.max_memory_allocated(dev)
+    # `sample` restarts the peak count at each stage
+    peak = max(result["build_peak"], *result["peaks"][0].values())
     stages = result["timings"][0]
     log(f"[5] slice 320x512 DDIM-{STEPS}: frames {frames.shape} {frames.dtype} "
         f"levels {len(np.unique(frames))} finite {bool(np.isfinite(videos).all())} | "
@@ -284,7 +362,10 @@ def main() -> int:
             f"(tol 1e-3) | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
         check(rel <= tol and lse_err <= 1e-3, f"K3 at {(n, l, dtype)}: o {rel}, lse {lse_err}")
         if (n, l, dtype) == (32, 2560, torch.bfloat16):
-            report["flash_fwd_lse"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+            report["flash_fwd_lse"] = dict(
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                **attention_bound(n, l, l, h1, 64, dtype, lse=True),
+                library_ms=sdpa_ms(q, k, v, h1))
         del q, k, v, out, lse, ref, ref_lse
     phase_s["6"] = time.perf_counter() - t0
 
@@ -310,9 +391,24 @@ def main() -> int:
             f"(dq, dk, dv together) {plain_ms:.3f} ms")
         check(all(r <= tol for _, r in errs), f"K4 at {(n, l, dtype)}: {errs}")
         if (n, l, dtype) == (32, 2560, torch.bfloat16):
-            report["flash_bwd_dq"] = dict(max_abs_err=errs[0][0], ms=ms_dq, plain_ms=plain_ms)
-            report["flash_bwd_dkv"] = dict(max_abs_err=max(errs[1][0], errs[2][0]),
-                                           ms=ms_dkv, plain_ms=plain_ms)
+            # the library's backward computes dq, dk and dv in one call, as
+            # the plain version does: both kernels are held against that time
+            leaves = [heads_first(x, h1).detach().requires_grad_() for x in (q, k, v)]
+            lib_out = F.scaled_dot_product_attention(*leaves)
+            lib_do = heads_first(do, h1)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, lib_do,
+                                                         retain_graph=True))
+            del leaves, lib_out, lib_do
+            # K4a reads q, k, v, o, lse, do and writes dq (three products);
+            # K4b reads the same and writes dk, dv (four products); Lq = Lk
+            report["flash_bwd_dq"] = dict(
+                max_abs_err=errs[0][0], ms=ms_dq, plain_ms=plain_ms,
+                **attention_bound(n, l, l, h1, 64, dtype, products=3, extra_tensors=2,
+                                  lse=True), library_ms=lib_ms, library_covers="dq+dk+dv")
+            report["flash_bwd_dkv"] = dict(
+                max_abs_err=max(errs[1][0], errs[2][0]), ms=ms_dkv, plain_ms=plain_ms,
+                **attention_bound(n, l, l, h1, 64, dtype, products=4, extra_tensors=3,
+                                  lse=True), library_ms=lib_ms, library_covers="dq+dk+dv")
         del q, k, v, do, o, lse, refs, grads
 
     def grad_check(fn, plain_fn, shape, what):
@@ -452,26 +548,256 @@ def main() -> int:
     check(train_launches == tuple(TRAIN_STEPS * c for c in per_step),
           f"launches {train_launches} != {TRAIN_STEPS} x {per_step}")
     phase_s["9"] = time.perf_counter() - t0
+    del result, trainer, hist, secs
+    torch.cuda.empty_cache()
+
+    # -- phase 10: K5 -------------------------------------------------------
+    t0 = time.perf_counter()
+    for g, tk, h, d, dtype, tol in [
+            (256, 16, 20, 64, torch.bfloat16, 2e-2), (256, 16, 20, 64, torch.float32, 1e-4),
+            (37, 8, 3, 64, torch.bfloat16, 2e-2), (37, 8, 3, 64, torch.float32, 1e-4),
+            (19, 32, 7, 64, torch.bfloat16, 2e-2), (19, 32, 7, 32, torch.float32, 1e-4)]:
+        q, k, v = (torch.randn(g, tk, h * d, device=dev, generator=gen).to(dtype)
+                   for _ in range(3))
+        scale = d ** -0.5
+        out = small_t_fwd(q, k, v, h, scale)
+        ref = small_t_fwd_plain(q.float(), k.float(), v.float(), h, scale)
+        torch.cuda.synchronize()
+        max_abs, rel = errors(out, ref)
+        ms = cuda_ms(lambda: small_t_fwd(q, k, v, h, scale), iters=50)
+        plain_ms = cuda_ms(lambda: small_t_fwd_plain(q, k, v, h, scale), iters=50)
+        log(f"[10] K5 small_t_fwd ({g}, {tk}, {h}*{d}) {str(dtype)[6:]}: max_abs {max_abs:.3e} "
+            f"rel_l2 {rel:.3e} (tol {tol:g}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        check(rel <= tol, f"K5 rel L2 {rel} > {tol} at {(g, tk, h, d, dtype)}")
+        if (g, tk, dtype) == (256, 16, torch.bfloat16):
+            report["small_t_fwd"] = dict(
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                **attention_bound(g, tk, tk, h, d, dtype),
+                library_ms=sdpa_ms(q, k, v, h, iters=50))
+        del q, k, v, out, ref
+    # why the route has no row threshold (the JAX rule wants 256 rows): K5
+    # against plain attention on (rows, 16, 20, 64) bf16, from --bs 2 up
+    for g in (32, 64, 256, 1024, 4096):
+        q, k, v = (torch.randn(g, 16, 20, 64, device=dev, generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        ms = cuda_ms(lambda: small_t_attention(q, k, v), iters=50)
+        plain_ms = cuda_ms(lambda: attention.plain_attention(q, k, v), iters=50)
+        rel = errors(small_t_attention(q, k, v), attention.plain_attention(q, k, v))[1]
+        log(f"[10] route ({g}, 16, 20, 64) bf16: small_t_attention (K5) {ms:.4f} ms, "
+            f"plain_attention {plain_ms:.4f} ms, rel_l2 between them {rel:.3e}")
+        check(rel <= 2e-2, f"K5 vs plain_attention rel L2 {rel} at G={g}")
+        del q, k, v
+    phase_s["10"] = time.perf_counter() - t0
+
+    # -- phase 11: K1 at the 576x1024 shapes ----------------------------------
+    t0 = time.perf_counter()
+    for l, h in [(9216, 5), (2304, 10)]:
+        q, k, v = (torch.randn(16, l, h * 64, device=dev, generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        # one N = 16 launch, as the path makes it, held against the plain
+        # version two rows of N at a time (its logits are N*H*L^2)
+        full = flash_fwd(q, k, v, h, 0.125)
+        torch.cuda.synchronize()
+        max_abs = rel = 0.0
+        for i in range(0, 16, 2):
+            ref = flash_fwd_plain(q[i:i + 2].float(), k[i:i + 2].float(), v[i:i + 2].float(),
+                                  h, 0.125)
+            a, r = errors(full[i:i + 2], ref)
+            max_abs, rel = max(max_abs, a), max(rel, r)
+            del ref
+        ms = cuda_ms(lambda: flash_fwd(q, k, v, h, 0.125), iters=5, warmup=1)
+        lib_ms = sdpa_ms(q, k, v, h, iters=5)
+        b = attention_bound(16, l, l, h, 64, torch.bfloat16)
+        log(f"[11] K1 flash_fwd (16, {l}, {h}*64) bf16: one N=16 launch vs plain in eight "
+            f"N=2 slices, worst slice max_abs {max_abs:.3e} rel_l2 {rel:.3e} (tol 1e-2) | "
+            f"kernel {ms:.3f} ms, library {lib_ms:.3f} ms, bound {b['bound_ms']:.3f} ms by "
+            f"{b['bound_by']}")
+        check(rel <= 1e-2, f"K1 rel L2 {rel} > 1e-2 at N=16, L={l}")
+        del q, k, v, full
+    torch.cuda.empty_cache()
+    phase_s["11"] = time.perf_counter() - t0
+
+    # -- phase 12: full-width 256x256 UNet forward, kernels vs plain ----------
+    t0 = time.perf_counter()
+    infer_wrappers = (flash_fwd, small_t_fwd_tmajor, small_t_fwd)
+    cfg = ModelConfig.from_yaml(CONFIG_256)
+    with torch.device("meta"):
+        unet = UNetModel(UNetConfig.from_dict(cfg.unet))
+    unet = keep_norms_fp32(unet.to_empty(device=dev).to(torch.bfloat16)).eval()
+    init_normal_(unet.requires_grad_(False), gen, 0.02)
+    x = torch.randn(16, 16, 32, 32, 8, device=dev, generator=gen)
+    ts = torch.full((16,), 999, dtype=torch.long, device=dev)
+    ctx_t = torch.randn(16, 77, 1024, device=dev, generator=gen)
+    ctx_i = torch.randn(16, 16, 16, 1024, device=dev, generator=gen)
+    fs = torch.full((16,), 3, dtype=torch.long, device=dev)
+    run = lambda: unet(x, ts, context_text=ctx_t, context_img=ctx_i, fs=fs)
+    with torch.no_grad():
+        reset(*infer_wrappers)
+        out = run()
+        torch.cuda.synchronize()
+        per_call_256 = counts(*infer_wrappers)
+        with attention.use_backend("plain"):
+            ref = run()
+        max_abs, rel = errors(out, ref)
+        ms = cuda_ms(run, iters=3, warmup=1)
+        with attention.use_backend("plain"):
+            plain_ms = cuda_ms(run, iters=3, warmup=1)
+    log(f"[12] UNet forward {CONFIG_256} (16, 16, 32, 32, 8) bf16: out {tuple(out.shape)} "
+        f"finite {bool(torch.isfinite(out).all())} | kernels vs plain max_abs {max_abs:.3e} "
+        f"rel_l2 {rel:.3e} (tol 2e-2) | launches per call K1 {per_call_256[0]} (L = 1024 < "
+        f"2048), K2 {per_call_256[1]} (17 temporal transformers x attn1 + attn2), K5 "
+        f"{per_call_256[2]} (the middle block's 4 x 4 frame: attn1, and attn2's image "
+        f"cross-attention, whose 16 image tokens per frame give k and v the shape of q) | "
+        f"{ms:.1f} ms with kernels, {plain_ms:.1f} ms plain")
+    check(bool(torch.isfinite(out).all()) and out.shape == (16, 16, 32, 32, 4), "256 UNet output")
+    check(rel <= 2e-2, f"256 UNet kernels vs plain rel L2 {rel} > 2e-2")
+    check(per_call_256 == (0, 34, 2), f"launches per 256 UNet call {per_call_256} != (0, 34, 2)")
+    del unet, x, out, ref
+    torch.cuda.empty_cache()
+    phase_s["12"] = time.perf_counter() - t0
+
+    def prompt_dir(root, n_prompts, images_per_prompt=1):
+        """A prompt dir of copies of the example image (`load_prompt_dir`
+        resizes) and as many prompt lines."""
+        os.makedirs(root)
+        for i in range(n_prompts * images_per_prompt):
+            shutil.copy(os.path.join(PROMPTS, "example.png"), os.path.join(root, f"img{i:02d}.png"))
+        with open(os.path.join(root, "prompts.txt"), "w") as f:
+            f.write("".join(f"a clip of scene {i}, slow camera motion\n"
+                            for i in range(n_prompts)))
+        return root
+
+    def run_cli(tag, flags, expect_shape, steps):
+        """Drive `inference.main` with the counts at 0; returns (launches,
+        stage seconds, peak bytes) after checking the written frames."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset(*infer_wrappers)
+        t1 = time.perf_counter()
+        result = inference.main([*flags, "--random_init", "--bf16", "--text_input",
+                                 "--unconditional_guidance_scale", "7.5", "--video_length",
+                                 "16", "--ddim_steps", str(steps), "--ddim_eta", "1.0",
+                                 "--seed", str(SEED), "--device", "cuda"])
+        wall = time.perf_counter() - t1
+        n = counts(*infer_wrappers)
+        videos, stages = result["videos"][0], result["timings"][0]
+        stage_peaks = result["peaks"][0]
+        peak = max(result["build_peak"], *stage_peaks.values())
+        frames = np.stack([np.load(p) for p in result["paths"]])
+        log(f"[{tag}] frames {videos.shape} finite {bool(np.isfinite(videos).all())}, files "
+            f"{frames.shape} {frames.dtype} levels {len(np.unique(frames))} | DDIM-{steps} | "
+            + " ".join(f"{k} {v:.2f}s (peak {stage_peaks[k] / 2**30:.2f} GiB)"
+                       for k, v in stages.items())
+            + f" | {1e3 * stages['ddim'] / steps:.1f} ms/step | main() wall {wall:.1f}s | peak "
+            f"allocated {peak / 2**30:.2f} GiB (building the pipeline "
+            f"{result['build_peak'] / 2**30:.2f}) | launches K1 {n[0]} K2 {n[1]} K5 {n[2]}")
+        check(videos.shape == expect_shape, f"{tag}: frames {videos.shape} != {expect_shape}")
+        check(bool(np.isfinite(videos).all()), f"{tag}: decoded frames are not finite")
+        check(frames.dtype == np.uint8 and frames.shape == (
+            expect_shape[0] * expect_shape[1], *expect_shape[2:]), f"{tag}: frame files")
+        check(len(np.unique(frames)) > 1, f"{tag}: decoded frames are constant")
+        return n, stages, peak
+
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        # -- phase 13: the 256x256 slice end to end, 8 prompts in one batch ---
+        t0 = time.perf_counter()
+        launches_256, _, _ = run_cli("13 slice 256x256 --bs 8", [
+            "--config", CONFIG_256, "--prompt_dir", prompt_dir(os.path.join(tmp, "p256"), 8),
+            "--savedir", os.path.join(tmp, "o256"), "--height", "256", "--width", "256",
+            "--frame_stride", "3", "--timestep_spacing", "uniform", "--bs", "8"],
+            (8, 1, 16, 256, 256, 3), STEPS)
+        check(launches_256 == tuple(STEPS * c for c in per_call_256),
+              f"launches on the 256 slice {launches_256} != {STEPS} x {per_call_256}")
+        phase_s["13"] = time.perf_counter() - t0
+
+        # -- phase 14: the 576x1024 slice end to end ----------------------------
+        t0 = time.perf_counter()
+        # first the full-width UNet, kernels against plain, cut to 2 frames
+        # (the plain logits of 16 frames at L = 9216 are 13.6 GB in bf16)
+        cfg = ModelConfig.from_yaml(CONFIG_1024)
+        with torch.device("meta"):
+            unet = UNetModel(UNetConfig.from_dict(cfg.unet))
+        unet = keep_norms_fp32(unet.to_empty(device=dev).to(torch.bfloat16)).eval()
+        init_normal_(unet.requires_grad_(False), gen, 0.02)
+        x = torch.randn(1, 2, 72, 128, 8, device=dev, generator=gen)
+        one = lambda v: torch.full((1,), v, dtype=torch.long, device=dev)
+        ctx_t = torch.randn(1, 77, 1024, device=dev, generator=gen)
+        ctx_i = torch.randn(1, 2, 16, 1024, device=dev, generator=gen)
+        run = lambda: unet(x, one(999), context_text=ctx_t, context_img=ctx_i, fs=one(10))
+        with torch.no_grad():
+            reset(*infer_wrappers)
+            out = run()
+            per_pass_1024 = counts(*infer_wrappers)
+            with attention.use_backend("plain"):
+                ref = run()
+        max_abs, rel = errors(out, ref)
+        log(f"[14] UNet forward {CONFIG_1024} cut to 2 frames (1, 2, 72, 128, 8) bf16: "
+            f"kernels vs plain max_abs {max_abs:.3e} rel_l2 {rel:.3e} (tol 2e-2) | launches "
+            f"per pass K1 {per_pass_1024[0]} (5 level-0 spatial transformers at L = 9216, 5 "
+            f"level-1 at L = 2304), K2 {per_pass_1024[1]}, K5 {per_pass_1024[2]}")
+        check(bool(torch.isfinite(out).all()) and rel <= 2e-2,
+              f"1024 UNet kernels vs plain rel L2 {rel} > 2e-2")
+        check(per_pass_1024 == (10, 34, 0), f"launches per 1024 pass {per_pass_1024}")
+        del unet, x, out, ref
+        launches_1024, _, _ = run_cli("14 slice 576x1024 sequential CFG, tiled decode", [
+            "--config", CONFIG_1024, "--prompt_dir", prompt_dir(os.path.join(tmp, "p1024"), 1),
+            "--savedir", os.path.join(tmp, "o1024"), "--height", "576", "--width", "1024",
+            "--frame_stride", "10", "--timestep_spacing", "uniform_trailing",
+            "--guidance_rescale", "0.7", "--perframe_ae", "--bs", "1"],
+            (1, 1, 16, 576, 1024, 3), STEPS_1024)
+        # per pass of 16 frames: K1 at the 5 level-0 (L = 9216, 5 heads) and the
+        # 5 level-1 (L = 2304, 10 heads) spatial transformers, K2 as everywhere
+        check(launches_1024 == tuple(STEPS_1024 * 2 * c for c in per_pass_1024),
+              f"launches on the 1024 slice {launches_1024} != {STEPS_1024} steps x 2 passes "
+              f"x {per_pass_1024}")
+        phase_s["14"] = time.perf_counter() - t0
+
+        # -- phase 15: interpolation and looping on the 320x512 model -----------
+        t0 = time.perf_counter()
+        flags_512 = ["--config", CONFIG, "--height", "320", "--width", "512", "--frame_stride",
+                     "5", "--timestep_spacing", "uniform_trailing", "--guidance_rescale", "0.7",
+                     "--perframe_ae"]
+        n_interp, _, _ = run_cli("15 --interp 320x512, two images", [
+            *flags_512, "--interp", "--prompt_dir",
+            prompt_dir(os.path.join(tmp, "pinterp"), 1, images_per_prompt=2),
+            "--savedir", os.path.join(tmp, "ointerp")], (1, 1, 16, 320, 512, 3), STEPS_INTERP)
+        n_loop, _, _ = run_cli("15 --loop 320x512, last frame dropped", [
+            *flags_512, "--loop", "--prompt_dir", PROMPTS,
+            "--savedir", os.path.join(tmp, "oloop")], (1, 1, 15, 320, 512, 3), STEPS_INTERP)
+        check(n_interp == n_loop == (STEPS_INTERP * per_call[0], STEPS_INTERP * per_call[1], 0),
+              f"launches in interp {n_interp} / loop {n_loop}")
+        phase_s["15"] = time.perf_counter() - t0
+
     log("[wall] " + " ".join(f"phase {k} {v:.1f}s" for k, v in phase_s.items())
         + f" | total {time.perf_counter() - t_start:.1f}s")
 
-    sources = {"flash_fwd": ("dynamicrafter_tpu_torch/csrc/flash_attention.cu",
-                             "dynamicrafter_tpu/ops/flash_attention.py:161", launches[0]),
-               "small_t_fwd_tmajor": ("dynamicrafter_tpu_torch/csrc/small_attention.cu",
-                                      "dynamicrafter_tpu/ops/small_attention.py:134",
-                                      launches[1]),
-               "flash_fwd_lse": ("dynamicrafter_tpu_torch/csrc/flash_attention.cu",
-                                 "dynamicrafter_tpu/ops/flash_attention.py:32",
-                                 train_launches[0]),
-               "flash_bwd_dq": ("dynamicrafter_tpu_torch/csrc/flash_attention_bwd.cu",
-                                "dynamicrafter_tpu/ops/flash_attention.py:304",
-                                train_launches[1]),
-               "flash_bwd_dkv": ("dynamicrafter_tpu_torch/csrc/flash_attention_bwd.cu",
-                                 "dynamicrafter_tpu/ops/flash_attention.py:339",
-                                 train_launches[2])}
+    src = "dynamicrafter_tpu_torch/csrc/"
+    tpu = "dynamicrafter_tpu/ops/"
+    # name: (source, TPU kernel, launches on the kernel's main path, on every path)
+    sources = {
+        "flash_fwd": (src + "flash_attention.cu", tpu + "flash_attention.py:161", launches[0],
+                      {"inference_512": launches[0], "inference_256_bs8": launches_256[0],
+                       "inference_1024": launches_1024[0]}),
+        "small_t_fwd_tmajor": (src + "small_attention.cu", tpu + "small_attention.py:134",
+                               launches[1],
+                               {"inference_512": launches[1], "train_512": train_launches[3],
+                                "inference_256_bs8": launches_256[1],
+                                "inference_1024": launches_1024[1]}),
+        "flash_fwd_lse": (src + "flash_attention.cu", tpu + "flash_attention.py:32",
+                          train_launches[0], {"train_512": train_launches[0]}),
+        "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:304",
+                         train_launches[1], {"train_512": train_launches[1]}),
+        "flash_bwd_dkv": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:339",
+                          train_launches[2], {"train_512": train_launches[2]}),
+        "small_t_fwd": (src + "small_attention.cu", tpu + "small_attention.py:32",
+                        launches_256[2], {"inference_256_bs8": launches_256[2],
+                                          "inference_1024": launches_1024[2]})}
+    for name, (_, _, n, _) in sources.items():
+        check(n > 0, f"{name} was launched no time on its main path")
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=src, replaces=rep, launches=n, **report[name])
-        for name, (src, rep, n) in sources.items()]}))
+        dict(name=name, route="cuda", source=source, replaces=rep, launches=n,
+             launches_by_path=by_path, **report[name])
+        for name, (source, rep, n, by_path) in sources.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

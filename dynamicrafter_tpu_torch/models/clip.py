@@ -41,6 +41,7 @@ class CLIPVisionConfig:
     layers: int = 32
     patch_size: int = 14
     image_size: int = 224
+    act: str = "gelu"   # "quick_gelu" for the OpenAI CLIP ViT-L weights
 
 
 class _MultiheadAttention(nn.Module):
@@ -63,8 +64,11 @@ class _MultiheadAttention(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, act: str = "gelu"):
         super().__init__()
+        if act not in ("gelu", "quick_gelu"):
+            raise ValueError(f"unknown activation {act!r}")
+        self.act = act
         self.ln_1 = LayerNorm(width)
         self.attn = _MultiheadAttention(width, heads)
         self.ln_2 = LayerNorm(width)
@@ -74,14 +78,15 @@ class ResidualAttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), mask)
         h = self.mlp["c_fc"](self.ln_2(x))
-        return x + self.mlp["c_proj"](F.gelu(h))
+        h = h * torch.sigmoid(1.702 * h) if self.act == "quick_gelu" else F.gelu(h)
+        return x + self.mlp["c_proj"](h)
 
 
 class _Transformer(nn.Module):
-    def __init__(self, width: int, heads: int, layers: int):
+    def __init__(self, width: int, heads: int, layers: int, act: str = "gelu"):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            [ResidualAttentionBlock(width, heads) for _ in range(layers)])
+            [ResidualAttentionBlock(width, heads, act) for _ in range(layers)])
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for block in self.resblocks:
@@ -124,7 +129,7 @@ class _VisionTransformer(nn.Module):
         self.class_embedding = nn.Parameter(torch.empty(cfg.width))
         self.positional_embedding = nn.Parameter(torch.empty(grid * grid + 1, cfg.width))
         self.ln_pre = LayerNorm(cfg.width)
-        self.transformer = _Transformer(cfg.width, cfg.heads, cfg.layers)
+        self.transformer = _Transformer(cfg.width, cfg.heads, cfg.layers, cfg.act)
 
 
 class _VisionModel(nn.Module):

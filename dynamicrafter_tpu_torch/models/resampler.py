@@ -91,3 +91,21 @@ class Resampler(nn.Module):
             lat = ff(lat) + lat
         return self.norm_out(self.proj_out(lat))
 
+
+class ImageProjModel(nn.Module):
+    """The linear alternative to the Resampler (reference resampler.py:9-23):
+    a pooled image embedding (B, clip_embeddings_dim) -> (B,
+    clip_extra_context_tokens, cross_attention_dim). No shipped config uses
+    it; the pipeline is built around the Resampler."""
+
+    def __init__(self, cross_attention_dim: int = 1024, clip_embeddings_dim: int = 1024,
+                 clip_extra_context_tokens: int = 4):
+        super().__init__()
+        self.cross_attention_dim = cross_attention_dim
+        self.proj = nn.Linear(clip_embeddings_dim,
+                              clip_extra_context_tokens * cross_attention_dim)
+        self.norm = LayerNorm(cross_attention_dim, keep_fp32=True)
+
+    def forward(self, image_embeds: torch.Tensor) -> torch.Tensor:
+        x = self.proj(image_embeds.to(self.proj.weight.dtype))
+        return self.norm(x.reshape(x.shape[0], -1, self.cross_attention_dim))

@@ -159,16 +159,11 @@ class UNetModel(nn.Module):
         super().__init__()
         cfg = config
         self.config = cfg
-        unported = [name for name, on in (
-            ("use_relative_position", cfg.use_relative_position),
-            ("use_causal_attention", cfg.use_causal_attention),
-            ("resblock_updown", cfg.resblock_updown),
-            ("use_scale_shift_norm", cfg.use_scale_shift_norm),
-            ("tempspatial_aware", cfg.tempspatial_aware),
-            ("use_linear=False", not cfg.use_linear),
-            ("conv_resample=False", not cfg.conv_resample)) if on]
-        if unported:
-            raise NotImplementedError(f"UNet options not ported yet: {unported}")
+        if cfg.resblock_updown:
+            # the JAX package's UNet builds plain Down/Upsample layers whatever
+            # this flag says (only its ResBlock knows up/down); refuse it
+            # here so a checkpoint that needs it fails at construction
+            raise NotImplementedError("resblock_updown is not built by the UNet")
         ted = cfg.model_channels * 4
         self.time_embed = _time_mlp(cfg.model_channels, ted)
         if cfg.fs_condition:
@@ -180,7 +175,9 @@ class UNetModel(nn.Module):
             # built without use_linear in the reference: Conv1d projections
             self.init_attn = nn.ModuleList([TemporalTransformer(
                 cfg.model_channels, 8, cfg.num_head_channels,
-                depth=cfg.transformer_depth, use_linear=False)])
+                depth=cfg.transformer_depth, use_linear=False,
+                relative_position=cfg.use_relative_position,
+                temporal_length=cfg.temporal_length)])
         self.middle_block = nn.ModuleList([self._make_layer(s) for s in mid_spec])
         self.output_blocks = nn.ModuleList(
             [nn.ModuleList([self._make_layer(s) for s in block]) for block in out_specs])
@@ -195,21 +192,27 @@ class UNetModel(nn.Module):
             return nn.Conv2d(cfg.in_channels, spec[1], 3, padding=1)
         if kind == "res":
             return ResBlock(spec[1], cfg.model_channels * 4, out_channels=spec[2],
-                            use_temporal_conv=cfg.temporal_conv)
+                            use_temporal_conv=cfg.temporal_conv,
+                            use_scale_shift_norm=cfg.use_scale_shift_norm,
+                            tempspatial_aware=cfg.tempspatial_aware)
         heads, dim_head = cfg.heads_for(spec[1])
         if kind == "spatial":
             return SpatialTransformer(
                 spec[1], heads, dim_head, depth=cfg.transformer_depth,
                 context_dim=cfg.context_dim,
                 image_cross_attention=cfg.image_cross_attention,
-                image_cross_attention_scale_learnable=cfg.image_cross_attention_scale_learnable)
+                image_cross_attention_scale_learnable=cfg.image_cross_attention_scale_learnable,
+                use_linear=cfg.use_linear)
         if kind == "temporal":
-            return TemporalTransformer(spec[1], heads, dim_head,
-                                       depth=cfg.transformer_depth)
+            return TemporalTransformer(
+                spec[1], heads, dim_head, depth=cfg.transformer_depth,
+                use_linear=cfg.use_linear, causal_attention=cfg.use_causal_attention,
+                relative_position=cfg.use_relative_position,
+                temporal_length=cfg.temporal_length)
         if kind == "down":
-            return Downsample(spec[1])
+            return Downsample(spec[1], use_conv=cfg.conv_resample)
         if kind == "up":
-            return Upsample(spec[1])
+            return Upsample(spec[1], use_conv=cfg.conv_resample)
         raise ValueError(kind)
 
     @property

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -238,3 +239,47 @@ class AutoencoderKL(nn.Module):
         """z: (N, h, w, embed_dim) -> frames (N, H, W, out_ch)."""
         h = z.to(self.dtype).permute(0, 3, 1, 2)
         return self.decoder(self.post_quant_conv(h)).permute(0, 2, 3, 1)
+
+
+def decode_tiled(decode_fn, z: torch.Tensor, tile: int = 48, overlap: int = 8,
+                 scale: int = 8) -> torch.Tensor:
+    """Decode latents (N, h, w, zc) tile by tile and blend the overlaps with
+    linear ramps (the JAX package's `models/vae.py::decode_tiled`): bounds
+    the decoder's memory at any resolution. `decode_fn` maps a latent tile
+    to (N, th*scale, tw*scale, 3). The decoder's GroupNorms see each tile's
+    own statistics, so the result differs from an untiled decode by design.
+    Returns fp32 (N, h*scale, w*scale, 3)."""
+    n, h, w, _ = z.shape
+    if h <= tile and w <= tile:
+        return decode_fn(z)
+    # an axis shorter than `tile` gets one tile of its own length
+    tile_h, tile_w = min(tile, h), min(tile, w)
+
+    def starts(dim: int, t: int):
+        s = list(range(0, max(dim - t, 0) + 1, max(t - overlap, 1)))
+        if s[-1] + t < dim:
+            s.append(dim - t)
+        return s
+
+    def ramp(t: int, blend: bool) -> np.ndarray:
+        r = np.ones(t * scale, dtype=np.float32)
+        band = overlap * scale
+        if band > 0 and blend:
+            r[:band] = np.linspace(0, 1, band, endpoint=False) + 1.0 / band
+            r[-band:] = r[:band][::-1]
+        return r
+
+    hs, ws = starts(h, tile_h), starts(w, tile_w)
+    weight2d = torch.from_numpy(
+        ramp(tile_h, len(hs) > 1)[:, None] * ramp(tile_w, len(ws) > 1)[None, :]
+    ).to(z.device)[..., None]
+    out = torch.zeros((n, h * scale, w * scale, 3), dtype=torch.float32, device=z.device)
+    weight = torch.zeros((h * scale, w * scale, 1), dtype=torch.float32, device=z.device)
+    for y in hs:
+        for x in ws:
+            dec = decode_fn(z[:, y:y + tile_h, x:x + tile_w]).float() * weight2d
+            ys = slice(y * scale, (y + tile_h) * scale)
+            xs = slice(x * scale, (x + tile_w) * scale)
+            out[:, ys, xs] += dec
+            weight[ys, xs] += weight2d
+    return out / weight.clamp_min(1e-8)

@@ -104,6 +104,8 @@ def _check(name: str, q: Tensor, k: Tensor, v: Tensor, heads: int) -> None:
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
     if k.shape[1] == 0:
         raise ValueError(f"{name}: empty key sequence")
+    if n > 65535 or heads > 65535:   # grid.z and grid.y
+        raise ValueError(f"{name}: N={n}, heads={heads} outside the launch grid")
 
 
 def _check_bwd(name: str, q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,

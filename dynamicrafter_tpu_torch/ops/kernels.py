@@ -115,6 +115,9 @@ def library() -> ctypes.CDLL:
         lib.dct_small_t_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                         i32, i32, f32, ptr]
         lib.dct_small_t_fwd.restype = i32
+        lib.dct_small_t_fwd_posmajor.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                                 i32, i32, f32, ptr]
+        lib.dct_small_t_fwd_posmajor.restype = i32
         lib.dct_error_string.argtypes = [i32]
         lib.dct_error_string.restype = ctypes.c_char_p
         _lib = lib

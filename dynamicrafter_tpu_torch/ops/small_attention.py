@@ -1,19 +1,29 @@
-"""K2: temporal self-attention over a short T axis, time-major layout.
+"""K2 and K5: self-attention over a short token axis (T <= 32).
 
-`small_t_fwd_tmajor` is the kernel wrapper on (B, T, G, H*D), the layout
-the UNet's temporal transformers already hold (tokens over T at axis 1,
-G = h*w positions): on a CUDA tensor it launches the hand-written kernel in
-`csrc/small_attention.cu` (which replaces the Pallas kernel
-`dynamicrafter_tpu/ops/small_attention.py::_kernel_tmajor`) or raises; on a
-CPU tensor it runs `small_t_fwd_tmajor_plain`. `small_t_fwd_tmajor.launches`
-counts kernel launches.
+K2, time-major. `small_t_fwd_tmajor` is the kernel wrapper on
+(B, T, G, H*D), the layout the UNet's temporal transformers already hold
+(tokens over T at axis 1, G = h*w positions): on a CUDA tensor it launches
+the hand-written kernel in `csrc/small_attention.cu` (which replaces the
+Pallas kernel `dynamicrafter_tpu/ops/small_attention.py::_kernel_tmajor`)
+or raises; on a CPU tensor it runs `small_t_fwd_tmajor_plain`.
+`small_t_attention_tmajor` is its entry point on (B, T, G, H, D).
 
-`small_t_attention_tmajor` is the entry point on (B, T, G, H, D), as in the
-JAX package. When no input needs a gradient it calls the kernel wrapper
-directly. Under a gradient it goes through `SmallTAttention`, whose forward
-is the same kernel and whose backward is autograd of
-`small_t_fwd_tmajor_plain` on the saved q, k and v: the JAX package's
-`_vjp_bwd_tmajor`, which has no Pallas backward either.
+K5, position-major. `small_t_fwd` is the kernel wrapper on (G, T, H*D):
+each of G rows attends over its own T tokens (spatial self-attention over
+a tiny frame, many frames). On a CUDA tensor it launches
+`small_t_posmajor_kernel` of the same source (which replaces the Pallas
+kernel `dynamicrafter_tpu/ops/small_attention.py::_kernel`) or raises; on a
+CPU tensor it runs `small_t_fwd_plain`. `small_t_attention` is its entry
+point on (..., T, H, D). K5 and its plain version round the probabilities
+to the input dtype before the product with v, as the Pallas kernel and its
+XLA reference do (K2's kernel keeps them in fp32).
+
+Each wrapper counts its kernel launches in `.launches`. When no input needs
+a gradient an entry point calls its kernel wrapper directly. Under a
+gradient it goes through `SmallTAttention`, whose forward is the same
+kernel and whose backward is autograd of the plain version on the saved q,
+k and v: the JAX package's `_vjp_bwd` / `_vjp_bwd_tmajor`, which have no
+Pallas backward either.
 """
 from __future__ import annotations
 
@@ -25,6 +35,15 @@ import torch
 from dynamicrafter_tpu_torch.ops import kernels
 
 MAX_T = 32
+
+
+def _head_dim(name: str, t: int, hd: int, heads: int, itemsize: int) -> int:
+    if t > MAX_T:
+        raise ValueError(f"{name}: T={t} > {MAX_T}")
+    d = hd // heads
+    if d * heads != hd or d == 0 or (d * itemsize) % 16:
+        raise ValueError(f"{name}: head dim {d} must fill whole 16-byte vectors")
+    return d
 
 
 def small_t_fwd_tmajor_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,12 +73,9 @@ def small_t_fwd_tmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("small_t_fwd_tmajor: q, k, v must share one "
                          "(B, T, G, H*D) shape")
     b, t, g, hd = q.shape
-    if t > MAX_T:
-        raise ValueError(f"small_t_fwd_tmajor: T={t} > {MAX_T}")
-    d = hd // heads
-    if d * heads != hd or (d * q.element_size()) % 16:
-        raise ValueError(f"small_t_fwd_tmajor: head dim {d} must fill whole "
-                         "16-byte vectors")
+    d = _head_dim("small_t_fwd_tmajor", t, hd, heads, q.element_size())
+    if b > 65535 or heads > 65535:
+        raise ValueError(f"small_t_fwd_tmajor: B={b}, heads={heads} outside the launch grid")
     out = torch.empty_like(q)
     lib = kernels.library()
     with torch.cuda.device(q.device):
@@ -75,22 +91,71 @@ def small_t_fwd_tmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 small_t_fwd_tmajor.launches = 0
 
 
+def small_t_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      heads: int, scale: float) -> torch.Tensor:
+    """Per (g, head): softmax over T of fp32 logits q k^T * scale, rounded to
+    v's dtype, times v (the JAX package's `_xla_ref` math) on (G, T, H*D)."""
+    g, t, hd = q.shape
+    mv = lambda x: x.reshape(g, t, heads, hd // heads).transpose(1, 2)   # (G, H, T, D)
+    qh, kh, vh = mv(q), mv(k), mv(v)
+    s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    att = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.matmul(att, vh).transpose(1, 2).reshape(g, t, hd).to(q.dtype)
+
+
+def small_t_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                heads: int, scale: float) -> torch.Tensor:
+    """K5. q, k, v: (G, T, H*D), T <= 32 -> (G, T, H*D)."""
+    if q.device.type == "cpu":
+        return small_t_fwd_plain(q, k, v, heads, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"small_t_fwd: unsupported device {q.device}")
+    kernels.check_operands("small_t_fwd", q, k, v)
+    if not (q.shape == k.shape == v.shape) or q.dim() != 3:
+        raise ValueError("small_t_fwd: q, k, v must share one (G, T, H*D) shape")
+    g, t, hd = q.shape
+    d = _head_dim("small_t_fwd", t, hd, heads, q.element_size())
+    if g < 1 or heads > 65535:
+        raise ValueError(f"small_t_fwd: G={g}, heads={heads} outside the launch grid")
+    out = torch.empty_like(q)
+    lib = kernels.library()
+    with torch.cuda.device(q.device):
+        code = lib.dct_small_t_fwd_posmajor(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            kernels.DTYPE_CODES[q.dtype], g, t, heads, d, float(scale),
+            kernels.stream_handle(q.device))
+    kernels.check(code, "small_t_fwd launch")
+    small_t_fwd.launches += 1
+    return out
+
+
+small_t_fwd.launches = 0
+
+
 class SmallTAttention(torch.autograd.Function):
-    """K2 forward; backward through the plain version's autograd."""
+    """K2 (`tmajor`) or K5 forward; backward through the plain version's
+    autograd."""
 
     @staticmethod
-    def forward(ctx, q, k, v, heads: int, scale: float):
+    def forward(ctx, q, k, v, heads: int, scale: float, tmajor: bool):
         ctx.save_for_backward(q, k, v)
-        ctx.heads, ctx.scale = heads, scale
-        return small_t_fwd_tmajor(q, k, v, heads, scale)
+        ctx.heads, ctx.scale, ctx.tmajor = heads, scale, tmajor
+        return (small_t_fwd_tmajor if tmajor else small_t_fwd)(q, k, v, heads, scale)
 
     @staticmethod
     def backward(ctx, grad):
         q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+        plain = small_t_fwd_tmajor_plain if ctx.tmajor else small_t_fwd_plain
         with torch.enable_grad():
-            out = small_t_fwd_tmajor_plain(q, k, v, ctx.heads, ctx.scale)
+            out = plain(q, k, v, ctx.heads, ctx.scale)
         dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
+
+
+def _attend(q, k, v, heads: int, scale: float, tmajor: bool) -> torch.Tensor:
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return SmallTAttention.apply(q, k, v, heads, scale, tmajor)
+    return (small_t_fwd_tmajor if tmajor else small_t_fwd)(q, k, v, heads, scale)
 
 
 def small_t_attention_tmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,8 +168,19 @@ def small_t_attention_tmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = 1.0 / math.sqrt(q.shape[-1])
     b, t, g, heads, d = q.shape
     flat = lambda x: x.reshape(b, t, g, heads * d).contiguous()
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        out = SmallTAttention.apply(flat(q), flat(k), flat(v), heads, scale)
-    else:
-        out = small_t_fwd_tmajor(flat(q), flat(k), flat(v), heads, scale)
-    return out.view(b, t, g, heads, d)
+    return _attend(flat(q), flat(k), flat(v), heads, scale, True).view(b, t, g, heads, d)
+
+
+def small_t_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Self-attention over the T axis of (..., T, H, D), any leading dims;
+    returns the same shape."""
+    if q.dim() < 3 or not (q.shape == k.shape == v.shape):
+        raise ValueError("small_t_attention: (..., T, H, D) self-attention only")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    t, heads, d = q.shape[-3:]
+    # the kernel needs contiguous (G, T, H*D) rows; a view of a projection's
+    # output usually is, but that is not relied on
+    flat = lambda x: x.reshape(-1, t, heads * d).contiguous()
+    return _attend(flat(q), flat(k), flat(v), heads, scale, False).view(q.shape)

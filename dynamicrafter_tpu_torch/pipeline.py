@@ -4,7 +4,8 @@ Call path of the reference (scripts/evaluation/inference.py:216-313) and of
 the JAX twin dynamicrafter_tpu/pipeline.py: embed the conditioning image
 into Resampler tokens, embed the prompt, VAE-encode the conditioning frames,
 assemble the hybrid conditioning with the CFG unconditional passes, run the
-DDIM loop, decode the latents frame by frame.
+DDIM loop, decode the latents (all frames at once, frame by frame, or in
+spatial tiles above `tiled_vae_threshold`).
 
 All modules live in one `LatentVisualDiffusion` container whose state_dict
 keys are the released checkpoint's. Every entry point takes an explicit
@@ -31,7 +32,12 @@ from dynamicrafter_tpu_torch.models.clip import (
 )
 from dynamicrafter_tpu_torch.models.resampler import Resampler, ResamplerConfig
 from dynamicrafter_tpu_torch.models.unet3d import UNetConfig, UNetModel
-from dynamicrafter_tpu_torch.models.vae import AutoencoderKL, DiagonalGaussian, VAEConfig
+from dynamicrafter_tpu_torch.models.vae import (
+    AutoencoderKL,
+    DiagonalGaussian,
+    VAEConfig,
+    decode_tiled,
+)
 from dynamicrafter_tpu_torch.ops.norms import keep_norms_fp32
 from dynamicrafter_tpu_torch.sampling.ddim import (
     CFGConditioning,
@@ -40,12 +46,18 @@ from dynamicrafter_tpu_torch.sampling.ddim import (
     make_cfg_denoiser,
 )
 from dynamicrafter_tpu_torch.utils.tokenizer import HashTokenizer, default_tokenizer
-from dynamicrafter_tpu_torch.utils.weights import init_normal_, load_reference_state_dict
+from dynamicrafter_tpu_torch.utils.weights import (
+    init_normal_,
+    load_reference_state_dict,
+    normalize_state_dict,
+)
 
 
 @dataclasses.dataclass
 class PipelineOutput:
-    videos: np.ndarray   # (B, 1, T, H, W, 3) float32 in [-1, 1]
+    videos: np.ndarray   # (B, n_samples, T, H, W, 3) float32 in [-1, 1]
+    # decoded DDIM intermediates (n_logs + 1, B, T, H, W, 3), with log_every_t
+    denoise_rows: Optional[np.ndarray] = None
 
 
 def _text_config(config: ModelConfig) -> CLIPTextConfig:
@@ -72,7 +84,9 @@ class LatentVisualDiffusion(nn.Module):
                 f"configs is ported (got {config.cond_stage_target!r}, "
                 f"{config.img_cond_stage_target!r})")
         if config.resampler is None:
-            raise NotImplementedError("ImageProjModel conditioning is not ported yet")
+            raise ValueError(
+                "the pipeline needs an image_proj_stage_config (the Resampler): the "
+                "UNet's per-frame image context comes from it")
         self.model = _Diffusion(UNetModel(UNetConfig.from_dict(config.unet)))
         self.first_stage_model = AutoencoderKL(VAEConfig.from_dict(config.vae))
         self.cond_stage_model = CLIPTextEncoder(_text_config(config))
@@ -82,10 +96,13 @@ class LatentVisualDiffusion(nn.Module):
 
 class DynamiCrafterPipeline:
     def __init__(self, config: ModelConfig, device, dtype: torch.dtype = torch.float32,
-                 tokenizer=None):
+                 tokenizer=None, tiled_vae_threshold: int = 64):
         """Builds the modules on `device` with uninitialised weights: call
-        `init_random` or `load_state_dict` (or use `from_checkpoint`)."""
+        `init_random` or `load_state_dict` (or use `from_checkpoint`).
+        Latents wider or taller than `tiled_vae_threshold` are decoded in
+        tiles of that size."""
         self.config = config
+        self.tiled_vae_threshold = tiled_vae_threshold
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but CUDA is not available")
@@ -148,8 +165,6 @@ class DynamiCrafterPipeline:
 
     def load_checkpoint(self, ckpt_path: str) -> None:
         """Load a released checkpoint (plain, 256-model or deepspeed format)."""
-        from dynamicrafter_tpu.utils.weights import normalize_state_dict
-
         self.load_state_dict(normalize_state_dict(
             torch.load(ckpt_path, map_location="cpu", weights_only=True)))
 
@@ -204,37 +219,64 @@ class DynamiCrafterPipeline:
         return z.reshape(b, t, *z.shape[1:])
 
     @torch.no_grad()
-    def decode_latents(self, z: torch.Tensor) -> torch.Tensor:
-        """z: (B, T, h, w, c) -> frames (B, T, H, W, 3) fp32, one frame at a
-        time when the config sets perframe_ae."""
-        b, t = z.shape[:2]
+    def decode_latents(self, z: torch.Tensor, perframe: Optional[bool] = None,
+                       tiled: Optional[bool] = None) -> torch.Tensor:
+        """z: (B, T, h, w, c) -> frames (B, T, H, W, 3) fp32. In tiles when
+        `tiled` (default: a latent side above `tiled_vae_threshold`), else
+        one frame at a time when `perframe` (default: the config's
+        perframe_ae), else all frames in one call: the JAX pipeline's order
+        of precedence."""
+        b, t, h, w, _ = z.shape
+        if perframe is None:
+            perframe = self.config.perframe_ae
+        if tiled is None:
+            tiled = max(h, w) > self.tiled_vae_threshold
         flat = z.reshape(b * t, *z.shape[2:]) / self.config.scale_factor
-        step = 1 if self.config.perframe_ae else b * t
-        out = torch.cat([self.vae.decode(flat[i:i + step]).float()
-                         for i in range(0, b * t, step)])
+        if tiled:
+            out = decode_tiled(self.vae.decode, flat, tile=self.tiled_vae_threshold,
+                               overlap=8, scale=self._latent_factor)
+        else:
+            step = 1 if perframe else b * t
+            out = torch.cat([self.vae.decode(flat[i:i + step]).float()
+                             for i in range(0, b * t, step)])
         return out.reshape(b, t, *out.shape[1:])
 
     @torch.no_grad()
     def build_conditioning(self, prompts: Sequence[str], videos: torch.Tensor,
                            encode_noise: torch.Tensor, *, cfg_scale: float = 7.5,
-                           fs: Optional[Sequence[int]] = None) -> CFGConditioning:
-        """Two-pass CFG conditioning [uncond, cond] (one pass when
-        cfg_scale == 1), with the first frame's latent repeated over T as
-        the hybrid concat (inference.py:238-276)."""
+                           multiple_cond_cfg: bool = False,
+                           cfg_img: Optional[float] = None,
+                           loop_or_interp: bool = False,
+                           fs: Optional[Sequence[int]] = None,
+                           negative_prompt: str = "") -> CFGConditioning:
+        """The CFG conditioning (reference inference.py:238-276): passes
+        [uncond, cond], or [uncond, uncond_img (no text, real image), cond]
+        with `multiple_cond_cfg`, or the one conditional pass when cfg_scale
+        == 1. The hybrid concat is the first frame's latent repeated over T,
+        or with `loop_or_interp` the first and last frames' latents with
+        zeros between. `negative_prompt` is the unconditional text."""
         b = videos.shape[0]
         img = videos[:, 0]
         img_ctx = self.embed_image_ctx(img)
         text_ctx = self.embed_text(prompts)
         z = self.encode_video(videos, encode_noise)
-        cc = z[:, :1].expand(z.shape)
+        if loop_or_interp:
+            cc = torch.zeros_like(z)
+            cc[:, 0], cc[:, -1] = z[:, 0], z[:, -1]
+        else:
+            cc = z[:, :1].expand(z.shape)
         passes_text, passes_img = [text_ctx], [img_ctx]
         if cfg_scale != 1.0:
             if self.config.uncond_type == "empty_seq":
-                uc_text = self.embed_text([""] * b)
+                uc_text = self.embed_text([negative_prompt] * b)
             else:
                 uc_text = torch.zeros_like(text_ctx)
             uc_img = self.embed_image_ctx(torch.zeros_like(img))
-            passes_text, passes_img = [uc_text, text_ctx], [uc_img, img_ctx]
+            if multiple_cond_cfg and (cfg_img or cfg_scale) != 1.0:
+                passes_text = [uc_text, uc_text, text_ctx]
+                passes_img = [uc_img, img_ctx, img_ctx]
+            else:
+                passes_text, passes_img = [uc_text, text_ctx], [uc_img, img_ctx]
         p = len(passes_text)
         fs_t = None
         if self.unet_config.fs_condition:
@@ -249,61 +291,104 @@ class DynamiCrafterPipeline:
 
     @torch.no_grad()
     def sample(self, prompts: Sequence[str], videos: np.ndarray, *, steps: int = 50,
-               cfg_scale: float = 7.5, eta: float = 1.0,
+               cfg_scale: float = 7.5, cfg_img: Optional[float] = None,
+               multiple_cond_cfg: bool = False, eta: float = 1.0,
                timestep_spacing: str = "uniform", guidance_rescale: float = 0.0,
-               fs: Optional[Sequence[int]] = None, seed: int = 123,
+               fs: Optional[Sequence[int]] = None, loop_or_interp: bool = False,
+               n_samples: int = 1, seed: int = 123,
                x_T: Optional[np.ndarray] = None,
                encode_noise: Optional[np.ndarray] = None, decode: bool = True,
-               timings: Optional[dict] = None):
-        """Image-guided synthesis, one sample per prompt. videos:
+               negative_prompt: str = "", sequential_cfg: bool = False,
+               mask: Optional[np.ndarray] = None,
+               x0_latents: Optional[np.ndarray] = None,
+               log_every_t: Optional[int] = None,
+               timings: Optional[dict] = None, peaks: Optional[dict] = None):
+        """Image-guided synthesis, `n_samples` per prompt. videos:
         (B, T, H, W, 3) in [-1, 1].
 
         Random draws come from one torch.Generator seeded with `seed`, in
-        this order: the VAE encode noise, x_T, the DDIM step noise.
-        `encode_noise` (B*T, h, w, z) and `x_T` (B, T, h, w, z) replace their
-        draws, so a test can feed the JAX pipeline's numbers. `timings`, when
-        given, receives the seconds of each stage (synchronised on the
-        device).
+        this order: the VAE encode noise; then for each sample its x_T, its
+        mask-blend noise and DDIM step noise step by step. `encode_noise`
+        (B*T, h, w, z) and `x_T` replace their draws, so a test can feed the
+        JAX pipeline's numbers; `x_T` is (B, T, h, w, z), shared by the
+        samples as in the JAX pipeline, or (B, n_samples, T, h, w, z).
+        `sequential_cfg` changes memory and speed, not the draws. mask,
+        x0_latents: (B, T, h, w, z), 1 = hold the latent to x0.
+        `timings`, when given, receives the seconds of each stage
+        (synchronised on the device), and `peaks` the peak bytes allocated
+        on a CUDA device during each stage.
 
-        Returns PipelineOutput, or the latents (B, 1, T, h, w, z) as numpy
-        when decode=False (the JAX pipeline's layout, n_samples = 1)."""
+        Returns PipelineOutput with videos (B, n_samples, T, H, W, 3) and,
+        with `log_every_t`, the decoded intermediates; or with decode=False
+        the latents (B, n_samples, T, h, w, z) as numpy, and with
+        `log_every_t` also the x_inter stack (n_logs + 1, B, T, h, w, z)
+        (the JAX pipeline's layouts). `log_every_t` needs n_samples == 1."""
+        if log_every_t is not None and n_samples != 1:
+            raise ValueError("log_every_t intermediates need n_samples=1")
         dev = self.device
         sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
         clock = {} if timings is None else timings
+
+        def stage_start() -> float:
+            if peaks is not None and dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            return time.perf_counter()
+
+        def stage_end(name: str, t0: float) -> None:
+            sync()
+            clock[name] = time.perf_counter() - t0
+            if peaks is not None and dev.type == "cuda":
+                peaks[name] = torch.cuda.max_memory_allocated(dev)
+
         gen = torch.Generator(device=dev).manual_seed(seed)
-        vids = torch.tensor(np.asarray(videos, dtype=np.float32), device=dev)
+        on_dev = lambda a: None if a is None else torch.tensor(
+            np.asarray(a, dtype=np.float32), device=dev)
+        vids = on_dev(videos)
         b, t, hh, ww, _ = vids.shape
         f = self._latent_factor
         lat_shape = (b, t, hh // f, ww // f, self.vae_config.z_channels)
 
-        t0 = time.perf_counter()
-        if encode_noise is None:
+        t0 = stage_start()
+        enc = on_dev(encode_noise)
+        if enc is None:
             enc = torch.randn((b * t, *lat_shape[2:]), generator=gen, device=dev)
-        else:
-            enc = torch.tensor(np.asarray(encode_noise, dtype=np.float32), device=dev)
-        cond = self.build_conditioning(prompts, vids, enc, cfg_scale=cfg_scale, fs=fs)
-        sync()
-        clock["conditioning"] = time.perf_counter() - t0
+        cond = self.build_conditioning(
+            prompts, vids, enc, cfg_scale=cfg_scale, multiple_cond_cfg=multiple_cond_cfg,
+            cfg_img=cfg_img, loop_or_interp=loop_or_interp, fs=fs,
+            negative_prompt=negative_prompt)
+        stage_end("conditioning", t0)
 
         settings = SamplerSettings(
             steps=steps, discretize=timestep_spacing, eta=eta, cfg_scale=cfg_scale,
-            guidance_rescale=guidance_rescale,
-            parameterization=self.config.parameterization)
+            cfg_img=cfg_img, guidance_rescale=guidance_rescale,
+            parameterization=self.config.parameterization, sequential_cfg=sequential_cfg)
         table = sched_lib.build_ddim_table(self.schedule, num_steps=steps,
                                            discretize=timestep_spacing, eta=eta)
-        t0 = time.perf_counter()
-        if x_T is None:
-            xt = torch.randn(lat_shape, generator=gen, device=dev)
-        else:
-            xt = torch.tensor(np.asarray(x_T, dtype=np.float32), device=dev)
-        z = ddim_sample(make_cfg_denoiser(self.unet, cond, settings), xt, self.schedule,
-                        table, settings, generator=gen)
-        sync()
-        clock["ddim"] = time.perf_counter() - t0
+        model_fn = make_cfg_denoiser(self.unet, cond, settings)
+        t0 = stage_start()
+        x_T = on_dev(x_T)
+        if x_T is not None and x_T.dim() == 5:
+            x_T = x_T[:, None].expand(b, n_samples, *x_T.shape[1:])
+        variants, inter = [], None
+        for k in range(n_samples):
+            xt = (torch.randn(lat_shape, generator=gen, device=dev) if x_T is None
+                  else x_T[:, k])
+            z = ddim_sample(model_fn, xt, self.schedule, table, settings, generator=gen,
+                            mask=on_dev(mask), x0=on_dev(x0_latents),
+                            log_every_t=log_every_t)
+            if log_every_t is not None:
+                z, inter = z[0], z[1]["x_inter"]
+            variants.append(z)
+        z_all = torch.stack(variants, dim=1)
+        stage_end("ddim", t0)
         if not decode:
-            return z[:, None].cpu().numpy()
-        t0 = time.perf_counter()
-        frames = self.decode_latents(z)
-        sync()
-        clock["decode"] = time.perf_counter() - t0
-        return PipelineOutput(videos=frames[:, None].cpu().numpy())
+            if log_every_t is not None:
+                return z_all.cpu().numpy(), inter.cpu().numpy()
+            return z_all.cpu().numpy()
+        t0 = stage_start()
+        frames = np.stack([self.decode_latents(z).cpu().numpy() for z in variants], axis=1)
+        rows = None
+        if log_every_t is not None:
+            rows = np.stack([self.decode_latents(x).cpu().numpy() for x in inter])
+        stage_end("decode", t0)
+        return PipelineOutput(videos=frames, denoise_rows=rows)

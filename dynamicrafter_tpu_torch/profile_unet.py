@@ -1,0 +1,126 @@
+"""Where one UNet call spends its device time, by kernel family.
+
+    python -m dynamicrafter_tpu_torch.profile_unet \
+        --config configs/inference_256_v1.0.yaml --batch 16 --height 256 --width 256
+
+Builds the full-width UNet of `--config` on the card with random N(0, 0.02)
+bf16 weights, runs `--iters` forward calls on a (batch, frames, h/8, w/8, 8)
+input under `torch.profiler`, and prints per call: the device milliseconds
+of each kernel family, the ten largest kernels, and the share of the
+window's wall time in which a kernel was running. `--batch` counts clips in
+the UNet call: 2 x prompts under batched CFG, the prompts alone under
+sequential CFG. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import subprocess
+import time
+from typing import Optional, Sequence
+
+import torch
+
+# first match wins; copies before elementwise (a copy is an elementwise kernel
+# by name), layout transposes before convolutions
+FAMILIES = (
+    ("K1 flash_fwd_kernel", ("flash_fwd_kernel",)),
+    ("K5 small_t_posmajor_kernel", ("small_t_posmajor_kernel",)),
+    ("K2 small_t_kernel", ("small_t_kernel",)),
+    ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("convolutions", ("conv", "fprop", "xmma", "cudnn", "implicit_gemm")),
+    ("GroupNorm + LayerNorm", ("RowwiseMoments", "GroupNorm", "group_norm", "layer_norm",
+                               "LayerNorm")),
+    ("softmax", ("softmax", "Softmax")),
+    ("dtype and layout copies", ("copy", "Copy", "CatArray")),
+    ("GEMMs", ("gemm", "nvjet", "cutlass", "cublas")),
+    ("reductions", ("reduce", "Reduce")),
+    ("elementwise", ("elementwise", "vectorized")),
+)
+
+
+def family(kernel_name: str) -> str:
+    for fam, keys in FAMILIES:
+        if any(k in kernel_name for k in keys):
+            return fam
+    return "other"
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    p = argparse.ArgumentParser()
+    p.add_argument("--config", required=True)
+    p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--frames", type=int, default=16)
+    p.add_argument("--height", type=int, default=320)
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--fs", type=int, default=24)
+    p.add_argument("--iters", type=int, default=3)
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_unet needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynamicrafter_tpu_torch.config import ModelConfig
+    from dynamicrafter_tpu_torch.models.unet3d import UNetConfig, UNetModel
+    from dynamicrafter_tpu_torch.ops.norms import keep_norms_fp32
+    from dynamicrafter_tpu_torch.utils.weights import init_normal_
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    cfg = ModelConfig.from_yaml(args.config)
+    with torch.device("meta"):
+        unet = UNetModel(UNetConfig.from_dict(cfg.unet))
+    unet = keep_norms_fp32(unet.to_empty(device=dev).to(torch.bfloat16)).eval()
+    init_normal_(unet.requires_grad_(False), gen, 0.02)
+    b, t = args.batch, args.frames
+    x = torch.randn(b, t, args.height // 8, args.width // 8, 8, device=dev, generator=gen)
+    ts = torch.full((b,), 500, dtype=torch.long, device=dev)
+    ctx_t = torch.randn(b, 77, 1024, device=dev, generator=gen)
+    ctx_i = torch.randn(b, t, 16, 1024, device=dev, generator=gen)
+    fs = torch.full((b,), args.fs, dtype=torch.long, device=dev)
+    run = lambda: unet(x, ts, context_text=ctx_t, context_img=ctx_i, fs=fs)
+    with torch.no_grad():
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            run()
+        torch.cuda.synchronize()
+        unprofiled_ms = 1e3 * (time.perf_counter() - t0) / args.iters
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.iters):
+                run()
+            torch.cuda.synchronize()
+            window_ms = 1e3 * (time.perf_counter() - t0)
+    by_family, by_kernel = collections.Counter(), collections.Counter()
+    n_kernels = 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = evt.cuda_time_total
+        by_family[family(evt.name)] += us / 1e3 / args.iters
+        by_kernel[evt.name] += us / 1e3 / args.iters
+        n_kernels += 1
+    total = sum(by_family.values())
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"profile_unet {args.config} input ({b}, {t}, {args.height // 8}, {args.width // 8}, 8) "
+          f"bf16 on {smi}: {unprofiled_ms:.1f} ms per call unprofiled; under the profiler "
+          f"{window_ms / args.iters:.1f} ms per call, device time {total:.1f} ms per call "
+          f"({100 * total * args.iters / window_ms:.1f} % of the window busy), "
+          f"{n_kernels // args.iters} kernels per call")
+    for fam, ms in by_family.most_common():
+        print(f"  {fam:<28s} {ms:9.2f} ms  {100 * ms / total:5.1f} %")
+    print("  largest kernels:")
+    for name, ms in by_kernel.most_common(10):
+        print(f"    {ms:8.2f} ms  {name[:110]}")
+    return {"families": dict(by_family), "device_ms": total, "unprofiled_ms": unprofiled_ms}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""DDIM sampling with batched classifier-free guidance.
+"""DDIM sampling with batched or sequential classifier-free guidance.
 
 Reference lvdm/models/samplers/ddim.py:134-279 (and ddim_multiplecond.py
 for the 3-pass mode); JAX twin dynamicrafter_tpu/sampling/ddim.py, whose
@@ -6,11 +6,18 @@ whole loop is one lax.scan. Here the loop is plain Python over the DDIM
 steps: PyTorch runs eagerly and each step is one batched UNet call, so the
 host loop costs nothing next to the step.
 
-The 2 (or 3) CFG passes run as one UNet call on a batch of P*B. Per-step
-scalars come from the float32 tables and are combined in float32, as in
-the JAX package. The combined model output is taken in fp32 whatever the
-UNet's dtype. Step noise (eta > 0) is either pre-drawn, `noise` of shape
-(S, *x.shape) in scan order, or drawn from an explicit torch.Generator.
+The 2 (or 3) CFG passes run as one UNet call on a batch of P*B, or, with
+`SamplerSettings.sequential_cfg`, as P calls on a batch of B (the peak
+activation memory of one pass: 576x1024 on one device). Per-step scalars
+come from the float32 tables and are combined in float32, as in the JAX
+package. The combined model output is taken in fp32 whatever the UNet's
+dtype.
+
+Random numbers: step noise (eta > 0) is either pre-drawn, `noise` of shape
+(S, *x.shape) in scan order, or drawn from an explicit torch.Generator; so
+is the noise of the mask blend (`mask_noise`). Within a step the blend
+draws before the update. The CFG mode draws nothing, so batched and
+sequential CFG see the same numbers.
 """
 from __future__ import annotations
 
@@ -36,6 +43,8 @@ class SamplerSettings:
     cfg_img: Optional[float] = None       # multi-cond second axis; None = off
     guidance_rescale: float = 0.0
     parameterization: str = "v"
+    clean_cond: bool = False              # mask blending uses clean x0
+    sequential_cfg: bool = False          # one UNet call per CFG pass
 
 
 class CFGConditioning(NamedTuple):
@@ -54,26 +63,37 @@ class CFGConditioning(NamedTuple):
 
 def make_cfg_denoiser(unet: Callable, cond: CFGConditioning,
                       settings: SamplerSettings) -> Callable:
-    """model_fn(x, t) -> CFG-combined fp32 model output, with one UNet call:
+    """model_fn(x, t) -> CFG-combined fp32 model output:
       standard:  e = e_uc + s * (e_c - e_uc)                     (ddim.py:226)
       multicond: e = e_uc + s_img * (e_uc_img - e_uc) + s * (e_c - e_uc_img)
-    then the optional guidance rescale against the conditional pass."""
+    then the optional guidance rescale against the conditional pass. The
+    passes run as one UNet call, or one call each under
+    `settings.sequential_cfg`."""
     p = cond.num_passes
 
     def model_fn(x: torch.Tensor, t: int) -> torch.Tensor:
         b = x.shape[0]
-        xs = x.unsqueeze(0).expand(p, *x.shape)
-        if cond.concat is not None:
-            xs = torch.cat([xs, cond.concat.to(x.dtype)], dim=-1)
-        flat = lambda a: a.reshape(p * b, *a.shape[2:])
-        out = unet(
-            flat(xs),
-            torch.full((p * b,), int(t), dtype=torch.long, device=x.device),
-            context_text=flat(cond.context_text),
-            context_img=None if cond.context_img is None else flat(cond.context_img),
-            fs=None if cond.fs is None else cond.fs.repeat(p),
-        ).float()
-        out = out.reshape(p, b, *out.shape[1:])
+        if settings.sequential_cfg and p > 1:
+            ts = torch.full((b,), int(t), dtype=torch.long, device=x.device)
+            out = torch.stack([unet(
+                x if cond.concat is None
+                else torch.cat([x, cond.concat[i].to(x.dtype)], dim=-1),
+                ts, context_text=cond.context_text[i],
+                context_img=None if cond.context_img is None else cond.context_img[i],
+                fs=cond.fs).float() for i in range(p)])
+        else:
+            xs = x.unsqueeze(0).expand(p, *x.shape)
+            if cond.concat is not None:
+                xs = torch.cat([xs, cond.concat.to(x.dtype)], dim=-1)
+            flat = lambda a: a.reshape(p * b, *a.shape[2:])
+            out = unet(
+                flat(xs),
+                torch.full((p * b,), int(t), dtype=torch.long, device=x.device),
+                context_text=flat(cond.context_text),
+                context_img=None if cond.context_img is None else flat(cond.context_img),
+                fs=None if cond.fs is None else cond.fs.repeat(p),
+            ).float()
+            out = out.reshape(p, b, *out.shape[1:])
         if p == 1:
             return out[0]
         if p == 2:
@@ -90,20 +110,63 @@ def make_cfg_denoiser(unet: Callable, cond: CFGConditioning,
     return model_fn
 
 
+def make_mask_blend(schedule: DiffusionSchedule, settings: SamplerSettings,
+                    mask: Optional[torch.Tensor], x0: Optional[torch.Tensor]) -> Callable:
+    """Inpaint-style latent blending (reference ddim.py:173-180): before each
+    model call, replace the region where mask == 1 with x0, noised to the
+    step's timestep unless `settings.clean_cond`. blend(x, t, mask_noise,
+    generator) -> x; `mask_noise` None draws from the generator."""
+
+    def blend(x: torch.Tensor, t: int, mask_noise: Optional[torch.Tensor],
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+        if mask is None:
+            return x
+        if x0 is None:
+            raise ValueError("mask blending needs x0")
+        if settings.clean_cond:
+            img_orig = x0
+        else:
+            if mask_noise is None:
+                mask_noise = torch.randn(x.shape, generator=generator, device=x.device,
+                                         dtype=x.dtype)
+            ts = torch.full((x.shape[0],), int(t), dtype=torch.long, device=x.device)
+            img_orig = schedule.q_sample(x0, ts, mask_noise.to(device=x.device, dtype=x.dtype))
+        return img_orig * mask + (1.0 - mask) * x
+
+    return blend
+
+
 @torch.no_grad()
 def ddim_sample(model_fn: Callable, x_T: torch.Tensor, schedule: DiffusionSchedule,
                 table: DDIMTable, settings: SamplerSettings, *,
                 noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None,
+                x0: Optional[torch.Tensor] = None,
+                mask_noise: Optional[torch.Tensor] = None,
+                log_every_t: Optional[int] = None):
     """Run the DDIM loop from x_T (fp32) over the table's steps, highest
-    timestep first; returns the final latent."""
+    timestep first; returns the final latent.
+
+    mask, x0: (B, T, h, w, c); where mask == 1 the latent is held to x0
+    (noised per step from `mask_noise` (S, *x.shape) or the generator).
+
+    log_every_t: also return the reference sampler's intermediates
+    (ddim.py:157, 199-201), {"x_inter", "pred_x0"}, each (n_logs + 1,
+    *x.shape) starting with x_T, saved whenever the descending step index
+    satisfies index % log_every_t == 0 or index == steps - 1."""
     s = table.num_steps
     x = x_T.float()
     one = np.float32(1.0)
+    blend = make_mask_blend(schedule, settings,
+                            None if mask is None else mask.to(x),
+                            None if x0 is None else x0.to(x))
+    x_inter, pred_inter = [x], [x]
     for i, idx in enumerate(range(s - 1, -1, -1)):
         t = int(table.timesteps[idx])
         a_t, a_prev = table.alphas[idx], table.alphas_prev[idx]
         sigma = table.sigmas[idx]
+        x = blend(x, t, None if mask_noise is None else mask_noise[i], generator)
         out = model_fn(x, t)
         if settings.parameterization == "v":
             e_t = schedule.predict_eps_from_z_and_v(x, t, out)
@@ -122,4 +185,38 @@ def ddim_sample(model_fn: Callable, x_T: torch.Tensor, schedule: DiffusionSchedu
                 n = torch.randn(x.shape, generator=generator, device=x.device,
                                 dtype=x.dtype)
             x = x + float(sigma) * n
+        if log_every_t is not None and (idx % log_every_t == 0 or idx == s - 1):
+            x_inter.append(x)
+            pred_inter.append(pred_x0)
+    if log_every_t is not None:
+        return x, {"x_inter": torch.stack(x_inter), "pred_x0": torch.stack(pred_inter)}
     return x
+
+
+def ddim_decode(model_fn: Callable, x_latent: torch.Tensor, schedule: DiffusionSchedule,
+                table: DDIMTable, settings: SamplerSettings, t_start: int, *,
+                noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """img2img: denoise from DDIM step t_start down to 0 (reference
+    ddim.py:281-301): the same loop over the first t_start entries of the
+    table."""
+    cut = lambda a: None if a is None else a[:t_start]
+    truncated = DDIMTable(
+        timesteps=table.timesteps[:t_start], alphas=table.alphas[:t_start],
+        alphas_prev=table.alphas_prev[:t_start],
+        sqrt_one_minus_alphas=table.sqrt_one_minus_alphas[:t_start],
+        sigmas=table.sigmas[:t_start], scale_arr=cut(table.scale_arr),
+        scale_arr_prev=cut(table.scale_arr_prev))
+    return ddim_sample(model_fn, x_latent, schedule, truncated, settings, noise=noise,
+                       generator=generator)
+
+
+def stochastic_encode(table: DDIMTable, x0: torch.Tensor, t_index: torch.Tensor,
+                      noise: torch.Tensor) -> torch.Tensor:
+    """img2img entry: noise x0 to the DDIM step t_index (B,) (reference
+    ddim.py:303-317)."""
+    shape = (-1,) + (1,) * (x0.dim() - 1)
+    idx = t_index.cpu().numpy()
+    ga = torch.as_tensor(np.sqrt(table.alphas)[idx], device=x0.device).reshape(shape)
+    g1 = torch.as_tensor(table.sqrt_one_minus_alphas[idx], device=x0.device).reshape(shape)
+    return ga * x0 + g1 * noise

@@ -56,7 +56,7 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def _build_dataset(split: dict, args, temporal_length: int, log):
-    from dynamicrafter_tpu.data.webvid import SyntheticVideoDataset, WebVidDataset
+    from dynamicrafter_tpu_torch.data.webvid import SyntheticVideoDataset, WebVidDataset
 
     if args.synthetic_data or not split:
         log.info("using SyntheticVideoDataset")
@@ -83,7 +83,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     per micro-step), "step_seconds" (host wall time of each micro-step,
     synchronised on the device)} for callers that drive it in-process."""
     args = get_parser().parse_args(argv)
-    from dynamicrafter_tpu.data.webvid import DataLoader
+    from dynamicrafter_tpu_torch.data.webvid import DataLoader
     from dynamicrafter_tpu_torch.config import TrainingConfig
     from dynamicrafter_tpu_torch.pipeline import DynamiCrafterPipeline
     from dynamicrafter_tpu_torch.training.checkpoints import CheckpointManager

@@ -2,7 +2,8 @@
 
 Prompt-dir convention of the reference (scripts/evaluation/inference.py:
 71-113) and of dynamicrafter_tpu/utils/video.py: one sorted .txt of prompts
-(one per line), images sorted by name paired with the prompts.
+(one per line), images sorted by name paired with the prompts, two images
+per prompt in interpolation mode.
 
 PNG is decoded with zlib and numpy (8-bit gray, gray+alpha, RGB, RGBA or
 palette, non-interlaced). Resizing follows Pillow's BILINEAR resample (a
@@ -17,7 +18,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -146,8 +147,11 @@ def load_image(path: str, video_size: Tuple[int, int]) -> np.ndarray:
 
 
 def load_prompt_dir(data_dir: str, video_size: Tuple[int, int] = (256, 256),
-                    video_frames: int = 16):
-    """-> (filenames, videos (N, T, H, W, 3) in [-1, 1], prompts)."""
+                    video_frames: int = 16, interp: bool = False):
+    """-> (filenames, videos (N, T, H, W, 3) in [-1, 1], prompts). Each
+    prompt's image is repeated over the T frames; with `interp` a prompt
+    takes two images, the first filling the first half of the frames and
+    the second the rest (only frames 0 and -1 condition the model)."""
     files = sorted(os.listdir(data_dir))
     txts = [f for f in files if f.endswith(".txt")]
     if not txts:
@@ -155,12 +159,21 @@ def load_prompt_dir(data_dir: str, video_size: Tuple[int, int] = (256, 256),
     with open(os.path.join(data_dir, txts[0])) as f:
         prompts = [line.strip() for line in f if line.strip()]
     images = [f for f in files if f.endswith(IMG_EXTS)]
-    if len(images) < len(prompts):
-        raise FileNotFoundError(f"{data_dir}: {len(prompts)} prompts but "
-                                f"{len(images)} PNG images")
-    videos = [np.stack([load_image(os.path.join(data_dir, images[i]), video_size)]
-                       * video_frames) for i in range(len(prompts))]
-    return images[:len(prompts)], np.stack(videos), prompts
+    per = 2 if interp else 1
+    if len(images) < per * len(prompts):
+        raise FileNotFoundError(f"{data_dir}: {len(prompts)} prompts need "
+                                f"{per * len(prompts)} PNG images, found {len(images)}")
+    load = lambda name: load_image(os.path.join(data_dir, name), video_size)
+    videos = []
+    for i in range(len(prompts)):
+        if interp:
+            half = video_frames // 2
+            frames = [load(images[2 * i])] * half + \
+                [load(images[2 * i + 1])] * (video_frames - half)
+        else:
+            frames = [load(images[i])] * video_frames
+        videos.append(np.stack(frames))
+    return images[:per * len(prompts):per], np.stack(videos), prompts
 
 
 def to_uint8(frames: np.ndarray) -> np.ndarray:
@@ -186,18 +199,50 @@ def save_video(frames: np.ndarray, path: str, fps: int = 8) -> None:
         writer.release()
 
 
+def video_grid(videos: np.ndarray, n_cols: Optional[int] = None) -> np.ndarray:
+    """Tile N clips (N, T, H, W, C) into one clip (T, rows*H, cols*W, C),
+    padding the last row with -1 (black)."""
+    n, t, h, w, c = videos.shape
+    cols = n_cols or int(np.ceil(np.sqrt(n)))
+    rows = int(np.ceil(n / cols))
+    pad = rows * cols - n
+    if pad:
+        videos = np.concatenate([videos, -np.ones((pad, t, h, w, c), videos.dtype)], axis=0)
+    grid = videos.reshape(rows, cols, t, h, w, c)
+    return grid.transpose(2, 0, 3, 1, 4, 5).reshape(t, rows * h, cols * w, c)
+
+
+def save_video_grid(videos: np.ndarray, path: str, fps: int = 8,
+                    n_cols: Optional[int] = None) -> None:
+    """(N, T, H, W, 3) float [-1, 1] -> one grid mp4 (needs OpenCV)."""
+    save_video(video_grid(videos, n_cols), path, fps=fps)
+
+
+def make_denoise_grid(rows: np.ndarray) -> np.ndarray:
+    """(n_logs, T, H, W, 3) decoded DDIM intermediates of one clip -> one
+    image (n_logs*H, T*W, 3): a row per logged step, frames left to right
+    (the reference's _get_denoise_row_from_list layout)."""
+    n, t, h, w, c = rows.shape
+    return rows.transpose(0, 2, 1, 3, 4).reshape(n * h, t * w, c)
+
+
 def save_results(videos: np.ndarray, filenames: Sequence[str], savedir: str,
                  save_format: str = "npy", fps: int = 10) -> List[str]:
-    """videos: (B, 1, T, H, W, 3) in [-1, 1]. Always writes `<stem>.npy`
-    (uint8 (T, H, W, 3)); also `<stem>.mp4` for save_format "mp4"."""
+    """videos: (B, n_samples, T, H, W, 3) in [-1, 1]. Always writes
+    `<stem>.npy` (uint8 (T, H, W, 3)), `<stem>_sample<k>.npy` when
+    n_samples > 1; also the same names as `.mp4` at `fps` for save_format
+    "mp4"."""
     paths = []
     os.makedirs(savedir, exist_ok=True)
     for b in range(videos.shape[0]):
-        base = os.path.join(savedir, os.path.splitext(os.path.basename(filenames[b]))[0])
-        frames = to_uint8(videos[b, 0])
-        np.save(base + ".npy", frames)
-        paths.append(base + ".npy")
-        if save_format == "mp4":
-            save_video(frames, base + ".mp4", fps=fps)
-            paths.append(base + ".mp4")
+        stem = os.path.splitext(os.path.basename(filenames[b]))[0]
+        for k in range(videos.shape[1]):
+            suffix = f"_sample{k}" if videos.shape[1] > 1 else ""
+            base = os.path.join(savedir, stem + suffix)
+            frames = to_uint8(videos[b, k])
+            np.save(base + ".npy", frames)
+            paths.append(base + ".npy")
+            if save_format == "mp4":
+                save_video(frames, base + ".mp4", fps=fps)
+                paths.append(base + ".mp4")
     return paths

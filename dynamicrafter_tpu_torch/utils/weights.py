@@ -3,8 +3,9 @@
 The port's `state_dict` keys are the released checkpoint keys, so a flat
 `{reference_key: array}` dict loads with no converter: either the output of
 `dynamicrafter_tpu.utils.export.export_state_dict` (JAX params carried
-across as numpy) or a released checkpoint after
-`dynamicrafter_tpu.utils.weights.normalize_state_dict`.
+across as numpy) or a released checkpoint after `normalize_state_dict`
+(the JAX package's `utils/weights.py::normalize_state_dict`, kept here as
+the port's own copy).
 
 Some key families in a checkpoint belong to modules the port never runs.
 They are dropped by name through `DONOR_ONLY` (the same families
@@ -14,7 +15,7 @@ tree); any other missing or unexpected key is an error.
 from __future__ import annotations
 
 import re
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -42,6 +43,23 @@ DONOR_ONLY = (
     re.compile(r"^first_stage_model\.loss\..*"),
 )
 _TEXT_BLOCK = re.compile(r"^cond_stage_model\.model\.transformer\.resblocks\.(\d+)\.")
+
+
+_DEEPSPEED_PREFIX = "_forward_module."
+
+
+def normalize_state_dict(sd: Mapping) -> Dict[str, object]:
+    """Undo the three source formats of a raw checkpoint dict (reference
+    scripts/evaluation/inference.py:36-59, funcs.py:103-124):
+      1. plain      {"state_dict": {keys}};
+      2. 256 model  the same, with framestride_embed renamed fps_embedding;
+      3. deepspeed  {"module": {"_forward_module.<key>": tensor}}.
+    Values are passed through untouched."""
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    elif "module" in sd and isinstance(sd["module"], Mapping):
+        sd = {k.removeprefix(_DEEPSPEED_PREFIX): v for k, v in sd["module"].items()}
+    return {k.replace("framestride_embed", "fps_embedding"): v for k, v in sd.items()}
 
 
 def donor_only(key: str, n_text_blocks: Optional[int] = None) -> bool:

@@ -61,8 +61,11 @@ def test_k1_kernel_matches_plain(cuda, dtype, tol, n, lq, lk, h):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("b,t,g,h", [(2, 16, 2560, 5), (2, 16, 40, 20), (1, 5, 37, 2)])
+@pytest.mark.parametrize("b,t,g,h", [(2, 16, 2560, 5), (2, 16, 40, 20), (1, 5, 37, 2),
+                                     (1, 16, 9216, 5), (16, 16, 1024, 5)])
 def test_k2_kernel_matches_plain(cuda, dtype, tol, b, t, g, h):
+    """The 320 x 512 shapes, a ragged one, and the largest of the 576 x 1024
+    (G = 9216) and 256 x 256 --bs 8 (B = 16) paths."""
     q, k, v = _qkv((b, t, g, h * 64), dtype, cuda)
     before = tsmall.small_t_fwd_tmajor.launches
     out = tsmall.small_t_fwd_tmajor(q, k, v, h, 0.125)
@@ -70,6 +73,47 @@ def test_k2_kernel_matches_plain(cuda, dtype, tol, b, t, g, h):
     torch.cuda.synchronize()
     assert tsmall.small_t_fwd_tmajor.launches == before + 1
     assert _rel(out, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("g,t,h,d", [(256, 16, 20, 64), (37, 8, 3, 64), (5, 32, 2, 32),
+                                     (130, 1, 1, 8), (19, 5, 2, 64)])
+def test_k5_kernel_matches_plain(cuda, dtype, tol, g, t, h, d):
+    """The 256 x 256 middle-block shape, and ragged cases: G not a multiple of
+    the row tile, T = 1, 5, 8 and 32, other head counts and widths."""
+    q, k, v = _qkv((g, t, h * d), dtype, cuda)
+    before = tsmall.small_t_fwd.launches
+    out = tsmall.small_t_fwd(q, k, v, h, d ** -0.5)
+    ref = tsmall.small_t_fwd_plain(q.float(), k.float(), v.float(), h, d ** -0.5)
+    torch.cuda.synchronize()
+    assert tsmall.small_t_fwd.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _rel(out, ref) <= tol
+
+
+def test_k5_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(4, 33, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="T=33"):
+        tsmall.small_t_fwd(q, q, q, 1, 0.125)
+    q = torch.zeros(4, 16, 2 * 12, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        tsmall.small_t_fwd(q, q, q, 2, 0.125)
+    q = torch.zeros(4, 16, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsmall.small_t_fwd(q.transpose(0, 1), q.transpose(0, 1), q.transpose(0, 1), 1, 0.125)
+    with pytest.raises(TypeError, match="dtype"):
+        tsmall.small_t_fwd(q.half(), q.half(), q.half(), 1, 0.125)
+
+
+@pytest.mark.parametrize("n,l,h", [(2, 9216, 5), (2, 2304, 10)])
+def test_k1_at_the_1024_shapes(cuda, n, l, h):
+    """The 576 x 1024 model's spatial self-attention lengths, at a small N
+    (the plain version materialises N*H*L^2 logits)."""
+    q, k, v = _qkv((n, l, h * 64), torch.bfloat16, cuda)
+    out = tflash.flash_fwd(q, k, v, h, 0.125)
+    ref = tflash.flash_fwd_plain(q.float(), k.float(), v.float(), h, 0.125)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 1e-2
 
 
 def test_k1_refuses_other_head_dims(cuda):
@@ -131,14 +175,24 @@ def _weight_grads(module, run, backend):
             for name, p in module.named_parameters()}
 
 
-@pytest.mark.parametrize("kind", ["spatial", "temporal"])
+@pytest.mark.parametrize("kind", ["spatial", "temporal", "middle256"])
 def test_attention_weights_receive_kernel_gradients(cuda, kind):
-    """A backward pass through K3/K4 (spatial, L = 2560) and K2 (temporal,
-    T = 16) reaches to_q, to_k and to_v of every self-attention, with the
-    plain backend's gradients. Before K1 and K2 were differentiable, the
+    """A backward pass through K3/K4 (spatial, L = 2560), K2 (temporal,
+    T = 16) and K5 (the 256 x 256 middle block at 16 clips: 256 frames of
+    4 x 4 tokens) reaches to_q, to_k and to_v of every self-attention, with
+    the plain backend's gradients. Before K1 and K2 were differentiable, the
     kernel outputs had no grad_fn and these gradients were None."""
     torch.manual_seed(0)
-    if kind == "spatial":
+    if kind == "middle256":
+        mod = SpatialTransformer(1280, 20, 64, context_dim=1024, image_cross_attention=True)
+        x = torch.randn(256, 1280, 4, 4, device=cuda)
+        ctx = (torch.randn(16, 77, 1024, device=cuda),
+               torch.randn(16, 16, 16, 1024, device=cuda))
+        # the image cross-attention has 16 context tokens per frame, the
+        # shape of q, and takes K5 as well
+        attns = ["transformer_blocks.0.attn1"]
+        counter = tsmall.small_t_fwd
+    elif kind == "spatial":
         mod = SpatialTransformer(320, 5, 64, context_dim=1024, image_cross_attention=True)
         x = torch.randn(2, 320, 40, 64, device=cuda)
         ctx = (torch.randn(1, 77, 1024, device=cuda), torch.randn(1, 2, 16, 1024, device=cuda))
@@ -151,17 +205,21 @@ def test_attention_weights_receive_kernel_gradients(cuda, kind):
         counter = tsmall.small_t_fwd_tmajor
     mod = keep_norms_fp32(mod.to(cuda, torch.bfloat16))
     xb = x.to(torch.bfloat16)
-    run = (lambda: mod(xb, (ctx[0].bfloat16(), ctx[1].bfloat16()), 2)) if kind == "spatial" \
-        else (lambda: mod(xb, 16))
+    if kind == "temporal":
+        run = lambda: mod(xb, 16)
+    else:
+        frames = 2 if kind == "spatial" else 16
+        run = lambda: mod(xb, (ctx[0].bfloat16(), ctx[1].bfloat16()), frames)
     before = counter.launches
     got = _weight_grads(mod, run, "auto")
     assert counter.launches > before
     ref = _weight_grads(mod, run, "plain")
-    for a in attns:
-        for proj in ("to_q", "to_k", "to_v"):
-            name = f"{a}.{proj}.weight"
-            assert got[name] is not None, name
-            assert _rel(got[name], ref[name]) <= 2e-2, (name, _rel(got[name], ref[name]))
+    names = [f"{a}.{proj}.weight" for a in attns for proj in ("to_q", "to_k", "to_v")]
+    if kind == "middle256":
+        names += [f"transformer_blocks.0.attn2.{p}.weight" for p in ("to_k_ip", "to_v_ip")]
+    for name in names:
+        assert got[name] is not None, name
+        assert _rel(got[name], ref[name]) <= 2e-2, (name, _rel(got[name], ref[name]))
 
 
 def test_k3_k4_refuse_other_head_dims(cuda):

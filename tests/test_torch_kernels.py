@@ -91,6 +91,8 @@ def test_routing_rule(monkeypatch):
                         calls.append(("k1", q.shape[-3])) or q)
     monkeypatch.setattr(tattn, "small_t_attention_tmajor", lambda q, k, v, scale=None:
                         calls.append(("k2", q.shape[1])) or q)
+    monkeypatch.setattr(tattn, "small_t_attention", lambda q, k, v, scale=None:
+                        calls.append(("k5", tuple(q.shape[:-2]))) or q)
     z = lambda *s: torch.zeros(*s)
     tattn.dot_product_attention(z(1, 2048, 1, 64), z(1, 2048, 1, 64), z(1, 2048, 1, 64))
     tattn.dot_product_attention(z(1, 640, 1, 64), z(1, 640, 1, 64), z(1, 640, 1, 64))
@@ -101,6 +103,33 @@ def test_routing_rule(monkeypatch):
         tattn.dot_product_attention(z(1, 2048, 1, 64), z(1, 2048, 1, 64), z(1, 2048, 1, 64))
         tattn.attention_axis1(z(1, 16, 4, 1, 64), z(1, 16, 4, 1, 64), z(1, 16, 4, 1, 64))
     assert calls == [("k1", 2048), ("k2", 16)]
+    # K5: unmasked q, k, v of one shape, at most 32 tokens, any number of
+    # rows of leading batch (the 256 x 256 middle block at 16 clips of 16
+    # frames, and at one clip: one shape takes one path at every batch size)
+    del calls[:]
+    x = z(16, 16, 16, 2, 8)
+    tattn.dot_product_attention(x, x, x)
+    tattn.dot_product_attention(z(256, 5, 2, 8), z(256, 5, 2, 8), z(256, 5, 2, 8))
+    y = z(255, 16, 2, 8)
+    tattn.dot_product_attention(y, y, y)                                     # 255 rows
+    y = z(2, 16, 16, 2, 8)
+    tattn.dot_product_attention(y, y, y)                                     # --bs 1
+    assert calls == [("k5", (16, 16, 16)), ("k5", (256, 5)), ("k5", (255, 16)),
+                     ("k5", (2, 16, 16))]
+    del calls[:]
+    tattn.dot_product_attention(x, x, x, mask=torch.ones(16, 16, dtype=torch.bool))
+    tattn.dot_product_attention(x, z(16, 16, 4, 2, 8), z(16, 16, 4, 2, 8))   # cross lengths
+    tattn.dot_product_attention(x, z(16, 16, 2, 8), z(16, 16, 2, 8))         # shared K/V
+    y = z(16, 16, 16, 2, 6)
+    tattn.dot_product_attention(y, y, y)                     # 24-byte head rows
+    y = z(16, 16, 33, 2, 8)
+    tattn.dot_product_attention(y, y, y)                                     # 33 tokens
+    y = z(256, 2, 8)
+    tattn.dot_product_attention(y, y, y)                                     # 3 dims
+    with tattn.use_backend("plain"):
+        tattn.dot_product_attention(x, x, x)
+    tattn.dot_product_attention(x, x, x, backend="plain")
+    assert calls == []
 
 
 def test_missing_nvcc_is_a_clear_error(monkeypatch):
@@ -126,6 +155,8 @@ def test_wrappers_refuse_other_devices():
     m5 = torch.empty(1, 16, 4, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tsmall.small_t_fwd_tmajor(m5, m5, m5, 1, 0.125)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsmall.small_t_fwd(m, m, m, 1, 0.125)
 
 
 def _head_major(x, heads):
@@ -207,7 +238,7 @@ def test_small_t_attention_grads_match_jax():
 
 
 def test_wrappers_without_grad_take_the_inference_path(monkeypatch):
-    """No input needs a gradient: K1 and K2 as before, not the autograd
+    """No input needs a gradient: K1, K2 and K5 as before, not the autograd
     entries (so the sampler's launch counts stay 5 and 34 per UNet call)."""
     calls = []
     monkeypatch.setattr(tflash, "flash_fwd", lambda *a: calls.append("k1") or a[0])
@@ -215,8 +246,15 @@ def test_wrappers_without_grad_take_the_inference_path(monkeypatch):
     monkeypatch.setattr(tsmall, "small_t_fwd_tmajor", lambda *a: calls.append("k2") or a[0])
     x = torch.zeros(1, 64, 1, 64)
     tflash.flash_attention(x, x, x)
+    monkeypatch.setattr(tsmall, "small_t_fwd", lambda *a: calls.append("k5") or a[0])
+    monkeypatch.setattr(tsmall.SmallTAttention, "apply",
+                        lambda *a: calls.append("autograd") or a[0])
     x5 = torch.zeros(1, 4, 3, 1, 64)
     tsmall.small_t_attention_tmajor(x5, x5, x5)
+    tsmall.small_t_attention(x5, x5, x5)
     with torch.no_grad():
         tflash.flash_attention(x.requires_grad_(), x, x)
-    assert calls == ["k1", "k2", "k1"]
+        tsmall.small_t_attention(x5.requires_grad_(), x5, x5)
+    assert calls == ["k1", "k2", "k5", "k1", "k5"]
+    tsmall.small_t_attention(x5, x5, x5)
+    assert calls[-1] == "autograd"
