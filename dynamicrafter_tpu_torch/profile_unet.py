@@ -9,7 +9,10 @@ input under `torch.profiler`, and prints per call: the device milliseconds
 of each kernel family, the ten largest kernels, and the share of the
 window's wall time in which a kernel was running. `--batch` counts clips in
 the UNet call: 2 x prompts under batched CFG, the prompts alone under
-sequential CFG. Needs a CUDA device.
+sequential CFG. With `--shallow` the profiled call is the DeepCache shallow
+forward (`cache=` the deep feature of one full call on the same input): the
+call that N - 1 of every N sampler steps make under `--deepcache N`. Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -56,6 +59,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--fs", type=int, default=24)
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--shallow", action="store_true",
+                   help="profile the DeepCache shallow forward instead of the full one")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_unet needs a CUDA device")
@@ -80,8 +85,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ctx_t = torch.randn(b, 77, 1024, device=dev, generator=gen)
     ctx_i = torch.randn(b, t, 16, 1024, device=dev, generator=gen)
     fs = torch.full((b,), args.fs, dtype=torch.long, device=dev)
-    run = lambda: unet(x, ts, context_text=ctx_t, context_img=ctx_i, fs=fs)
+    kw = dict(context_text=ctx_t, context_img=ctx_i, fs=fs)
     with torch.no_grad():
+        if args.shallow:
+            kw["cache"] = unet(x, ts, return_cache=True, **kw)[1]
+        run = lambda: unet(x, ts, **kw)
         run()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -109,7 +117,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     total = sum(by_family.values())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(f"profile_unet {args.config} input ({b}, {t}, {args.height // 8}, {args.width // 8}, 8) "
+    print(f"profile_unet {args.config} {'shallow (DeepCache) ' if args.shallow else ''}input ({b}, {t}, {args.height // 8}, {args.width // 8}, 8) "
           f"bf16 on {smi}: {unprofiled_ms:.1f} ms per call unprofiled; under the profiler "
           f"{window_ms / args.iters:.1f} ms per call, device time {total:.1f} ms per call "
           f"({100 * total * args.iters / window_ms:.1f} % of the window busy), "

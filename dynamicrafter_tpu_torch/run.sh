@@ -3,7 +3,9 @@
 # scripts/run.sh with the same flags).
 # usage: bash dynamicrafter_tpu_torch/run.sh <256|512|1024> [ckpt_path] [prompt_dir] [extra flags]
 # A missing checkpoint is an error; a smoke run without weights passes
-# --random_init among the extra flags.
+# --random_init among the extra flags. Other samplers go there too (a later
+# flag overrides the preset's): --sampler dpm --ddim_steps 30, --sampler unipc
+# --solver_order 2 --ddim_steps 20, --deepcache 5.
 set -e
 RES=${1:-512}
 CKPT=${2:-checkpoints/dynamicrafter_${RES}_v1/model.ckpt}

@@ -13,6 +13,14 @@ come from the float32 tables and are combined in float32, as in the JAX
 package. The combined model output is taken in fp32 whatever the UNet's
 dtype.
 
+DeepCache (`SamplerSettings.deepcache` = N > 1, an opt-in approximation
+with no reference counterpart): the loop runs the full UNet on the first of
+every N steps, keeps the deep feature it returns, and runs the UNet's
+shallow forward from that feature on the other N - 1. `SamplerSettings` also
+names the sampler ("ddim", or "dpm" / "unipc" of `sampling/dpm.py` and
+`sampling/unipc.py`, which share `make_cfg_denoiser`, `make_mask_blend` and
+`reject_ode_unsupported` with this module).
+
 Random numbers: step noise (eta > 0) is either pre-drawn, `noise` of shape
 (S, *x.shape) in scan order, or drawn from an explicit torch.Generator; so
 is the noise of the mask blend (`mask_noise`). Within a step the blend
@@ -45,6 +53,16 @@ class SamplerSettings:
     parameterization: str = "v"
     clean_cond: bool = False              # mask blending uses clean x0
     sequential_cfg: bool = False          # one UNet call per CFG pass
+    deepcache: int = 1                    # N > 1: run the UNet's deep levels
+                                          # every N steps and reuse the cached
+                                          # deep feature in between (DeepCache,
+                                          # Ma et al. CVPR'24; ddim only, an
+                                          # opt-in approximation)
+    sampler: str = "ddim"                 # "ddim", "dpm" = DPM-Solver++(2M)
+                                          # (sampling/dpm.py) or "unipc"
+                                          # (sampling/unipc.py)
+    solver_order: int = 2                 # unipc only: 1..3
+    use_corrector: bool = True            # unipc only: apply the corrector
 
 
 class CFGConditioning(NamedTuple):
@@ -63,24 +81,43 @@ class CFGConditioning(NamedTuple):
 
 def make_cfg_denoiser(unet: Callable, cond: CFGConditioning,
                       settings: SamplerSettings) -> Callable:
-    """model_fn(x, t) -> CFG-combined fp32 model output:
+    """model_fn(x, t, cache=None, return_cache=False) -> CFG-combined fp32
+    model output:
       standard:  e = e_uc + s * (e_c - e_uc)                     (ddim.py:226)
       multicond: e = e_uc + s_img * (e_uc_img - e_uc) + s * (e_c - e_uc_img)
     then the optional guidance rescale against the conditional pass. The
     passes run as one UNet call, or one call each under
-    `settings.sequential_cfg`."""
+    `settings.sequential_cfg`.
+
+    `return_cache=True` returns (output, cache), the UNet's DeepCache
+    feature of this call; `cache=` runs the UNet's shallow forward from such
+    a feature. Under sequential CFG the cache is one feature per pass,
+    stacked. The two keywords reach `unet` only when in use, so a plain
+    unet(x, t, context_text=, context_img=, fs=) callable works."""
     p = cond.num_passes
 
-    def model_fn(x: torch.Tensor, t: int) -> torch.Tensor:
+    def model_fn(x: torch.Tensor, t: int, cache: Optional[torch.Tensor] = None,
+                 return_cache: bool = False):
         b = x.shape[0]
+        dc_kw = {"return_cache": True} if return_cache else {}
+        cache_out = None
         if settings.sequential_cfg and p > 1:
             ts = torch.full((b,), int(t), dtype=torch.long, device=x.device)
-            out = torch.stack([unet(
-                x if cond.concat is None
-                else torch.cat([x, cond.concat[i].to(x.dtype)], dim=-1),
-                ts, context_text=cond.context_text[i],
-                context_img=None if cond.context_img is None else cond.context_img[i],
-                fs=cond.fs).float() for i in range(p)])
+            outs, caches = [], []
+            for i in range(p):
+                o = unet(
+                    x if cond.concat is None
+                    else torch.cat([x, cond.concat[i].to(x.dtype)], dim=-1),
+                    ts, context_text=cond.context_text[i],
+                    context_img=None if cond.context_img is None else cond.context_img[i],
+                    fs=cond.fs, **dc_kw, **({} if cache is None else {"cache": cache[i]}))
+                if return_cache:
+                    o, c = o
+                    caches.append(c)
+                outs.append(o.float())
+            out = torch.stack(outs)
+            if return_cache:
+                cache_out = torch.stack(caches)
         else:
             xs = x.unsqueeze(0).expand(p, *x.shape)
             if cond.concat is not None:
@@ -92,10 +129,13 @@ def make_cfg_denoiser(unet: Callable, cond: CFGConditioning,
                 context_text=flat(cond.context_text),
                 context_img=None if cond.context_img is None else flat(cond.context_img),
                 fs=None if cond.fs is None else cond.fs.repeat(p),
-            ).float()
-            out = out.reshape(p, b, *out.shape[1:])
+                **dc_kw, **({} if cache is None else {"cache": cache}))
+            if return_cache:
+                out, cache_out = out
+            out = out.float().reshape(p, b, *out.shape[1:])
+        ret = lambda e: (e, cache_out) if return_cache else e
         if p == 1:
-            return out[0]
+            return ret(out[0])
         if p == 2:
             e_uc, e_c = out[0], out[1]
             e = e_uc + settings.cfg_scale * (e_c - e_uc)
@@ -105,7 +145,7 @@ def make_cfg_denoiser(unet: Callable, cond: CFGConditioning,
             e = e_uc + s_img * (e_uc_img - e_uc) + settings.cfg_scale * (e_c - e_uc_img)
         if settings.guidance_rescale > 0.0:
             e = rescale_noise_cfg(e, e_c, settings.guidance_rescale)
-        return e
+        return ret(e)
 
     return model_fn
 
@@ -136,6 +176,22 @@ def make_mask_blend(schedule: DiffusionSchedule, settings: SamplerSettings,
     return blend
 
 
+def reject_ode_unsupported(settings: SamplerSettings, table: DDIMTable,
+                           sampler: str) -> None:
+    """What the deterministic ODE solvers (dpm, unipc) refuse: DeepCache
+    (ddim only), and eps-parameterization on a zero-terminal-SNR schedule,
+    where x0 = (x - sigma * eps) / sqrt(alpha_bar) divides by zero at the
+    t = 999 endpoint."""
+    if settings.deepcache > 1:
+        raise ValueError("deepcache is only certified with the DDIM "
+                         f"sampler; run {sampler} without it")
+    if settings.parameterization != "v" and float(np.min(table.alphas)) < 1e-8:
+        raise ValueError(
+            "eps-parameterization with a zero-terminal-SNR schedule is "
+            "unsupported: x0 = (x - sigma*eps)/sqrt(alpha_bar) divides by "
+            "zero at the t=999 endpoint; use v-parameterization")
+
+
 @torch.no_grad()
 def ddim_sample(model_fn: Callable, x_T: torch.Tensor, schedule: DiffusionSchedule,
                 table: DDIMTable, settings: SamplerSettings, *,
@@ -154,20 +210,37 @@ def ddim_sample(model_fn: Callable, x_T: torch.Tensor, schedule: DiffusionSchedu
     log_every_t: also return the reference sampler's intermediates
     (ddim.py:157, 199-201), {"x_inter", "pred_x0"}, each (n_logs + 1,
     *x.shape) starting with x_T, saved whenever the descending step index
-    satisfies index % log_every_t == 0 or index == steps - 1."""
+    satisfies index % log_every_t == 0 or index == steps - 1.
+
+    `settings.deepcache` = N > 1 (DeepCache): the steps run in groups of N;
+    the first step of a group is a full UNet call that also returns its deep
+    feature, the other N - 1 are shallow calls from that feature. N must
+    divide the number of steps; no intermediates are logged."""
     s = table.num_steps
+    n_dc = settings.deepcache
+    if n_dc > 1 and log_every_t is not None:
+        raise ValueError("log_every_t intermediates require the exact "
+                         "sampler (deepcache=1)")
+    if n_dc > 1 and s % n_dc != 0:
+        raise ValueError(f"deepcache interval {n_dc} must divide steps={s}")
     x = x_T.float()
     one = np.float32(1.0)
     blend = make_mask_blend(schedule, settings,
                             None if mask is None else mask.to(x),
                             None if x0 is None else x0.to(x))
     x_inter, pred_inter = [x], [x]
+    cache = None
     for i, idx in enumerate(range(s - 1, -1, -1)):
         t = int(table.timesteps[idx])
         a_t, a_prev = table.alphas[idx], table.alphas_prev[idx]
         sigma = table.sigmas[idx]
         x = blend(x, t, None if mask_noise is None else mask_noise[i], generator)
-        out = model_fn(x, t)
+        if n_dc == 1:
+            out = model_fn(x, t)
+        elif i % n_dc == 0:
+            out, cache = model_fn(x, t, return_cache=True)
+        else:
+            out = model_fn(x, t, cache=cache)
         if settings.parameterization == "v":
             e_t = schedule.predict_eps_from_z_and_v(x, t, out)
             pred_x0 = schedule.predict_start_from_z_and_v(x, t, out)

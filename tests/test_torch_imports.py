@@ -36,6 +36,12 @@ MODULES = [
     "dynamicrafter_tpu_torch.models.clip",
     "dynamicrafter_tpu_torch.models.resampler",
     "dynamicrafter_tpu_torch.sampling.ddim",
+    "dynamicrafter_tpu_torch.sampling.dpm",
+    "dynamicrafter_tpu_torch.sampling.unipc",
+    "dynamicrafter_tpu_torch.sampling.ancestral",
+    "dynamicrafter_tpu_torch.experiments.flash_pairs.flash_pairs",
+    "dynamicrafter_tpu_torch.experiments.flash_pairs.bench_flash_variants",
+    "dynamicrafter_tpu_torch.experiments.flash_pairs.bench_flash_pairs",
     "dynamicrafter_tpu_torch.pipeline",
     "dynamicrafter_tpu_torch.utils.tokenizer",
     "dynamicrafter_tpu_torch.utils.weights",
@@ -60,7 +66,7 @@ added = sorted(set(sys.modules) - before)
 print(json.dumps({
     "jax": [m for m in added if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")],
     "yaml": [m for m in added if m.split(".")[0] == "yaml"],
-    "jax_package": [m for m in added if m.split(".")[0] == "dynamicrafter_tpu"],
+    "jax_package": [m for m in added if m.split(".")[0] in ("dynamicrafter_tpu", "experiments")],
 }))
 """
 
@@ -98,7 +104,9 @@ def test_every_module_is_listed():
     assert found - set(MODULES) == set()
 
 
-FORBIDDEN = ("dynamicrafter_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
+# `experiments` is the JAX repository's top-level package of that name; the
+# port's own is dynamicrafter_tpu_torch.experiments
+FORBIDDEN = ("dynamicrafter_tpu", "experiments", "jax", "jaxlib", "flax", "optax", "orbax")
 
 
 def test_no_source_file_imports_the_jax_package():
@@ -134,6 +142,12 @@ result = inference.main(["--config", infer_cfg, "--prompt_dir", prompts, "--save
                          "--unconditional_guidance_scale", "7.5", "--interp",
                          "--device", "cpu"])
 assert len(result["paths"]) == 1
+result = inference.main(["--config", infer_cfg, "--prompt_dir", prompts, "--savedir",
+                         out + "/videos_dpm", "--random_init", "--height", "16", "--width",
+                         "16", "--video_length", "4", "--ddim_steps", "4", "--text_input",
+                         "--unconditional_guidance_scale", "7.5", "--interp", "--sampler",
+                         "dpm", "--device", "cpu"])
+assert len(result["paths"]) == 1
 added = set(sys.modules) - before
 print(json.dumps(sorted(m for m in added if m.split(".")[0] in %r)))
 """ % (FORBIDDEN,)
@@ -141,8 +155,9 @@ print(json.dumps(sorted(m for m in added if m.split(".")[0] in %r)))
 
 def test_entry_points_load_nothing_of_jax(tmp_path):
     """Tiny `train.main` (synthetic clips) and `inference.main` (no
-    --vocab_path: the hash tokenizer) run to their end without a module of
-    JAX or of the JAX package in sys.modules."""
+    --vocab_path: the hash tokenizer; DDIM, then --sampler dpm) run to their
+    end without a module of JAX, of the JAX package or of the repository's
+    top-level `experiments` in sys.modules."""
     infer_cfg = tmp_path / "tiny.yaml"
     infer_cfg.write_text(yaml.safe_dump(TINY_MODEL_CONFIG))
     cfg = copy.deepcopy(TINY_MODEL_CONFIG)

@@ -4,8 +4,11 @@ On the CPU: each kernel's plain PyTorch version against the JAX package's
 Pallas kernel in interpret mode (and its XLA reference), fp32, at the
 tolerance of the JAX package's own kernel tests (atol 2e-5, rtol 1e-4):
 K1 and K2, K3 (`_flash_fwd(save_lse=True)`), K4a/K4b (`_flash_bwd`), and
-the gradients of the differentiable entries against `jax.grad`; the
-wrappers take the plain path for CPU tensors without building or
+the gradients of the differentiable entries against `jax.grad`; K6
+(`flash_attention(packed=True)`) and K9 (`flash_attention_pairs`) against
+their Pallas kernels in interpret mode in fp32 and bf16 (bf16 at atol =
+rtol = 2e-2, the inputs' rounding), K10's plain version against
+`xla_attention` and, for `nosoftmax`, its formula in numpy; the wrappers take the plain path for CPU tensors without building or
 launching anything; the routing rule; a missing nvcc is a clear error.
 
 The CUDA kernels themselves are tested on the card in test_torch_cuda.py.
@@ -258,3 +261,128 @@ def test_wrappers_without_grad_take_the_inference_path(monkeypatch):
     assert calls == ["k1", "k2", "k5", "k1", "k5"]
     tsmall.small_t_attention(x5, x5, x5)
     assert calls[-1] == "autograd"
+
+
+# ---------------------------------------------------------------------------
+# K6 (packed rows), K9 (head pairs), K10 (all heads in a block, three modes)
+# ---------------------------------------------------------------------------
+
+# (N, Lq, Lk, H): H = 5 and H = 1 (odd: the last pair has one head), ragged L,
+# Lq != Lk, an even H
+VARIANT_CASES = [(2, 200, 200, 5), (1, 130, 77, 1), (2, 96, 160, 2), (1, 300, 300, 5)]
+# fp32: the JAX kernel tests' tolerance; bf16: the inputs' own rounding
+VARIANT_TOL = {"float32": dict(atol=2e-5, rtol=1e-4), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+
+
+def _variant_inputs(n, lq, lk, h, dtype, seed):
+    """q (N, Lq, H*64) and k, v (N, Lk, H*64) in `dtype`, as numpy float32
+    arrays holding values `dtype` represents exactly."""
+    rng = np.random.default_rng(seed)
+    draw = lambda l: np.array(jnp.asarray(
+        rng.standard_normal((n, l, h * 64)).astype(np.float32), dtype).astype(jnp.float32))
+    return draw(lq), draw(lk), draw(lk)
+
+
+def _heads_split(a, h, dtype):
+    return jnp.asarray(a.reshape(*a.shape[:2], h, 64), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,lq,lk,h", VARIANT_CASES)
+def test_k6_plain_matches_jax_packed_kernel(n, lq, lk, h, dtype):
+    """`flash_attention(packed=True)` on the CPU (the plain version) against
+    the JAX package's packed Pallas kernel in interpret mode."""
+    q, k, v = _variant_inputs(n, lq, lk, h, dtype, 20)
+    ref = np.asarray(j_flash(*(_heads_split(a, h, dtype) for a in (q, k, v)),
+                             interpret=True, packed=True).astype(jnp.float32))
+    tdtype = getattr(torch, dtype)
+    before = tflash.flash_fwd_packed.launches
+    out = tflash.flash_attention(
+        *(torch.from_numpy(a).to(tdtype).unflatten(-1, (h, 64)) for a in (q, k, v)),
+        packed=True)
+    assert tflash.flash_fwd_packed.launches == before   # CPU: plain path, no launch
+    assert out.dtype == tdtype and out.shape == (n, lq, h, 64)
+    np.testing.assert_allclose(out.float().numpy(), ref, **VARIANT_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,lq,lk,h", VARIANT_CASES)
+def test_k9_plain_matches_jax_pairs_kernel(n, lq, lk, h, dtype):
+    """`flash_attention_pairs` on the CPU against the JAX repository's
+    pair-packed Pallas kernel in interpret mode (tiles of 128)."""
+    from experiments.flash_pairs.flash_pairs import flash_attention_pairs as j_pairs
+
+    from dynamicrafter_tpu_torch.experiments.flash_pairs.flash_pairs import (
+        flash_attention_pairs)
+
+    q, k, v = _variant_inputs(n, lq, lk, h, dtype, 21)
+    ref = np.asarray(j_pairs(*(jnp.asarray(a, dtype) for a in (q, k, v)), h, 0.125, 128, 128,
+                             interpret=True).astype(jnp.float32))
+    tdtype = getattr(torch, dtype)
+    before = flash_attention_pairs.launches
+    out = flash_attention_pairs(*(torch.from_numpy(a).to(tdtype) for a in (q, k, v)), h, 0.125)
+    assert flash_attention_pairs.launches == before
+    assert out.dtype == tdtype and out.shape == q.shape
+    np.testing.assert_allclose(out.float().numpy(), ref, **VARIANT_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["exp", "exp2", "nosoftmax"])
+@pytest.mark.parametrize("n,lq,lk,h", [(2, 128, 128, 5), (1, 128, 256, 2)])
+def test_k10_plain_matches_reference(n, lq, lk, h, mode, dtype):
+    """`run_variant` on the CPU (`run_variant_plain`). The JAX bench script
+    that holds the Pallas kernel runs its benchmark when imported and its
+    `pallas_call` has no interpret switch, so the kernel itself cannot run
+    here: `exp` and `exp2` are held against `xla_attention` (they are
+    attention), and `nosoftmax` against its formula, o = clip(q k^T * scale,
+    -1, 1) v per head with p rounded to the input dtype and fp32 sums,
+    written in numpy, at lengths that the kernel's tiles divide (where the
+    JAX body's padding mask plays no part)."""
+    from dynamicrafter_tpu_torch.experiments.flash_pairs.bench_flash_variants import (
+        run_variant, run_variant_plain)
+
+    q, k, v = _variant_inputs(n, lq, lk, h, dtype, 22)
+    q, k = q * 0.5, k * 0.5      # exact in bf16; logits on both sides of the clip
+    if mode == "nosoftmax":
+        split = lambda a: a.reshape(*a.shape[:2], h, 64).transpose(0, 2, 1, 3)
+        s = np.einsum("nhqd,nhkd->nhqk", split(q), split(k)) * np.float32(0.125)
+        p = np.asarray(jnp.asarray(np.clip(s, -1.0, 1.0), dtype).astype(jnp.float32))
+        assert (np.abs(s) > 1).any() and (np.abs(s) < 1).any()
+        ref = np.einsum("nhqk,nhkd->nhqd", p, split(v)).transpose(0, 2, 1, 3).reshape(q.shape)
+        ref = np.asarray(jnp.asarray(ref, dtype).astype(jnp.float32))
+    else:
+        ref = np.asarray(xla_attention(*(_heads_split(a, h, dtype) for a in (q, k, v)))
+                         .astype(jnp.float32)).reshape(q.shape)
+    tdtype = getattr(torch, dtype)
+    args = [torch.from_numpy(a).to(tdtype) for a in (q, k, v)]
+    before = run_variant.launches
+    out = run_variant(*args, h, 0.125, mode)
+    assert run_variant.launches == before
+    assert out.dtype == tdtype
+    assert torch.equal(out, run_variant_plain(*args, h, 0.125, mode))
+    np.testing.assert_allclose(out.float().numpy(), ref, **VARIANT_TOL[dtype])
+
+
+def test_variant_wrappers_refuse_other_devices_and_modes():
+    from dynamicrafter_tpu_torch.experiments.flash_pairs import bench_flash_pairs
+    from dynamicrafter_tpu_torch.experiments.flash_pairs import bench_flash_variants as bv
+    from dynamicrafter_tpu_torch.experiments.flash_pairs.flash_pairs import (
+        flash_attention_pairs)
+
+    q = torch.zeros(1, 8, 64, device="meta")
+    for fn in (tflash.flash_fwd_packed, flash_attention_pairs,
+               lambda *a: bv.run_variant(*a, "exp")):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(q, q, q, 1, 0.125)
+    q = torch.zeros(1, 8, 64)
+    with pytest.raises(ValueError, match="unknown mode"):
+        bv.run_variant(q, q, q, 1, 0.125, "tanh")
+    with pytest.raises(ValueError, match="unknown mode"):
+        bv.run_variant_plain(q, q, q, 1, 0.125, "tanh")
+    # the benches time CUDA kernels: no CPU run, and no silent one without a card
+    for main in (bv.main, bench_flash_pairs.main):
+        with pytest.raises(ValueError, match="times CUDA kernels"):
+            main(["--device", "cpu"])
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                main([])
