@@ -71,15 +71,36 @@ Run from the repository root. Phases, each printing one line:
      (`experiments/flash_pairs/bench_flash_variants.main`,
      `bench_flash_pairs.main`, the three hot shapes at N = 32) and
      `flash_attention(packed=True)` at the same shapes as K6's, with their
-     times beside K1's, the plain version's and the library call's.
+     times beside K1's, the plain version's and the library call's;
+ 20. K7 (`fused_gn_silu_conv`) and K8 (`fused_gn_silu_conv_tiled`) against
+     their plain versions in fp32 and bf16, with and without emb, at small
+     and ragged shapes and at Co != C; K7 against K8 on the same fp32 input;
+ 21. K7's and K8's path, `experiments/fused_conv/bench_fused_conv.main`:
+     both kernels, K7's plain version and the library route (group_norm,
+     silu, conv2d on a channels-last tensor) timed at the ResBlock shapes of
+     the 320x512 UNet (N = 32 frames) and level 0 of the 576x1024 UNet
+     (N = 16), bf16 with emb; then each kernel against its plain version at
+     those shapes, and the bound;
+ 22. one full-width ResBlock of the 320x512 UNet (level 0, 320 -> 320, its
+     N(0, 0.02) weights): `in_layers(x)` and `out_layers(h + emb_out)`
+     through the module and through K7 and K8 fed the module's parameters;
+ 23. SDS guidance end to end through `generate_guidance.main` on the 320x512
+     model (bf16, batched CFG with rescale 0.7, 20 optimisation steps, debug
+     dumps every 10): frames, loss curve, moved latents, K1/K2 launches,
+     seconds per step and stage peaks; then two steps with fixed draws,
+     kernels against plain;
+ 24. the app backend `Image2Video` at 320x512 with random weights:
+     `get_image` at 10 steps in mode i2v and in mode loop (15 frames out).
 
 Then a JSON line with, for each kernel, its launches on its main path (K1 and
-K2 phase 5, K3, K4a and K4b phase 9, K5 phase 13, K6, K9 and K10 phase 19;
-`launches_by_path` has every path), error against the plain version (K6, K9, K10: the worst over phase 18's
-bf16 shapes), and times: the kernel, the plain
+K2 phase 5, K3, K4a and K4b phase 9, K5 phase 13, K6, K9 and K10 phase 19, K7
+and K8 phase 21; `launches_by_path` has every path), error against the plain
+version (K6, K9, K10: the worst over phase 18's bf16 shapes; K7, K8: at the
+first shape of phase 21), and times: the kernel, the plain
 version, the bound (the larger of bytes over 3.35 TB/s and operations over
 the peak rate of the input type, from the shapes) and one library call
-(`F.scaled_dot_product_attention`, timed here and used nowhere in the
+(`F.scaled_dot_product_attention`, or for K7 and K8 the group_norm, silu,
+conv2d route; timed here and used nowhere in the
 package); the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 Any failure raises, so the script exits nonzero; without a CUDA device it
 exits 1 before printing any result. Float32 matmuls and convolutions run
@@ -107,6 +128,8 @@ STEPS_DPM = 30
 STEPS_UNIPC = 20
 DEEPCACHE = 5
 TRAIN_STEPS = 4
+STEPS_SDS = 20
+STEPS_APP = 10
 # published peaks of one H100 SXM at 700 W: HBM bytes/s, FLOP/s by input type
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -164,6 +187,26 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def read_clip(path: str):
+    """A clip as `save_clip` wrote it, `.npy` or (where OpenCV imports) `.mp4`,
+    as (T, H, W, 3) uint8."""
+    import numpy as np
+
+    if path.endswith(".npy"):
+        return np.load(path)
+    import cv2
+
+    cap, frames = cv2.VideoCapture(path), []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    cap.release()
+    check(bool(frames), f"{path}: no frame decodes")
+    return np.stack(frames)
+
+
 def counts(*wrappers) -> tuple:
     return tuple(w.launches for w in wrappers)
 
@@ -182,9 +225,17 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke test "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from dynamicrafter_tpu_torch import inference
+    from dynamicrafter_tpu_torch import generate_guidance, inference
+    from dynamicrafter_tpu_torch.app import Image2Video
     from dynamicrafter_tpu_torch.config import ModelConfig
-    from dynamicrafter_tpu_torch.models.blocks import SpatialTransformer
+    from dynamicrafter_tpu_torch.experiments.fused_conv import bench_fused_conv
+    from dynamicrafter_tpu_torch.experiments.fused_conv.fused_conv import (
+        fused_gn_silu_conv, fused_gn_silu_conv_plain)
+    from dynamicrafter_tpu_torch.experiments.fused_conv.fused_conv_tiled import (
+        fused_gn_silu_conv_tiled, fused_gn_silu_conv_tiled_plain)
+    from dynamicrafter_tpu_torch.models.blocks import ResBlock, SpatialTransformer
+    from dynamicrafter_tpu_torch.sds import SDSDraws, SDSGuidancePipeline, SDSSettings
+    from dynamicrafter_tpu_torch.utils.video import decode_png
     from dynamicrafter_tpu_torch.models.unet3d import UNetConfig, UNetModel
     from dynamicrafter_tpu_torch.ops import attention, kernels
     from dynamicrafter_tpu_torch import train
@@ -890,6 +941,10 @@ def main() -> int:
         f"{tuple(z.shape)}: kernels vs plain max_abs {max_abs:.3e} rel_l2 {rel:.3e} (tol 2e-2) "
         f"finite {bool(torch.isfinite(z).all())}")
     check(bool(torch.isfinite(z).all()) and rel <= 2e-2, f"dpm kernels vs plain rel L2 {rel}")
+    # phase 22 takes one level-0 ResBlock (320 -> 320) of this UNet
+    resblock = next(m for m in unet.modules() if isinstance(m, ResBlock)
+                    and m.in_layers[2].in_channels == m.in_layers[2].out_channels
+                    == unet.config.model_channels)
     del unet, x, full, cache, from_cache, cond, x_T, z, z_plain, model_fn
     torch.cuda.empty_cache()
     phase_s["17"] = time.perf_counter() - t0
@@ -1042,6 +1097,207 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_s["19"] = time.perf_counter() - t0
 
+
+    # -- phase 20: K7 and K8 against their plain versions -----------------------
+    t0 = time.perf_counter()
+    conv_tol = {fp32: 1e-5, bf16: 1e-2}   # bf16: one rounding of each output, 2^-9 relative
+
+    def conv_check(tag, shape, tile_h, dtype, emb):
+        n, h, w, c, co = shape
+        ops = list(bench_fused_conv.case_inputs(n, h, w, c, co, dev, dtype))
+        if not emb:
+            ops[5] = None
+        out7 = fused_gn_silu_conv(*ops)
+        out8 = fused_gn_silu_conv_tiled(*ops, tile_h=tile_h)
+        torch.cuda.synchronize()
+        e7 = errors(out7, fused_gn_silu_conv_plain(*ops))
+        e8 = errors(out8, fused_gn_silu_conv_tiled_plain(*ops, tile_h=tile_h))
+        between = errors(out7, out8)[1]
+        log(f"[{tag}] ({n}, {h}, {w}, {c} -> {co}) {str(dtype)[6:]} emb {emb}: K7 max_abs "
+            f"{e7[0]:.3e} rel_l2 {e7[1]:.3e}, K8 (tile_h {tile_h}) max_abs {e8[0]:.3e} rel_l2 "
+            f"{e8[1]:.3e} (tol {conv_tol[dtype]:g}) | K7 vs K8 rel_l2 {between:.3e}")
+        check(e7[1] <= conv_tol[dtype], f"K7 rel L2 {e7[1]} at {shape} {dtype} emb {emb}")
+        check(e8[1] <= conv_tol[dtype], f"K8 rel L2 {e8[1]} at {shape} {dtype} emb {emb}")
+        if dtype == fp32:
+            check(between <= 1e-5, f"K7 vs K8 in fp32 rel L2 {between} at {shape}")
+        return e7, e8
+
+    for shape, tile_h in [((2, 8, 12, 64, 64), 8), ((1, 5, 7, 32, 32), 5),
+                          ((2, 8, 14, 64, 64), 4), ((2, 20, 32, 320, 640), 4)]:
+        for dtype in (fp32, bf16):
+            for emb in (False, True):
+                conv_check("20", shape, tile_h, dtype, emb)
+    phase_s["20"] = time.perf_counter() - t0
+
+    # -- phase 21: K7 and K8 at full width: their bench entry point --------------
+    t0 = time.perf_counter()
+    conv_wrappers = (fused_gn_silu_conv, fused_gn_silu_conv_tiled)
+    reset(*conv_wrappers)
+    rows = bench_fused_conv.main([])
+    conv_launches = counts(*conv_wrappers)
+    conv_ms = {(r["h"], r["c"], r["co"], r["row"]): r["ms"] for r in rows}
+    conv_by_shape = {"fused_gn_silu_conv": {}, "fused_gn_silu_conv_tiled": {}}
+    first_conv = None
+    for label, n, h, w, c, co in bench_fused_conv.CASES:
+        e7, e8 = conv_check("21", (n, h, w, c, co), bench_fused_conv.TILE_H[h], bf16, True)
+        # x, the kernel, bias and emb read once, the output written once (the
+        # norm's 2 C fp32 parameters beside them); 9 products of C x Co per pixel
+        b = bound(2 * (n * h * w * (c + co) + 9 * c * co + co + n * c) + 8 * c,
+                  2.0 * n * h * w * c * co * 9, bf16)
+        shape = f"({n}, {h}, {w}, {c} -> {co})"
+        first_conv = first_conv or shape
+        at = lambda row: conv_ms[(h, c, co, row)]
+        common = dict(plain_ms=at("plain"), library_ms=at("library"), **b)
+        conv_by_shape["fused_gn_silu_conv"][shape] = dict(
+            ms=at("K7 fused"), max_abs_err=e7[0], rel_l2=e7[1], **common)
+        conv_by_shape["fused_gn_silu_conv_tiled"][shape] = dict(
+            ms=at("K8 tiled"), max_abs_err=e8[0], rel_l2=e8[1],
+            tile_h=bench_fused_conv.TILE_H[h], **common)
+        log(f"[21] {label.strip()} bf16: K7 {at('K7 fused'):.3f} ms | K8 {at('K8 tiled'):.3f} | "
+            f"plain {at('plain'):.3f} | library (group_norm, silu, conv2d) {at('library'):.3f} "
+            f"| bound {b['bound_ms']:.3f} ms by {b['bound_by']}")
+    for name in conv_by_shape:
+        at = conv_by_shape[name][first_conv]
+        report[name] = dict(max_abs_err=at["max_abs_err"], ms=at["ms"], plain_ms=at["plain_ms"],
+                            bound_ms=at["bound_ms"], bound_by=at["bound_by"],
+                            library_ms=at["library_ms"], by_shape=conv_by_shape[name])
+    log(f"[21] launches by bench_fused_conv.main: K7 {conv_launches[0]}, K8 {conv_launches[1]} "
+        f"(five shapes x 11 calls each)")
+    torch.cuda.empty_cache()
+    phase_s["21"] = time.perf_counter() - t0
+
+    # -- phase 22: the kernels compute the model's function ----------------------
+    t0 = time.perf_counter()
+    n_frames, ch = 32, resblock.in_layers[2].in_channels
+    x = torch.randn(n_frames, ch, 40, 64, device=dev, generator=gen).to(bf16).contiguous(
+        memory_format=torch.channels_last)
+    emb = torch.randn(2, 4 * ch, device=dev, generator=gen).to(bf16)
+    nhwc = lambda a: a.permute(0, 2, 3, 1).contiguous()
+    hwio = lambda conv: conv.weight.permute(2, 3, 1, 0).contiguous()
+    with torch.no_grad():
+        gn1, conv1 = resblock.in_layers[0], resblock.in_layers[2]
+        gn2, conv2 = resblock.out_layers[0], resblock.out_layers[3]
+        h_mod = resblock.in_layers(x)
+        emb_out = resblock.emb_layers(emb).to(h_mod.dtype)[:, None].expand(-1, 16, -1)
+        emb_out = emb_out.reshape(n_frames, ch).contiguous()
+        out_mod = resblock.out_layers(h_mod + emb_out[:, :, None, None])
+        rels = {}
+        for name, fn in (("K7", fused_gn_silu_conv),
+                         ("K8", lambda *a: fused_gn_silu_conv_tiled(*a, tile_h=8))):
+            h_k = fn(nhwc(x), hwio(conv1), conv1.bias, gn1.weight, gn1.bias, None)
+            out_k = fn(nhwc(h_mod), hwio(conv2), conv2.bias, gn2.weight, gn2.bias, emb_out)
+            rels[name] = (errors(h_k, nhwc(h_mod))[1], errors(out_k, nhwc(out_mod))[1])
+    log(f"[22] one level-0 ResBlock of {CONFIG} ({ch} -> {ch}, N(0, 0.02) weights) on "
+        f"({n_frames}, {ch}, 40, 64) bf16: in_layers(x) and out_layers(h + emb_out) through "
+        f"the module vs the kernels fed its parameters, rel_l2 "
+        + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in rels.items()) + " (tol 2e-2)")
+    check(all(max(r) <= 2e-2 for r in rels.values()), f"ResBlock through K7/K8: {rels}")
+    del resblock, x, emb, h_mod, out_mod, emb_out, h_k, out_k
+    torch.cuda.empty_cache()
+    phase_s["22"] = time.perf_counter() - t0
+
+    # -- phase 23: SDS guidance end to end ----------------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset(*infer_wrappers)
+        t1 = time.perf_counter()
+        result = generate_guidance.main([
+            "--config", CONFIG, "--prompt_dir", PROMPTS, "--savedir", tmp, "--resolution",
+            "320_512", "--random_init", "--bf16", "--num_steps", str(STEPS_SDS),
+            "--debug_save_interval", "10", "--save_results", "--seed", str(SEED),
+            "--device", "cuda"])
+        wall = time.perf_counter() - t1
+        n_sds = counts(*infer_wrappers)
+        out = result["outputs"][0]
+        frames_file = np.load(os.path.join(tmp, "example.npy"))
+        debug_files = sorted(os.listdir(os.path.join(tmp, "debug", "example", "debug")))
+    clock, peak = result["timings"][0], result["peaks"][0]
+    secs = clock["steps"]
+    # the init the pipeline drew: encode noise first, then the latents
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    torch.randn((16, 40, 64, 4), generator=g, device=dev)
+    init = torch.randn((1, 16, 40, 64, 4), generator=g, device=dev).cpu().numpy()
+    moved = float(np.abs(out["latents"] - init).mean())
+    log(f"[23] SDS {CONFIG} bf16, {STEPS_SDS} steps, lr 0.01, AdamW, weight t: frames "
+        f"{out['videos'].shape} finite {bool(np.isfinite(out['videos']).all())}, file "
+        f"{frames_file.shape} {frames_file.dtype} | loss " + " ".join(
+            f"{v:.4f}" for v in out["loss_curve"][::5]) + f" (every 5th of "
+        f"{len(out['loss_curve'])}) | latents moved by mean abs {moved:.4f} | s/step first "
+        f"{secs[0]:.3f}, mean after {np.mean(secs[1:]):.4f} | conditioning "
+        f"{clock['conditioning']:.2f}s loop {clock['loop']:.2f}s (with 2 debug decodes) decode "
+        f"{clock['decode']:.2f}s | peaks " + " ".join(
+            f"{k} {v / 2**30:.2f}" for k, v in peak.items())
+        + f" GiB, building {result['build_peak'] / 2**30:.2f} | main() wall {wall:.1f}s | "
+        f"launches K1 {n_sds[0]} K2 {n_sds[1]} K5 {n_sds[2]} | debug tree {len(debug_files)} "
+        f"files")
+    check(out["videos"].shape == (1, 16, 320, 512, 3) and bool(np.isfinite(out["videos"]).all()),
+          "SDS frames")
+    check(frames_file.shape == (16, 320, 512, 3) and frames_file.dtype == np.uint8
+          and len(np.unique(frames_file)) > 1, "SDS frame file")
+    check(out["loss_curve"].shape == (STEPS_SDS,) and bool(np.isfinite(out["loss_curve"]).all()),
+          "SDS loss curve")
+    check(0.01 < moved < 0.01 * STEPS_SDS + 0.01, f"SDS latents moved by {moved}")
+    check(n_sds == (per_call[0] * STEPS_SDS, per_call[1] * STEPS_SDS, 0),
+          f"launches under SDS {n_sds}")
+    check({"step_000000_frame.png", "step_000010_frame_00.png"} <= set(debug_files),
+          f"SDS debug tree {debug_files}")
+    # two steps with fixed draws, kernels against plain
+    sds2 = SDSGuidancePipeline(result["pipeline"].pipe, SDSSettings(
+        num_steps=2, log_every=2, guidance_rescale=0.7, timestep_spacing="uniform_trailing",
+        optimizer_type="AdamW"))
+    fixed = SDSDraws(torch.randint(0, len(sds2.t_grid), (2, 1), generator=g, device=dev),
+                     torch.randn((2, 1, 16, 40, 64, 4), generator=g, device=dev))
+    enc_noise = torch.randn((16, 40, 64, 4), generator=g, device=dev).cpu().numpy()
+    video = np.repeat(decode_png(os.path.join(PROMPTS, "example.png"))[None, None]
+                      .astype(np.float32) / 127.5 - 1.0, 16, axis=1)
+    run2 = lambda: sds2(["a clip"], video, fs=[24], init_latents=init, decode=False,
+                        encode_noise=enc_noise, draws=fixed)["latents"]
+    lat_k = run2()
+    with attention.use_backend("plain"):
+        lat_p = run2()
+    rel = float(np.linalg.norm(lat_k - lat_p) / np.linalg.norm(lat_p))
+    rel_update = float(np.linalg.norm(lat_k - lat_p) / np.linalg.norm(lat_p - init))
+    log(f"[23] two SDS steps with fixed draws, kernels vs plain: latents rel_l2 {rel:.3e} "
+        f"(tol 2e-2), as a share of the update {rel_update:.3e}")
+    check(rel <= 2e-2, f"SDS kernels vs plain rel L2 {rel}")
+    del result, out, sds2, fixed
+    torch.cuda.empty_cache()
+    phase_s["23"] = time.perf_counter() - t0
+
+    # -- phase 24: the app backend --------------------------------------------------
+    t0 = time.perf_counter()
+    image = decode_png(os.path.join(PROMPTS, "example.png"))
+    n_app = {}
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        for mode, n_out in (("i2v", 16), ("loop", 15)):
+            backend = Image2Video(os.path.join(tmp, mode), resolution="320_512",
+                                  random_init=True, mode=mode)
+            sampled = []   # what the pipeline handed the backend, before the uint8 clamp
+            sample = backend.pipe.sample
+            backend.pipe.sample = lambda *a, **k: sampled.append(sample(*a, **k)) or sampled[-1]
+            reset(*infer_wrappers)
+            clock = {}
+            path = backend.get_image(image, "a fox running through snow", steps=STEPS_APP,
+                                     seed=SEED, image2=image if mode == "loop" else None,
+                                     timings=clock)
+            n_app[mode] = counts(*infer_wrappers)
+            frames = read_clip(path)
+            finite = bool(np.isfinite(sampled[0].videos).all())
+            log(f"[24] Image2Video 320_512 mode {mode}, {STEPS_APP} steps: {os.path.basename(path)} "
+                f"({os.path.getsize(path)} bytes) {frames.shape} {frames.dtype} levels "
+                f"{len(np.unique(frames))} finite {finite} | "
+                + " ".join(f"{k} {v:.2f}s" for k, v in clock.items())
+                + f" | launches K1 {n_app[mode][0]} K2 {n_app[mode][1]}")
+            check(finite and frames.shape == (n_out, 320, 512, 3) and frames.dtype == np.uint8
+                  and len(np.unique(frames)) > 1, f"app {mode}: frames {frames.shape}")
+            check(n_app[mode] == (per_call[0] * STEPS_APP, per_call[1] * STEPS_APP, 0),
+                  f"launches in app mode {mode}: {n_app[mode]}")
+            del backend
+            torch.cuda.empty_cache()
+    phase_s["24"] = time.perf_counter() - t0
+
     log("[wall] " + " ".join(f"phase {k} {v:.1f}s" for k, v in phase_s.items())
         + f" | total {time.perf_counter() - t_start:.1f}s")
 
@@ -1054,7 +1310,8 @@ def main() -> int:
                       {"inference_512": launches[0], "inference_256_bs8": launches_256[0],
                        "inference_1024": launches_1024[0], "inference_512_dpm30": n_dpm[0],
                        "inference_512_unipc20": n_unipc[0],
-                       "inference_512_deepcache5": n_dc[0]}),
+                       "inference_512_deepcache5": n_dc[0], "sds_512": n_sds[0],
+                       "app_512": n_app["i2v"][0] + n_app["loop"][0]}),
         "small_t_fwd_tmajor": (src + "small_attention.cu", tpu + "small_attention.py:134",
                                launches[1],
                                {"inference_512": launches[1], "train_512": train_launches[3],
@@ -1062,7 +1319,8 @@ def main() -> int:
                                 "inference_1024": launches_1024[1],
                                 "inference_512_dpm30": n_dpm[1],
                                 "inference_512_unipc20": n_unipc[1],
-                                "inference_512_deepcache5": n_dc[1]}),
+                                "inference_512_deepcache5": n_dc[1], "sds_512": n_sds[1],
+                                "app_512": n_app["i2v"][1] + n_app["loop"][1]}),
         "flash_fwd_lse": (src + "flash_attention.cu", tpu + "flash_attention.py:32",
                           train_launches[0], {"train_512": train_launches[0]}),
         "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:304",
@@ -1079,7 +1337,12 @@ def main() -> int:
                                   variant_launches[1],
                                   {"bench_flash_pairs": variant_launches[1]}),
         "run_variant": (src + "flash_variants.cu", exp + "bench_flash_variants.py:25",
-                        variant_launches[2], {"bench_flash_variants": variant_launches[2]})}
+                        variant_launches[2], {"bench_flash_variants": variant_launches[2]}),
+        "fused_gn_silu_conv": (src + "fused_conv.cu", "experiments/fused_conv/fused_conv.py:36",
+                               conv_launches[0], {"bench_fused_conv": conv_launches[0]}),
+        "fused_gn_silu_conv_tiled": (src + "fused_conv.cu",
+                                     "experiments/fused_conv/fused_conv_tiled.py:28",
+                                     conv_launches[1], {"bench_fused_conv": conv_launches[1]})}
     for name, (_, _, n, _) in sources.items():
         check(n > 0, f"{name} was launched no time on its main path")
     print(json.dumps({"kernels": [

@@ -256,6 +256,7 @@ class TrainingConfig:
         self.max_steps = trainer.get("max_steps", 100000)
         self.gradient_clip_val = trainer.get("gradient_clip_val", 0.5)
         self.checkpoint = _node(raw, "lightning", "callbacks", "model_checkpoint", "params")
+        self.batch_logger = _node(raw, "lightning", "callbacks", "batch_logger", "params")
         data = _node(raw, "data", "params")
         self.batch_size = data.get("batch_size", 1)
         self.num_workers = data.get("num_workers", 4)

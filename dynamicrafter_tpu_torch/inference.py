@@ -96,20 +96,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          f"--ddim_steps {args.ddim_steps}")
     from dynamicrafter_tpu_torch.config import ModelConfig
     from dynamicrafter_tpu_torch.pipeline import DynamiCrafterPipeline
-    from dynamicrafter_tpu_torch.utils.tokenizer import default_tokenizer
     from dynamicrafter_tpu_torch.utils.video import load_prompt_dir, save_results
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    tokenizer = default_tokenizer(args.vocab_path)
     if args.ckpt_path and not args.random_init:
         pipe = DynamiCrafterPipeline.from_checkpoint(
-            args.config, args.ckpt_path, device, dtype, tokenizer=tokenizer)
+            args.config, args.ckpt_path, device, dtype, vocab_path=args.vocab_path)
     else:
         pipe = DynamiCrafterPipeline(ModelConfig.from_yaml(args.config), device,
-                                     dtype, tokenizer=tokenizer)
+                                     dtype, vocab_path=args.vocab_path)
         pipe.init_random(seed=args.seed)
         print("WARNING: random-init weights (no checkpoint): smoke run only")
     if args.perframe_ae:

@@ -30,6 +30,7 @@ from dynamicrafter_tpu_torch.models.clip import (
     CLIPVisionEncoder,
     clip_preprocess,
 )
+from dynamicrafter_tpu_torch.models.encoders import HFCLIPTextConfig, HFCLIPTextEncoder
 from dynamicrafter_tpu_torch.models.resampler import Resampler, ResamplerConfig
 from dynamicrafter_tpu_torch.models.unet3d import UNetConfig, UNetModel
 from dynamicrafter_tpu_torch.models.vae import (
@@ -69,6 +70,29 @@ def _text_config(config: ModelConfig) -> CLIPTextConfig:
     return CLIPTextConfig(**kwargs)
 
 
+def _hf_text_config(config: ModelConfig) -> HFCLIPTextConfig:
+    """FrozenCLIPEmbedder's knobs: `layer` and `layer_idx` from the
+    cond_stage_config, the widths from clip_text_config."""
+    kwargs = dict(config.clip_text)
+    kwargs.pop("penultimate", None)   # an open_clip knob
+    kwargs.setdefault("layer", config.cond_stage_params.get("layer", "last"))
+    kwargs.setdefault("layer_idx", config.cond_stage_params.get("layer_idx"))
+    return HFCLIPTextConfig(**kwargs)
+
+
+class _FrozenCLIPEmbedder(nn.Module):
+    """FrozenCLIPEmbedder's checkpoint layout: the HF text model under
+    `transformer.` (condition.py:209-252)."""
+
+    def __init__(self, config: HFCLIPTextConfig):
+        super().__init__()
+        self.config = config
+        self.transformer = HFCLIPTextEncoder(config)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.transformer(tokens)
+
+
 class _Diffusion(nn.Module):
     def __init__(self, unet: UNetModel):
         super().__init__()
@@ -80,29 +104,46 @@ class LatentVisualDiffusion(nn.Module):
 
     def __init__(self, config: ModelConfig):
         super().__init__()
-        if config.cond_stage_role != "clip_text" or config.img_cond_stage_role != "clip_vision":
-            raise NotImplementedError(
-                "only the OpenCLIP text/vision conditioning of the shipped "
-                f"configs is ported (got {config.cond_stage_target!r}, "
-                f"{config.img_cond_stage_target!r})")
+        if config.cond_stage_role == "clip_text":
+            text_encoder = CLIPTextEncoder(_text_config(config))
+        elif config.cond_stage_role == "clip_text_hf":
+            text_encoder = _FrozenCLIPEmbedder(_hf_text_config(config))
+        else:
+            raise ValueError(
+                f"text conditioning target {config.cond_stage_target!r} (role "
+                f"{config.cond_stage_role!r}) is implemented in models/encoders.py but "
+                "has no UNet context contract in the DynamiCrafter i2v pipeline (same "
+                "in the reference).")
+        if config.img_cond_stage_role != "clip_vision":
+            raise ValueError(
+                f"image conditioning target {config.img_cond_stage_target!r} is "
+                "implemented (models/encoders.py::CLIPVisionPooled) but the 3D UNet's "
+                "per-frame context split needs the all-tokens "
+                "FrozenOpenCLIPImageEmbedderV2 + Resampler pair: a pooled embedder "
+                "cannot produce the (T, 16, C) image context (the reference has the "
+                "same shape contract, openaimodel3d.py:556).")
         if config.resampler is None:
             raise ValueError(
                 "the pipeline needs an image_proj_stage_config (the Resampler): the "
                 "UNet's per-frame image context comes from it")
         self.model = _Diffusion(UNetModel(UNetConfig.from_dict(config.unet)))
         self.first_stage_model = AutoencoderKL(VAEConfig.from_dict(config.vae))
-        self.cond_stage_model = CLIPTextEncoder(_text_config(config))
+        self.cond_stage_model = text_encoder
         self.embedder = CLIPVisionEncoder(CLIPVisionConfig(**config.clip_vision))
         self.image_proj_model = Resampler(ResamplerConfig.from_dict(config.resampler))
 
 
 class DynamiCrafterPipeline:
     def __init__(self, config: ModelConfig, device, dtype: torch.dtype = torch.float32,
-                 tokenizer=None, tiled_vae_threshold: int = 64):
+                 tokenizer=None, tiled_vae_threshold: int = 64,
+                 vocab_path: Optional[str] = None):
         """Builds the modules on `device` with uninitialised weights: call
         `init_random` or `load_state_dict` (or use `from_checkpoint`).
         Latents wider or taller than `tiled_vae_threshold` are decoded in
-        tiles of that size."""
+        tiles of that size. Without `tokenizer` the default one is built from
+        `vocab_path`, padding as the text encoder's own tokenizer pads: HF's
+        CLIPTokenizer with the end-of-text id (pad positions show in the
+        unmasked outputs of the FrozenCLIPEmbedder role), open_clip's with 0."""
         self.config = config
         self.tiled_vae_threshold = tiled_vae_threshold
         self.device = torch.device(device)
@@ -122,7 +163,11 @@ class DynamiCrafterPipeline:
         self.resampler = net.image_proj_model
         self.unet_config = self.unet.config
         self.vae_config = self.vae.config
-        self.tokenizer = tokenizer if tokenizer is not None else default_tokenizer()
+        if tokenizer is None:
+            pad = (self.text_encoder.config.eos_token_id
+                   if config.cond_stage_role == "clip_text_hf" else 0)
+            tokenizer = default_tokenizer(vocab_path, pad_id=pad)
+        self.tokenizer = tokenizer
         self.schedule = sched_lib.build_schedule(
             timesteps=config.timesteps, beta_schedule=config.beta_schedule,
             linear_start=config.linear_start, linear_end=config.linear_end,
@@ -134,14 +179,15 @@ class DynamiCrafterPipeline:
     @classmethod
     def for_training(cls, config: ModelConfig, device,
                      frozen_dtype: torch.dtype = torch.bfloat16, tokenizer=None,
-                     train_resampler: bool = True) -> "DynamiCrafterPipeline":
+                     train_resampler: bool = True,
+                     vocab_path: Optional[str] = None) -> "DynamiCrafterPipeline":
         """The training construction (JAX `scripts/train.py` with
         `cast_storage=False`): the UNet, and the Resampler when
         `train_resampler`, stay fp32 and require gradients (they are the
         optimizer's master weights; compute dtype comes from autocast);
         the frozen VAE and CLIP towers are stored in `frozen_dtype` with fp32
         norms and require none. Weights are uninitialised, as in __init__."""
-        pipe = cls(config, device, torch.float32, tokenizer)
+        pipe = cls(config, device, torch.float32, tokenizer, vocab_path=vocab_path)
         frozen = [pipe.vae, pipe.text_encoder, pipe.vision_encoder]
         if not train_resampler:
             frozen.append(pipe.resampler)
@@ -173,9 +219,11 @@ class DynamiCrafterPipeline:
     @classmethod
     def from_checkpoint(cls, config_path: str, ckpt_path: str, device,
                         dtype: torch.dtype = torch.float32, tokenizer=None,
-                        allow_hash_tokenizer: bool = False) -> "DynamiCrafterPipeline":
+                        allow_hash_tokenizer: bool = False,
+                        vocab_path: Optional[str] = None) -> "DynamiCrafterPipeline":
         """A pipeline with the weights of a released checkpoint."""
-        pipe = cls(ModelConfig.from_yaml(config_path), device, dtype, tokenizer)
+        pipe = cls(ModelConfig.from_yaml(config_path), device, dtype, tokenizer,
+                   vocab_path=vocab_path)
         if isinstance(pipe.tokenizer, HashTokenizer) and not allow_hash_tokenizer:
             raise FileNotFoundError(
                 "a real checkpoint needs the CLIP BPE vocab (the tokenizer fell "

@@ -93,8 +93,15 @@ def make_cfg_denoiser(unet: Callable, cond: CFGConditioning,
     feature of this call; `cache=` runs the UNet's shallow forward from such
     a feature. Under sequential CFG the cache is one feature per pass,
     stacked. The two keywords reach `unet` only when in use, so a plain
-    unet(x, t, context_text=, context_img=, fs=) callable works."""
+    unet(x, t, context_text=, context_img=, fs=) callable works. `t` is
+    one timestep for the whole batch, or a (B,) tensor of per-sample
+    timesteps (score distillation draws one per sample)."""
     p = cond.num_passes
+
+    def timesteps(t, b: int, device) -> torch.Tensor:
+        if torch.is_tensor(t) and t.dim() == 1:
+            return t.to(device=device, dtype=torch.long)
+        return torch.full((b,), int(t), dtype=torch.long, device=device)
 
     def model_fn(x: torch.Tensor, t: int, cache: Optional[torch.Tensor] = None,
                  return_cache: bool = False):
@@ -102,7 +109,7 @@ def make_cfg_denoiser(unet: Callable, cond: CFGConditioning,
         dc_kw = {"return_cache": True} if return_cache else {}
         cache_out = None
         if settings.sequential_cfg and p > 1:
-            ts = torch.full((b,), int(t), dtype=torch.long, device=x.device)
+            ts = timesteps(t, b, x.device)
             outs, caches = [], []
             for i in range(p):
                 o = unet(
@@ -125,7 +132,7 @@ def make_cfg_denoiser(unet: Callable, cond: CFGConditioning,
             flat = lambda a: a.reshape(p * b, *a.shape[2:])
             out = unet(
                 flat(xs),
-                torch.full((p * b,), int(t), dtype=torch.long, device=x.device),
+                timesteps(t, b, x.device).repeat(p),
                 context_text=flat(cond.context_text),
                 context_img=None if cond.context_img is None else flat(cond.context_img),
                 fs=None if cond.fs is None else cond.fs.repeat(p),

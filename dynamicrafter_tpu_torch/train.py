@@ -10,7 +10,8 @@ interval and monitor. Run e.g.:
       --config configs/training_512_v1.0.yaml --name run0 --logdir ./logs \\
       --synthetic_data --bf16 --device cuda
 
-Writes `<logdir>/<name>/train.log`, `metrics.csv` and `checkpoints/`.
+Writes `<logdir>/<name>/train.log`, `metrics.csv` and `checkpoints/`, and
+with --sample_every sampled clips under `samples/`.
 Without a pretrained checkpoint every weight is drawn from N(0, 0.02)
 (`--seed`). SIGUSR1 writes a checkpoint at the end of the current
 micro-step (reference trainer.py:129-143).
@@ -47,6 +48,10 @@ def get_parser() -> argparse.ArgumentParser:
                    help="bf16 frozen towers and bf16 autocast; trainable weights stay fp32")
     p.add_argument("--synthetic_data", action="store_true")
     p.add_argument("--log_every", type=int, default=50)
+    p.add_argument("--sample_every", type=int, default=0,
+                   help="sample clips from the training batch every N micro-steps "
+                        "(0: never); the sampler's settings come from the config's "
+                        "lightning.callbacks.batch_logger.params.log_images_kwargs")
     p.add_argument("--val_every", type=int, default=0,
                    help="validation loss (with and without EMA) every N micro-steps")
     p.add_argument("--vocab_path", type=str, default=None,
@@ -88,9 +93,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from dynamicrafter_tpu_torch.pipeline import DynamiCrafterPipeline
     from dynamicrafter_tpu_torch.training.checkpoints import CheckpointManager
     from dynamicrafter_tpu_torch.training.logging import (
-        MetricLogger, device_memory_stats, setup_logger)
+        MetricLogger, SampleLogger, device_memory_stats, setup_logger)
     from dynamicrafter_tpu_torch.training.trainer import TrainConfig, Trainer
-    from dynamicrafter_tpu_torch.utils.tokenizer import default_tokenizer
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -117,11 +121,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     log.info(f"device={device} lr={lr} bs={bs} accum={cfg.accumulate_grad_batches} "
              f"max_steps={max_steps} bf16={args.bf16}")
 
-    tokenizer = default_tokenizer(args.vocab_path)
     train_resampler = bool(mc.params.get("image_proj_model_trainable", True))
     pipe = DynamiCrafterPipeline.for_training(
         mc, device, frozen_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        tokenizer=tokenizer, train_resampler=train_resampler)
+        train_resampler=train_resampler, vocab_path=args.vocab_path)
+    tokenizer = pipe.tokenizer
     pretrained = args.pretrained
     if pretrained is None and mc.pretrained_checkpoint:
         if os.path.exists(mc.pretrained_checkpoint):
@@ -163,6 +167,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                    num_workers=tc.num_workers, fs_key=fs_key))
 
     metrics_log = MetricLogger(workdir)
+    sample_logger = None
+    if args.sample_every > 0:
+        sample_logger = SampleLogger(
+            pipe, workdir, every_n_steps=args.sample_every,
+            sample_kwargs=tc.batch_logger.get("log_images_kwargs"),
+            autocast=torch.bfloat16 if args.bf16 else None)
     want_ckpt = {"now": False}
     signal.signal(signal.SIGUSR1, lambda *_: want_ckpt.update(now=True))
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
@@ -186,6 +196,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             vals = dict(vals, s_per_step=step_seconds[-1], **device_memory_stats())
             metrics_log.log(step, vals)
             log.info(f"step {step}: " + " ".join(f"{k}={v:.4g}" for k, v in vals.items()))
+        if sample_logger is not None:
+            sample_logger.maybe_log(step, batch)
         if step % ckpt_every == 0 or want_ckpt["now"]:
             mngr.save(step, trainer.state_dict(), metrics=last_val)
             want_ckpt["now"] = False

@@ -173,8 +173,9 @@ class HashTokenizer:
         return out
 
 
-def default_tokenizer(vocab_path: Optional[str] = None):
-    """The CLIP BPE tokenizer when `vocab_path` is given, else HashTokenizer."""
+def default_tokenizer(vocab_path: Optional[str] = None, pad_id: int = 0):
+    """The CLIP BPE tokenizer when `vocab_path` is given, else HashTokenizer;
+    rows are padded with `pad_id`."""
     if vocab_path is None:
-        return HashTokenizer()
-    return CLIPTokenizer(vocab_path)
+        return HashTokenizer(pad_id=pad_id)
+    return CLIPTokenizer(vocab_path, pad_id=pad_id)

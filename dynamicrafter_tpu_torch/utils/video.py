@@ -11,7 +11,9 @@ triangle filter widened by the downscale factor, horizontal pass first,
 each pass rounded to uint8), so `load_image` matches the JAX package's
 Pillow-based loader exactly when no resize is needed and to within
 rounding otherwise. Frames are written as `.npy` uint8 (T, H, W, 3); `.mp4`
-needs OpenCV and is written only on request.
+needs OpenCV and is written only on request (`save_clip` writes the mp4
+where OpenCV imports and the `.npy` elsewhere). PNG is written with zlib
+(8-bit RGB, filter 0).
 """
 from __future__ import annotations
 
@@ -197,6 +199,60 @@ def save_video(frames: np.ndarray, path: str, fps: int = 8) -> None:
             writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
     finally:
         writer.release()
+
+
+def save_clip(frames: np.ndarray, base: str, fps: int = 8) -> str:
+    """(T, H, W, 3) float [-1, 1] or uint8 -> `<base>.mp4` where OpenCV
+    imports, else `<base>.npy` (uint8). Returns the path written."""
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        np.save(base + ".npy", frames if frames.dtype == np.uint8 else to_uint8(frames))
+        return base + ".npy"
+    save_video(frames, base + ".mp4", fps=fps)
+    return base + ".mp4"
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> the bytes of an 8-bit RGB PNG."""
+    h, w, c = image.shape
+    if image.dtype != np.uint8 or c != 3:
+        raise ValueError(f"encode_png: (H, W, 3) uint8 only, got {image.shape} {image.dtype}")
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), image.reshape(h, w * 3)], axis=1)
+    return (_PNG_SIG + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def save_image(image: np.ndarray, path: str) -> None:
+    """(H, W, 3) float [-1, 1] or uint8 -> PNG."""
+    if image.dtype != np.uint8:
+        image = to_uint8(image)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(encode_png(np.ascontiguousarray(image)))
+
+
+def download_checkpoint(resolution: str = "512", cache_dir: str = "./checkpoints") -> str:
+    """Fetch a released checkpoint from the Hugging Face hub (reference
+    scripts/gradio/i2v_test.py:94-102). Needs network access and the
+    `huggingface_hub` package."""
+    try:
+        from huggingface_hub import hf_hub_download
+    except ImportError as e:
+        raise ImportError("huggingface_hub required to download weights") from e
+    repos = {"256": "Doubiiu/DynamiCrafter", "512": "Doubiiu/DynamiCrafter_512",
+             "1024": "Doubiiu/DynamiCrafter_1024",
+             "512_interp": "Doubiiu/DynamiCrafter_512_Interp"}
+    if resolution not in repos:
+        raise ValueError(f"no released checkpoint for {resolution!r} (available: "
+                         f"{sorted(repos)}; interpolation/looping weights exist only at 512)")
+    return hf_hub_download(repo_id=repos[resolution], filename="model.ckpt",
+                           cache_dir=cache_dir)
 
 
 def video_grid(videos: np.ndarray, n_cols: Optional[int] = None) -> np.ndarray:

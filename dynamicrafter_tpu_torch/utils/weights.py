@@ -7,6 +7,10 @@ across as numpy) or a released checkpoint after `normalize_state_dict`
 (the JAX package's `utils/weights.py::normalize_state_dict`, kept here as
 the port's own copy).
 
+`flax_encoder_state_dict` carries the Flax param tree of an alternate
+encoder (`models/encoders.py`), as nested dicts of numpy arrays, to that
+module's state_dict.
+
 Some key families in a checkpoint belong to modules the port never runs.
 They are dropped by name through `DONOR_ONLY` (the same families
 `dynamicrafter_tpu/utils/export.py` documents as never held by the Flax
@@ -105,6 +109,103 @@ def load_reference_state_dict(target, sd: Mapping[str, np.ndarray],
                 raise ValueError(f"{k}: checkpoint shape {tuple(src.shape)} != "
                                  f"module shape {tuple(dst.shape)}")
             dst.copy_(src.to(dtype=dst.dtype))
+
+
+def _dense(out: Dict[str, np.ndarray], key: str, node: Mapping) -> None:
+    """A Flax Dense {kernel (in, out)[, bias]} as a torch Linear at `key`."""
+    out[key + ".weight"] = np.asarray(node["kernel"]).T
+    if "bias" in node:
+        out[key + ".bias"] = np.asarray(node["bias"])
+
+
+def _norm(out: Dict[str, np.ndarray], key: str, node: Mapping) -> None:
+    out[key + ".weight"] = np.asarray(node["scale"])
+    if "bias" in node:
+        out[key + ".bias"] = np.asarray(node["bias"])
+
+
+def _hf_clip_text(params: Mapping) -> Dict[str, np.ndarray]:
+    out = {"text_model.embeddings.token_embedding.weight": np.asarray(params["token_embedding"]),
+           "text_model.embeddings.position_embedding.weight":
+               np.asarray(params["positional_embedding"])}
+    for name, node in params.items():
+        if name.startswith("resblocks_"):
+            base = f"text_model.encoder.layers.{name.split('_')[1]}."
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                _dense(out, base + "self_attn." + proj, node[proj])
+            _dense(out, base + "mlp.fc1", node["c_fc"])
+            _dense(out, base + "mlp.fc2", node["c_proj"])
+            _norm(out, base + "layer_norm1", node["ln_1"])
+            _norm(out, base + "layer_norm2", node["ln_2"])
+    if "ln_final" in params:
+        _norm(out, "text_model.final_layer_norm", params["ln_final"])
+    return out
+
+
+def _t5(params: Mapping) -> Dict[str, np.ndarray]:
+    out = {"shared.weight": np.asarray(params["token_embedding"]),
+           "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+               np.asarray(params["rel_bias"])}
+    _norm(out, "encoder.final_layer_norm", params["ln_final"])
+    for name, node in params.items():
+        if name.startswith("blocks_"):
+            base = f"encoder.block.{name.split('_')[1]}.layer."
+            for proj in ("q", "k", "v", "o"):
+                _dense(out, base + "0.SelfAttention." + proj, node[proj])
+            for proj in ("wi_0", "wi_1", "wo"):
+                _dense(out, base + "1.DenseReluDense." + proj, node[proj])
+            _norm(out, base + "0.layer_norm", node["ln_attn"])
+            _norm(out, base + "1.layer_norm", node["ln_ff"])
+    return out
+
+
+def _clip_vision_pooled(params: Mapping) -> Dict[str, np.ndarray]:
+    vis, pre = params["visual"], "model.visual."
+    patch = np.asarray(vis["patch_embed"]["kernel"])          # (p*p*3, W)
+    p = int(round((patch.shape[0] // 3) ** 0.5))
+    out = {pre + "conv1.weight": patch.reshape(p, p, 3, -1).transpose(3, 2, 0, 1),
+           pre + "class_embedding": np.asarray(vis["class_embedding"]),
+           pre + "positional_embedding": np.asarray(vis["positional_embedding"]),
+           pre + "proj": np.asarray(params["proj"])}
+    _norm(out, pre + "ln_pre", vis["ln_pre"])
+    _norm(out, pre + "ln_post", params["ln_post"])
+    for name, node in vis.items():
+        if name.startswith("resblocks_"):
+            base = f"{pre}transformer.resblocks.{name.split('_')[1]}."
+            qkv = [node[n] for n in ("q_proj", "k_proj", "v_proj")]
+            out[base + "attn.in_proj_weight"] = np.concatenate(
+                [np.asarray(n["kernel"]).T for n in qkv])
+            out[base + "attn.in_proj_bias"] = np.concatenate([np.asarray(n["bias"]) for n in qkv])
+            _dense(out, base + "attn.out_proj", node["out_proj"])
+            _dense(out, base + "mlp.c_fc", node["c_fc"])
+            _dense(out, base + "mlp.c_proj", node["c_proj"])
+            _norm(out, base + "ln_1", node["ln_1"])
+            _norm(out, base + "ln_2", node["ln_2"])
+    return out
+
+
+def flax_encoder_state_dict(kind: str, params: Mapping) -> Dict[str, np.ndarray]:
+    """The Flax param tree of an alternate encoder of the JAX package
+    (`dynamicrafter_tpu/models/encoders.py`), as nested dicts of arrays, under
+    the state_dict keys of its counterpart in `models/encoders.py`; load the
+    result with `load_reference_state_dict`. kind: "clip_text_hf"
+    (HFCLIPTextEncoder), "t5" (T5Encoder), "clip_t5" (CLIPT5Encoder),
+    "class_embed" (ClassEmbedder) or "clip_vision_pooled" (CLIPVisionPooled).
+    Dense kernels (in, out) become Linear weights (out, in); q, k, v of a
+    vision block are packed into in_proj; the patch-embedding matrix becomes
+    the (W, 3, p, p) conv weight."""
+    if kind == "clip_text_hf":
+        return _hf_clip_text(params)
+    if kind == "t5":
+        return _t5(params)
+    if kind == "clip_t5":
+        return {**{"clip_encoder." + k: v for k, v in _hf_clip_text(params["clip_encoder"]).items()},
+                **{"t5_encoder." + k: v for k, v in _t5(params["t5_encoder"]).items()}}
+    if kind == "class_embed":
+        return {"embedding.weight": np.asarray(params["embedding"]["embedding"])}
+    if kind == "clip_vision_pooled":
+        return _clip_vision_pooled(params)
+    raise ValueError(f"unknown encoder kind {kind!r}")
 
 
 def init_normal_(module: nn.Module, generator: torch.Generator,

@@ -12,7 +12,10 @@ output's rounding and that of p before the PV product); lse max abs <= 1e-3; the
 <= 1e-4 in fp32 and <= 2e-2 in bf16 (ds is rounded to bf16 before its
 products, as in the Pallas kernels); weight gradients through a whole
 transformer in bf16 <= 2e-2. TF32 is off for the plain versions' fp32
-matmuls.
+matmuls. K7 and K8 (fused GroupNorm -> SiLU -> 3x3 conv): <= 1e-5 in fp32
+and <= 1e-2 in bf16 (each output is rounded once, 2^-9 relative, and bf16
+products accumulate on the tensor cores in another order; read 1e-4 to 3e-4),
+and K7 against K8 on one fp32 input <= 1e-5.
 """
 import pytest
 
@@ -23,6 +26,10 @@ from dynamicrafter_tpu_torch.experiments.flash_pairs import (  # noqa: E402
 )
 from dynamicrafter_tpu_torch.experiments.flash_pairs.flash_pairs import (  # noqa: E402
     flash_attention_pairs,
+)
+from dynamicrafter_tpu_torch.experiments.fused_conv import fused_conv as tconv  # noqa: E402
+from dynamicrafter_tpu_torch.experiments.fused_conv import (  # noqa: E402
+    fused_conv_tiled as tconv_tiled,
 )
 from dynamicrafter_tpu_torch.models.blocks import (  # noqa: E402
     SpatialTransformer, TemporalTransformer,
@@ -335,3 +342,98 @@ def test_flash_variants_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 64, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="unknown mode"):
         tvariants.run_variant(q, q, q, 1, 0.125, "tanh")
+
+
+# -- K7 and K8: fused GroupNorm -> SiLU -> 3x3 conv ---------------------------
+
+# (N, H, W, C, Co, tile_h): the JAX tests' shapes and one with Co != C
+CONV_SHAPES = [(2, 8, 12, 64, 64, 8), (1, 5, 7, 32, 32, 5), (2, 8, 14, 64, 64, 4),
+               (2, 20, 32, 320, 640, 4)]
+
+
+def _conv_operands(n, h, w, c, co, dtype, device, emb, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    draw = lambda *shape: torch.randn(shape, device=device, generator=g)
+    x = draw(n, h, w, c).to(dtype)
+    kernel = (draw(3, 3, c, co) * 0.1).to(dtype)
+    bias = (draw(co) * 0.1).to(dtype)
+    gs, gb = draw(c) * 0.2 + 1, draw(c) * 0.2
+    e = draw(n, c).to(dtype) if emb else None
+    return x, kernel, bias, gs, gb, e
+
+
+def _conv_entries(tile_h):
+    return {"K7": (tconv.fused_gn_silu_conv, tconv.fused_gn_silu_conv_plain, {}),
+            "K8": (tconv_tiled.fused_gn_silu_conv_tiled,
+                   tconv_tiled.fused_gn_silu_conv_tiled_plain, {"tile_h": tile_h})}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("emb", [False, True])
+@pytest.mark.parametrize("n,h,w,c,co,tile_h", CONV_SHAPES)
+@pytest.mark.parametrize("which", ["K7", "K8"])
+def test_fused_conv_kernels_match_plain(cuda, which, n, h, w, c, co, tile_h, emb, dtype, tol):
+    fn, plain, kw = _conv_entries(tile_h)[which]
+    ops = _conv_operands(n, h, w, c, co, dtype, cuda, emb)
+    before = fn.launches
+    out = fn(*ops, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert out.dtype == dtype and out.shape == (n, h, w, co)
+    assert _rel(out, plain(*ops, **kw)) <= tol
+
+
+@pytest.mark.parametrize("n,h,w,c,co,tile_h", CONV_SHAPES)
+def test_k7_and_k8_agree_in_fp32(cuda, n, h, w, c, co, tile_h):
+    ops = _conv_operands(n, h, w, c, co, torch.float32, cuda, True)
+    a = tconv.fused_gn_silu_conv(*ops)
+    b = tconv_tiled.fused_gn_silu_conv_tiled(*ops, tile_h=tile_h)
+    assert _rel(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,co,tile_h", CONV_SHAPES[1:3])
+def test_fused_conv_kernels_write_nothing_past_the_output(cuda, dtype, n, h, w, c, co, tile_h):
+    """Ragged tiles (H, W no multiple of the block's tile): the library
+    entries write into the head of a larger buffer whose tail keeps its
+    fill."""
+    x, kernel, bias, gs, gb, e = _conv_operands(n, h, w, c, co, dtype, cuda, True)
+    lib, code = tkernels.library(), tkernels.DTYPE_CODES[dtype]
+    numel = n * h * w * co
+    ref = tconv.fused_gn_silu_conv_plain(x, kernel, bias, gs, gb, e)
+    for which in ("K7", "K8"):
+        buf = torch.full((numel + 4096,), 7.0, device=cuda, dtype=dtype)
+        if which == "K7":
+            th, tw = tconv.pick_tile(h, w)
+            rc = lib.dct_fused_gn_silu_conv(
+                x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), gs.data_ptr(), gb.data_ptr(),
+                e.data_ptr(), buf.data_ptr(), code, n, h, w, c, co, 32, 1e-5, th, tw,
+                tkernels.stream_handle(cuda))
+        else:
+            xe, scale, shift = tconv_tiled.gn_prepass(x, gs, gb, e, 32, 1e-5)
+            th, tw = tconv.pick_tile(h, w, tile_h)
+            rc = lib.dct_fused_gn_silu_conv_tiled(
+                xe.data_ptr(), scale.data_ptr(), shift.data_ptr(), kernel.data_ptr(),
+                bias.data_ptr(), buf.data_ptr(), code, n, h, w, c, co, th, tw,
+                tkernels.stream_handle(cuda))
+        tkernels.check(rc, which)
+        torch.cuda.synchronize()
+        assert bool((buf[numel:] == 7.0).all()), which
+        assert _rel(buf[:numel].view(n, h, w, co), ref) <= 1e-2, which
+
+
+def test_fused_conv_refuses_what_the_kernels_do_not_take(cuda):
+    x, kernel, bias, gs, gb, e = _conv_operands(1, 8, 8, 64, 64, torch.bfloat16, cuda, True)
+    with pytest.raises(ValueError, match="tile_h"):
+        tconv_tiled.fused_gn_silu_conv_tiled(x, kernel, bias, gs, gb, e, tile_h=3)
+    with pytest.raises(ValueError, match="16-byte"):
+        tconv.fused_gn_silu_conv(x, kernel[..., :60].contiguous(), bias[:60].contiguous(),
+                                 gs, gb, e)
+    with pytest.raises(ValueError, match="emb"):
+        tconv.fused_gn_silu_conv(x, kernel, bias, gs, gb, e[:, :32].contiguous())
+    with pytest.raises(TypeError):
+        tconv.fused_gn_silu_conv(x.half(), kernel.half(), bias.half(), gs, gb, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        tconv.fused_gn_silu_conv(x.transpose(1, 2), kernel, bias, gs, gb, e)
+    assert tconv.supported((32, 40, 64, 320), 320) and tconv.supported((16, 576, 1024, 128), 128)
+    assert not tconv.supported((1, 8, 8, 48), 64) and not tconv.supported((1, 8, 8, 64), 3)

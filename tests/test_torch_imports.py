@@ -42,7 +42,14 @@ MODULES = [
     "dynamicrafter_tpu_torch.experiments.flash_pairs.flash_pairs",
     "dynamicrafter_tpu_torch.experiments.flash_pairs.bench_flash_variants",
     "dynamicrafter_tpu_torch.experiments.flash_pairs.bench_flash_pairs",
+    "dynamicrafter_tpu_torch.experiments.fused_conv.fused_conv",
+    "dynamicrafter_tpu_torch.experiments.fused_conv.fused_conv_tiled",
+    "dynamicrafter_tpu_torch.experiments.fused_conv.bench_fused_conv",
+    "dynamicrafter_tpu_torch.models.encoders",
     "dynamicrafter_tpu_torch.pipeline",
+    "dynamicrafter_tpu_torch.sds",
+    "dynamicrafter_tpu_torch.generate_guidance",
+    "dynamicrafter_tpu_torch.app",
     "dynamicrafter_tpu_torch.utils.tokenizer",
     "dynamicrafter_tpu_torch.utils.weights",
     "dynamicrafter_tpu_torch.utils.video",
