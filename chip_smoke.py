@@ -6,9 +6,14 @@
 Run from the repository root. Phases, each printing one line:
 
   1. the device (torch and nvidia-smi name and power limit); build the CUDA
-     kernels from `dynamicrafter_tpu_torch/csrc/` with nvcc;
+     kernels from `dynamicrafter_tpu_torch/csrc/` with nvcc; each kernel's
+     registers and spill bytes as `ptxas -v` reports them (the bf16 K1/K3
+     kernel must not spill);
   2. K1 (spatial flash attention) against its plain version at the 320x512
-     shape (32, 2560, 5*64) bf16, a ragged L = 300 case, and fp32 checks;
+     shape (32, 2560, 5*64) bf16, ragged L = 300 and Lq 130 / Lk 77 cases,
+     and fp32 checks; bf16 runs on the tensor cores, fp32 on FMAs. Phases 2,
+     6 and 11 print each time with its TFLOP/s and its factor over the
+     library call;
   3. K2 (temporal attention) against its plain version at the shapes the
      320x512 (B = 2), 256x256 --bs 8 (B = 16) and 576x1024 (B = 1, G up to
      9216) paths give it (bf16) and one fp32 shape;
@@ -22,7 +27,8 @@ Run from the repository root. Phases, each printing one line:
      per-frame decode, random N(0, 0.02) weights; checks the written frames
      and that both kernels ran on that path;
   6. K3 (flash forward with logsumexp) against its plain version at
-     (32, 2560, 5*64) bf16, a ragged L = 300 case, and fp32;
+     (32, 2560, 5*64) bf16, ragged L = 300 and Lq 77 / Lk 130 cases, and
+     fp32;
   7. K4a and K4b (flash backward dq, dk/dv) against `flash_bwd_plain` at the
      same shapes; the gradients of the differentiable `flash_attention` and
      `small_t_attention_tmajor` against autograd of their plain versions;
@@ -42,7 +48,7 @@ Run from the repository root. Phases, each printing one line:
      head counts); K5 against plain attention at several G;
  11. K1 at the 576x1024 shapes (L = 9216 x 5 heads, L = 2304 x 10 heads)
      at N = 16, every row against its plain version (taken two rows of N at
-     a time: the plain logits are N*H*L^2);
+     a time: the plain logits are N*H*L^2), and a ragged L = 2301;
  12. one full-width UNet forward of configs/inference_256_v1.0.yaml on the
      batched-CFG input of 8 clips (16, 16, 32, 32, 8), bf16, kernels against
      plain, with the launches of one UNet call;
@@ -207,6 +213,32 @@ def read_clip(path: str):
     return np.stack(frames)
 
 
+def ptxas_report(build_log: str) -> dict:
+    """{kernel: {"regs", "spill"}} from nvcc's `-Xptxas -v` output: each
+    entry function's registers and spill-store bytes, its name demangled
+    where c++filt exists."""
+    import re
+
+    rows, name = {}, None
+    for ln in build_log.splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )(\w+)", ln)
+        if m:
+            name = m.group(1)
+            rows.setdefault(name, {"regs": 0, "spill": 0})
+        elif name and "spill stores" in ln:
+            rows[name]["spill"] = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
+        elif name and "Used" in ln:
+            rows[name]["regs"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    names = list(rows)
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt", "-p", *names], capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            return {short.replace("(anonymous namespace)::", ""): rows[n]
+                    for n, short in zip(names, out)}
+    return rows
+
+
 def counts(*wrappers) -> tuple:
     return tuple(w.launches for w in wrappers)
 
@@ -275,12 +307,15 @@ def main() -> int:
     # -- phase 1: device and build --------------------------------------
     t_start = t0 = time.perf_counter()
     kernels.library()
-    regs = [ln.split(":", 1)[1].strip() for ln in kernels.build_log.splitlines()
-            if "Used" in ln]
+    ptxas = ptxas_report(kernels.build_log)
     log(f"[1] device {kind!r} | nvidia-smi {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | allow_tf32 matmul=False cudnn=False | "
         f"kernels built in {time.perf_counter() - t0:.2f}s (nvcc "
-        f"{kernels.build_seconds:.2f}s) | ptxas: {'; '.join(regs)}")
+        f"{kernels.build_seconds:.2f}s) | ptxas (registers, spill stores): "
+        + "; ".join(f"{name} {r['regs']} regs {r['spill']} B" for name, r in ptxas.items()))
+    tc = {name: r for name, r in ptxas.items() if "flash_fwd_tc_kernel" in name}
+    check(len(tc) == 2 and all(r["spill"] == 0 for r in tc.values()),
+          f"the bf16 K1/K3 kernel spills or is missing: {tc}")
     phase_s["1"] = time.perf_counter() - t0
 
     report = {}
@@ -294,26 +329,41 @@ def main() -> int:
         qh, kh, vh = (heads_first(x, h) for x in (q, k, v))
         return cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=iters)
 
+    def rate(ms, n, lq, lk, h, lib_ms):
+        """A flash forward's time with its TFLOP/s (two products of
+        2*n*h*lq*lk*64 operations) and its factor over the library call."""
+        return (f"{ms:.3f} ms ({4.0 * n * h * lq * lk * 64 / ms / 1e9:.1f} TFLOP/s, "
+                f"{ms / lib_ms:.2f}x the library's {lib_ms:.3f} ms)")
+
+    def draw_qkv(n, lq, lk, h, dtype, scales=(1.0, 1.0, 1.0)):
+        q = (torch.randn(n, lq, h * 64, device=dev, generator=gen) * scales[0]).to(dtype)
+        k, v = ((torch.randn(n, lk, h * 64, device=dev, generator=gen) * sc).to(dtype)
+                for sc in scales[1:])
+        return q, k, v
+
     # -- phase 2: K1 ------------------------------------------------------
     t0 = time.perf_counter()
     h1 = 5
-    for n, l, dtype, tol in [(32, 2560, torch.bfloat16, 1e-2), (4, 300, torch.bfloat16, 1e-2),
-                             (4, 2560, torch.float32, 1e-5), (4, 300, torch.float32, 1e-5)]:
-        q, k, v = (torch.randn(n, l, h1 * 64, device=dev, generator=gen).to(dtype)
-                   for _ in range(3))
+    for n, lq, lk, dtype, tol in [
+            (32, 2560, 2560, torch.bfloat16, 1e-2), (4, 300, 300, torch.bfloat16, 1e-2),
+            (3, 130, 77, torch.bfloat16, 1e-2), (4, 2560, 2560, torch.float32, 1e-5),
+            (4, 300, 300, torch.float32, 1e-5)]:
+        q, k, v = draw_qkv(n, lq, lk, h1, dtype)
         out = flash_fwd(q, k, v, h1, 0.125)
         ref = flash_fwd_plain(q.float(), k.float(), v.float(), h1, 0.125)
         torch.cuda.synchronize()
         max_abs, rel = errors(out, ref)
         ms = cuda_ms(lambda: flash_fwd(q, k, v, h1, 0.125))
         plain_ms = cuda_ms(lambda: flash_fwd_plain(q, k, v, h1, 0.125))
-        log(f"[2] K1 flash_fwd ({n}, {l}, {h1}*64) {str(dtype)[6:]}: max_abs {max_abs:.3e} "
-            f"rel_l2 {rel:.3e} (tol {tol:g}) | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        check(rel <= tol, f"K1 rel L2 {rel} > {tol} at {(n, l, dtype)}")
-        if (n, l, dtype) == (32, 2560, torch.bfloat16):
+        lib_ms = sdpa_ms(q, k, v, h1)
+        log(f"[2] K1 flash_fwd ({n}, Lq {lq}, Lk {lk}, {h1}*64) {str(dtype)[6:]}: max_abs "
+            f"{max_abs:.3e} rel_l2 {rel:.3e} (tol {tol:g}) | kernel "
+            f"{rate(ms, n, lq, lk, h1, lib_ms)}, plain {plain_ms:.3f} ms")
+        check(rel <= tol, f"K1 rel L2 {rel} > {tol} at {(n, lq, lk, dtype)}")
+        if (n, lq, dtype) == (32, 2560, torch.bfloat16):
             report["flash_fwd"] = dict(
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                **attention_bound(n, l, l, h1, 64, dtype), library_ms=sdpa_ms(q, k, v, h1))
+                max_abs_err=max_abs, rel_l2=rel, ms=ms, plain_ms=plain_ms,
+                **attention_bound(n, lq, lk, h1, 64, dtype), library_ms=lib_ms)
         del q, k, v, out, ref
 
     phase_s["2"] = time.perf_counter() - t0
@@ -429,26 +479,31 @@ def main() -> int:
 
     # -- phase 6: K3 ------------------------------------------------------
     t0 = time.perf_counter()
-    for n, l, dtype, tol in [(32, 2560, torch.bfloat16, 1e-2), (4, 300, torch.bfloat16, 1e-2),
-                             (4, 2560, torch.float32, 1e-5), (4, 300, torch.float32, 1e-5)]:
-        q, k, v = (torch.randn(n, l, h1 * 64, device=dev, generator=gen).to(dtype)
-                   for _ in range(3))
+    for n, lq, lk, dtype, tol in [
+            (32, 2560, 2560, torch.bfloat16, 1e-2), (4, 300, 300, torch.bfloat16, 1e-2),
+            (3, 77, 130, torch.bfloat16, 1e-2), (4, 2560, 2560, torch.float32, 1e-5),
+            (4, 300, 300, torch.float32, 1e-5)]:
+        q, k, v = draw_qkv(n, lq, lk, h1, dtype)
         out, lse = flash_fwd_lse(q, k, v, h1, 0.125)
         ref, ref_lse = flash_fwd_lse_plain(q.float(), k.float(), v.float(), h1, 0.125)
         torch.cuda.synchronize()
         max_abs, rel = errors(out, ref)
         lse_err = (lse - ref_lse).abs().max().item()
+        same = torch.equal(out, flash_fwd(q, k, v, h1, 0.125))
         ms = cuda_ms(lambda: flash_fwd_lse(q, k, v, h1, 0.125))
         plain_ms = cuda_ms(lambda: flash_fwd_lse_plain(q, k, v, h1, 0.125))
-        log(f"[6] K3 flash_fwd_lse ({n}, {l}, {h1}*64) {str(dtype)[6:]}: o max_abs "
+        lib_ms = sdpa_ms(q, k, v, h1)
+        log(f"[6] K3 flash_fwd_lse ({n}, Lq {lq}, Lk {lk}, {h1}*64) {str(dtype)[6:]}: o max_abs "
             f"{max_abs:.3e} rel_l2 {rel:.3e} (tol {tol:g}), lse max_abs {lse_err:.3e} "
-            f"(tol 1e-3) | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        check(rel <= tol and lse_err <= 1e-3, f"K3 at {(n, l, dtype)}: o {rel}, lse {lse_err}")
-        if (n, l, dtype) == (32, 2560, torch.bfloat16):
+            f"(tol 1e-3), o equal to K1's {same} | kernel {rate(ms, n, lq, lk, h1, lib_ms)}, "
+            f"plain {plain_ms:.3f} ms")
+        check(rel <= tol and lse_err <= 1e-3 and same,
+              f"K3 at {(n, lq, lk, dtype)}: o {rel}, lse {lse_err}, equal to K1 {same}")
+        if (n, lq, dtype) == (32, 2560, torch.bfloat16):
             report["flash_fwd_lse"] = dict(
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                **attention_bound(n, l, l, h1, 64, dtype, lse=True),
-                library_ms=sdpa_ms(q, k, v, h1))
+                max_abs_err=max_abs, rel_l2=rel, lse_max_abs_err=lse_err, ms=ms,
+                plain_ms=plain_ms, **attention_bound(n, lq, lk, h1, 64, dtype, lse=True),
+                library_ms=lib_ms)
         del q, k, v, out, lse, ref, ref_lse
     phase_s["6"] = time.perf_counter() - t0
 
@@ -674,9 +729,8 @@ def main() -> int:
 
     # -- phase 11: K1 at the 576x1024 shapes ----------------------------------
     t0 = time.perf_counter()
-    for l, h in [(9216, 5), (2304, 10)]:
-        q, k, v = (torch.randn(16, l, h * 64, device=dev, generator=gen).to(torch.bfloat16)
-                   for _ in range(3))
+    for l, h in [(9216, 5), (2304, 10), (2301, 10)]:
+        q, k, v = draw_qkv(16, l, l, h, torch.bfloat16)
         # one N = 16 launch, as the path makes it, held against the plain
         # version two rows of N at a time (its logits are N*H*L^2)
         full = flash_fwd(q, k, v, h, 0.125)
@@ -693,8 +747,10 @@ def main() -> int:
         b = attention_bound(16, l, l, h, 64, torch.bfloat16)
         log(f"[11] K1 flash_fwd (16, {l}, {h}*64) bf16: one N=16 launch vs plain in eight "
             f"N=2 slices, worst slice max_abs {max_abs:.3e} rel_l2 {rel:.3e} (tol 1e-2) | "
-            f"kernel {ms:.3f} ms, library {lib_ms:.3f} ms, bound {b['bound_ms']:.3f} ms by "
+            f"kernel {rate(ms, 16, l, l, h, lib_ms)}, bound {b['bound_ms']:.3f} ms by "
             f"{b['bound_by']}")
+        report["flash_fwd"].setdefault("by_shape", {})[f"(16, {l}, {h}*64)"] = dict(
+            ms=ms, library_ms=lib_ms, rel_l2=rel, **b)
         check(rel <= 1e-2, f"K1 rel L2 {rel} > 1e-2 at N=16, L={l}")
         del q, k, v, full
     torch.cuda.empty_cache()
@@ -969,18 +1025,14 @@ def main() -> int:
               f"{name} rel L2 {r} > {variant_tol[dtype]} at {what} {str(dtype)[6:]}")
         return r
 
-    def draw_qkv(n, lq, lk, h, dtype):
-        # q and k scaled as the benches scale them: logits on both sides of +-1
-        q = (torch.randn(n, lq, h * 64, device=dev, generator=gen) * 0.6).to(dtype)
-        k, v = ((torch.randn(n, lk, h * 64, device=dev, generator=gen) * s).to(dtype)
-                for s in (0.6, 1.0))
-        return q, k, v
+    # q and k scaled as the benches scale them: logits on both sides of +-1
+    bench_scales = (0.6, 0.6, 1.0)
 
     # whole at the 320x512 shape; ragged L, Lq != Lk, H = 1, 5 and 20, two groups
     for n, lq, lk, h in [(32, 2560, 2560, 5), (4, 300, 300, 5), (3, 130, 77, 1),
                          (2, 200, 333, 20), (2, 97, 150, 7)]:
         for dtype in (bf16, fp32):
-            q, k, v = draw_qkv(n, lq, lk, h, dtype)
+            q, k, v = draw_qkv(n, lq, lk, h, dtype, bench_scales)
             ref = flash_fwd_plain(q.float(), k.float(), v.float(), h, 0.125)
             rels = {name: hold(name, fn(q, k, v, h, 0.125), ref, dtype, (n, lq, lk, h))
                     for name, fn in variants.items()}
@@ -1006,7 +1058,7 @@ def main() -> int:
     # two rows of N at a time (its logits at N = 32, L = 9216 are 54 GB in fp32)
     for l, h in [(9216, 5), (2304, 10)]:
         for dtype in (bf16, fp32):
-            q, k, v = draw_qkv(32, l, l, h, dtype)
+            q, k, v = draw_qkv(32, l, l, h, dtype, bench_scales)
             outs = {name: fn(q, k, v, h, 0.125) for name, fn in variants.items()}
             out_ns = nosoftmax(q, k, v, h, 0.125)
             torch.cuda.synchronize()
@@ -1029,7 +1081,7 @@ def main() -> int:
             del q, k, v, outs, out_ns
     # K9 at odd H: a guard region right behind the output keeps its fill
     for h in (1, 5):
-        q, k, v = draw_qkv(2, 100, 77, h, bf16)
+        q, k, v = draw_qkv(2, 100, 77, h, bf16, bench_scales)
         buf = torch.full((q.numel() + 4096,), 7.0, device=dev, dtype=bf16)
         out = buf[:q.numel()].view_as(q)
         kernels.check(kernels.library().dct_flash_fwd_pairs(

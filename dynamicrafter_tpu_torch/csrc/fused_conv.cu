@@ -55,7 +55,7 @@
 // fixed order, so the result does not change from run to run. This costs
 // one extra pass over the sample per block; a cooperative launch that
 // reduces once and grid-syncs is the later, faster cut.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -73,40 +73,6 @@ constexpr int kMaxSmem = 227 * 1024;
 // the 8 x 4 accumulators serve both layouts, and 8 warps cover the pixel tile
 static_assert(kPixPerThread == kCoTile / 8 && kCoPerThread == 4 && kThreads / 32 * 16 == kMaxPix,
               "accumulator layouts");
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Four 8 x 8 b16 matrices: lane l supplies the 16-byte row l % 8 of matrix
-// l / 8 and receives elements (l / 4, 2 * (l % 4) + {0, 1}) of each, or with
-// .trans elements (2 * (l % 4) + {0, 1}, l / 4).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* row) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, column-major)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -221,7 +187,7 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x, const T* __re
       const int y = y0 + pix / t.hw - 1, xx = x0 + pix % t.hw - 1;
       const int ch = c0 + v * kVec;
       if (y >= 0 && y < h && xx >= 0 && xx < wd && ch < c)
-        cp_async16(sx + pix * kChunk + v * kVec,
+        dct::cp_async16(sx + pix * kChunk + v * kVec,
                    x + (((size_t)n * h + y) * wd + xx) * c + ch);
     }
     constexpr int kVecPerRow = kCoTile / kVec;
@@ -230,11 +196,11 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x, const T* __re
       const int ch = c0 + row % kChunk, oc = co0 + v * kVec;
       T* dst = sw + row * kWStride + v * kVec;
       if (ch < c && oc < co)
-        cp_async16(dst, w + ((size_t)(row / kChunk) * c + ch) * co + oc);
+        dct::cp_async16(dst, w + ((size_t)(row / kChunk) * c + ch) * co + oc);
       else
         *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
     }
-    cp_async_commit();
+    dct::cp_async_commit();
   };
 
   const int nchunks = (c + kChunk - 1) / kChunk;
@@ -243,9 +209,9 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x, const T* __re
     const int buf = ci & 1, c0 = ci * kChunk;
     if (ci + 1 < nchunks) {
       stage(c0 + kChunk, buf ^ 1);
-      cp_async_wait<1>();
+      dct::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      dct::cp_async_wait<0>();
     }
     __syncthreads();
 
@@ -276,14 +242,14 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x, const T* __re
         const T* sw = sm.w + buf * kWElems + b_off;
         for (int tap = 0; tap < 9; ++tap) {
           uint32_t a[4];
-          ldmatrix_x4(a, act16 + a_off + ((tap / 3) * t.hw + tap % 3) * kActStride);
+          dct::ldmatrix_x4(a, act16 + a_off + ((tap / 3) * t.hw + tap % 3) * kActStride);
           const T* wt = sw + tap * kChunk * kWStride;
 #pragma unroll
           for (int j = 0; j < kCoTile / 16; ++j) {
             uint32_t b[4];   // two tiles of 8 output channels
-            ldmatrix_x4_trans(b, wt + 16 * j);
-            mma_bf16(acc[2 * j], a, b[0], b[1]);
-            mma_bf16(acc[2 * j + 1], a, b[2], b[3]);
+            dct::ldmatrix_x4_trans(b, wt + 16 * j);
+            dct::mma_bf16(acc[2 * j], a, b[0], b[1]);
+            dct::mma_bf16(acc[2 * j + 1], a, b[2], b[3]);
           }
         }
       }

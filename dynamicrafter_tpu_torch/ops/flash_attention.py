@@ -6,10 +6,13 @@ tensor it runs the same function in plain PyTorch. Each counts its kernel
 launches in `.launches`.
 
   * `flash_fwd` (K1, `csrc/flash_attention.cu`): the forward, replacing
-    `dynamicrafter_tpu/ops/flash_attention.py::_fwd_kernel_nlhd`.
-  * `flash_fwd_lse` (K3, same source): the forward that also returns the
-    logsumexp lse (N, H, Lq) fp32, replacing `_fwd_kernel` with
-    save_lse=True.
+    `dynamicrafter_tpu/ops/flash_attention.py::_fwd_kernel_nlhd`. bf16
+    inputs run both products on the tensor cores (`mma.sync`, p rounded to
+    bf16 before the PV product as in the Pallas kernel; the scale must be
+    positive); fp32 inputs run them as fp32 FMAs.
+  * `flash_fwd_lse` (K3, same source and the same two routes): the forward
+    that also returns the logsumexp lse (N, H, Lq) fp32, replacing
+    `_fwd_kernel` with save_lse=True.
   * `flash_bwd_dq` (K4a) and `flash_bwd_dkv` (K4b),
     `csrc/flash_attention_bwd.cu`: the FlashAttention-2 backward from o
     and lse, replacing `_bwd_dq_kernel` and `_bwd_dkv_kernel`;

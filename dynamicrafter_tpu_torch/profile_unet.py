@@ -27,7 +27,7 @@ import torch
 # first match wins; copies before elementwise (a copy is an elementwise kernel
 # by name), layout transposes before convolutions
 FAMILIES = (
-    ("K1 flash_fwd_kernel", ("flash_fwd_kernel",)),
+    ("K1 flash_fwd", ("flash_fwd_tc_kernel", "flash_fwd_fma_kernel")),
     ("K5 small_t_posmajor_kernel", ("small_t_posmajor_kernel",)),
     ("K2 small_t_kernel", ("small_t_kernel",)),
     ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),

@@ -19,6 +19,7 @@ micro-step (reference trainer.py:129-143).
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import signal
 import time
@@ -40,6 +41,14 @@ def get_parser() -> argparse.ArgumentParser:
                    help="resume step, weights, optimizer and EMA from the latest checkpoint")
     p.add_argument("--auto_resume_weight_only", action="store_true",
                    help="resume weights and EMA only: fresh optimizer and step")
+    p.add_argument("--train", "-t", action="store_true",
+                   help="accepted for the reference CLI (scripts/run_interp.sh passes it); "
+                        "this CLI always trains")
+    p.add_argument("--val", "-v", action="store_true",
+                   help="accepted for the reference CLI; --val_every N validates in training")
+    p.add_argument("--test", action="store_true",
+                   help="accepted for the reference CLI; there is no separate test loop")
+    p.add_argument("--debug", "-d", action="store_true", help="DEBUG-level logging")
     p.add_argument("--max_steps", type=int, default=None, help="micro-steps to run")
     p.add_argument("--bs", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
@@ -103,6 +112,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     mc = tc.model
     workdir = os.path.join(args.logdir, args.name)
     log = setup_logger(workdir)
+    if args.debug:
+        log.setLevel(logging.DEBUG)
 
     bs = args.bs or tc.batch_size
     lr = (args.lr or tc.base_learning_rate) * (bs if tc.scale_lr else 1)
@@ -196,8 +207,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             vals = dict(vals, s_per_step=step_seconds[-1], **device_memory_stats())
             metrics_log.log(step, vals)
             log.info(f"step {step}: " + " ".join(f"{k}={v:.4g}" for k, v in vals.items()))
-        if sample_logger is not None:
-            sample_logger.maybe_log(step, batch)
+        if sample_logger is not None and step % sample_logger.every == 0:
+            # sample with the EMA weights, the trained ones restored after
+            # (reference ema_scope, ddpm3d.py:188-201); only on the steps that
+            # sample, since the scope copies every trainable weight twice
+            with trainer.ema_scope():
+                sample_logger.maybe_log(step, batch)
         if step % ckpt_every == 0 or want_ckpt["now"]:
             mngr.save(step, trainer.state_dict(), metrics=last_val)
             want_ckpt["now"] = False

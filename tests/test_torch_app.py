@@ -4,7 +4,10 @@ counterpart held against it: the resolution table, the example rows, the
 image fit (`_resize_center_crop_f`, OpenCV's INTER_LINEAR there, numpy here:
 atol 1e-5 on floats in [-1, 1]) and the denoise grid's layout.
 """
+import importlib.util
+import logging
 import os
+import shlex
 import types
 
 import numpy as np
@@ -21,11 +24,14 @@ from dynamicrafter_tpu_torch import app as tapp  # noqa: E402
 from dynamicrafter_tpu_torch import train  # noqa: E402
 from dynamicrafter_tpu_torch.config import ModelConfig  # noqa: E402
 from dynamicrafter_tpu_torch.pipeline import DynamiCrafterPipeline  # noqa: E402
+from dynamicrafter_tpu_torch.training import logging as tlogging  # noqa: E402
+from dynamicrafter_tpu_torch.training import trainer as ttrainer  # noqa: E402
 from dynamicrafter_tpu_torch.training.logging import SampleLogger  # noqa: E402
 from dynamicrafter_tpu_torch.utils import video as tvideo  # noqa: E402
 from test_torch_train import _tiny_train_yaml  # noqa: E402
 
 T, HW = 4, 16
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -253,3 +259,83 @@ def test_train_cli_sample_every(tmp_path):
                          "--max_steps", "2", "--sample_every", "2"])
     samples = os.listdir(os.path.join(result["workdir"], "samples"))
     assert "step0000002_0" + _clip_ext() in samples
+
+
+def test_train_cli_samples_with_the_ema_weights(tmp_path, monkeypatch):
+    """The sample logger runs inside the EMA scope, as JAX's scripts/train.py
+    (lines 401-413) swaps the EMA weights in: the weights `maybe_log` sees
+    are the EMA's and not the trained ones, and the trained ones are back
+    afterwards."""
+    snap = lambda tr: {k: p.detach().clone() for k, p in tr.params.items()}
+    seen = {}
+    real_step = ttrainer.Trainer.train_step
+
+    def train_step(self, *a, **k):
+        out = real_step(self, *a, **k)
+        seen["trainer"], seen["trained"] = self, snap(self)
+        return out
+
+    def maybe_log(self, step, batch):
+        seen.setdefault("sampled", {})[step] = snap(seen["trainer"])
+
+    monkeypatch.setattr(ttrainer.Trainer, "train_step", train_step)
+    monkeypatch.setattr(SampleLogger, "maybe_log", maybe_log)
+    result = train.main(["--config", _tiny_train_yaml(tmp_path), "--logdir",
+                         str(tmp_path / "logs"), "--name", "run", "--synthetic_data",
+                         "--device", "cpu", "--lr", "1e-2", "--max_steps", "2",
+                         "--sample_every", "2"])
+    trainer = result["trainer"]
+    ema, trained = trainer.opt.ema, seen["trained"]
+    assert ema is not None and list(seen["sampled"]) == [2]
+    sampled = seen["sampled"][2]
+    assert set(sampled) == set(ema) == set(trained)
+    assert all(torch.equal(sampled[k], ema[k]) for k in ema)
+    assert sum(not torch.equal(sampled[k], trained[k]) for k in ema) > len(ema) // 2
+    assert all(torch.equal(p, trained[k]) for k, p in trainer.params.items())
+
+
+def _run_interp_sh_argv():
+    """The trainer arguments of scripts/run_interp.sh, its variables set to
+    their defaults and the pass-through "${@:2}" dropped."""
+    with open(os.path.join(REPO, "scripts", "run_interp.sh")) as f:
+        text = f.read().replace("\\\n", " ")
+    line = next(ln for ln in text.splitlines() if ln.startswith("python scripts/train.py"))
+    subst = {"$NAME": "training_512_interp", "$SAVE_ROOT": "runs"}
+    return [subst.get(a, a) for a in shlex.split(line)[2:] if a != "${@:2}"]
+
+
+def _jax_train_parser():
+    spec = importlib.util.spec_from_file_location("jax_scripts_train",
+                                                  os.path.join(REPO, "scripts", "train.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.get_parser()
+
+
+def test_run_interp_sh_command_line_parses():
+    """scripts/run_interp.sh passes --train; the port's trainer takes its
+    command line as the JAX one does."""
+    argv = _run_interp_sh_argv()
+    assert "--train" in argv
+    args = train.get_parser().parse_args(argv)
+    assert args.train and args.config == ["configs/training_512_interp.yaml"]
+    assert (args.name, args.logdir) == ("training_512_interp", "runs")
+    assert os.path.exists(os.path.join(REPO, args.config[0]))
+
+
+@pytest.mark.parametrize("flags", [[], ["--train"], ["-t"], ["--val"], ["-v"], ["--test"],
+                                   ["--debug"], ["-d"], ["-t", "-v", "--test", "-d"]])
+def test_train_cli_reference_flags_parse_as_in_jax(flags):
+    argv = ["--base", "a.yaml", *flags]
+    ours, ref = train.get_parser().parse_args(argv), _jax_train_parser().parse_args(argv)
+    assert ({k: getattr(ours, k) for k in ("config", "train", "val", "test", "debug")}
+            == {k: getattr(ref, k) for k in ("config", "train", "val", "test", "debug")})
+
+
+def test_train_cli_debug_logs_at_debug_level(tmp_path):
+    train.main(["--config", _tiny_train_yaml(tmp_path), "--logdir", str(tmp_path / "logs"),
+                "--synthetic_data", "--device", "cpu", "--max_steps", "1", "--debug"])
+    assert tlogging.mainlogger.level == logging.DEBUG
+    train.main(["--config", _tiny_train_yaml(tmp_path), "--logdir", str(tmp_path / "logs2"),
+                "--synthetic_data", "--device", "cpu", "--max_steps", "1"])
+    assert tlogging.mainlogger.level == logging.INFO

@@ -7,8 +7,9 @@ The file imports no JAX, so it runs on the GPU machine as it is:
 
 Tolerances: forward outputs relative L2 <= 1e-5 in fp32 (the kernels
 accumulate in fp32, in another order than cuBLAS) and <= 1e-2 in bf16 (the
-inputs' own rounding; <= 5e-3 for K6, K9 and K10, which read 2.3e-3: the
-output's rounding and that of p before the PV product); lse max abs <= 1e-3; the backward's dq, dk, dv
+inputs' own rounding, the output's, and that of p before the PV product in
+the tensor-core K1/K3 and in K6, K9 and K10, which read about 2.3e-3; <= 5e-3
+for K6, K9 and K10); lse max abs <= 1e-3; the backward's dq, dk, dv
 <= 1e-4 in fp32 and <= 2e-2 in bf16 (ds is rounded to bf16 before its
 products, as in the Pallas kernels); weight gradients through a whole
 transformer in bf16 <= 2e-2. TF32 is off for the plain versions' fp32
@@ -160,6 +161,78 @@ def test_k3_kernel_matches_plain(cuda, dtype, tol, n, lq, lk, h):
     assert lse.shape == (n, h, lq)
     assert _rel(out, ref) <= tol
     assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+# ragged for the bf16 kernel's 128-row query and 64-row key tiles: one row,
+# Lq < Lk and Lq > Lk, Lk exactly one key tile, and a 576x1024 level-1 shape
+TC_SHAPES = [(1, 1, 1, 1), (2, 17, 77, 2), (2, 130, 300, 5), (3, 65, 64, 5), (2, 2304, 2304, 10)]
+
+
+@pytest.mark.parametrize("n,lq,lk,h", TC_SHAPES)
+@pytest.mark.parametrize("which", ["K1", "K3"])
+def test_k1_k3_tensor_core_kernel_matches_plain(cuda, which, n, lq, lk, h):
+    """bf16 K1 and K3 (both products on the tensor cores, p rounded to bf16)
+    against the fp32 plain version: o rel L2 <= 1e-2, lse max abs <= 1e-3."""
+    q = _qkv((n, lq, h * 64), torch.bfloat16, cuda)[0]
+    _, k, v = _qkv((n, lk, h * 64), torch.bfloat16, cuda, seed=1)
+    ref, ref_lse = tflash.flash_fwd_lse_plain(q.float(), k.float(), v.float(), h, 0.125)
+    wrapper = tflash.flash_fwd if which == "K1" else tflash.flash_fwd_lse
+    before = wrapper.launches
+    out = wrapper(q, k, v, h, 0.125)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    if which == "K3":
+        out, lse = out
+        assert lse.dtype == torch.float32 and lse.shape == (n, h, lq)
+        assert (lse - ref_lse).abs().max().item() <= 1e-3
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert _rel(out, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,lq,lk,h", TC_SHAPES)
+def test_k1_and_k3_outputs_are_identical(cuda, dtype, n, lq, lk, h):
+    """K3 is K1's template with the lse store compiled in: o agrees bit for bit."""
+    q = _qkv((n, lq, h * 64), dtype, cuda)[0]
+    _, k, v = _qkv((n, lk, h * 64), dtype, cuda, seed=1)
+    assert torch.equal(tflash.flash_fwd(q, k, v, h, 0.125),
+                       tflash.flash_fwd_lse(q, k, v, h, 0.125)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,lq,lk,h", [(2, 130, 77, 1), (3, 65, 64, 5)])
+def test_k1_k3_write_nothing_past_the_output_or_lse(cuda, dtype, n, lq, lk, h):
+    """Ragged query tiles: the library entries write o and lse into the head
+    of larger buffers whose tails keep their fill."""
+    q = _qkv((n, lq, h * 64), dtype, cuda)[0]
+    _, k, v = _qkv((n, lk, h * 64), dtype, cuda, seed=1)
+    ref, ref_lse = tflash.flash_fwd_lse_plain(q.float(), k.float(), v.float(), h, 0.125)
+    lib, code = tkernels.library(), tkernels.DTYPE_CODES[dtype]
+    stream = tkernels.stream_handle(cuda)
+    numel, rows = q.numel(), n * h * lq
+    o1, o3 = (torch.full((numel + 4096,), 7.0, device=cuda, dtype=dtype) for _ in range(2))
+    lse = torch.full((rows + 4096,), 7.0, device=cuda)
+    tkernels.check(lib.dct_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o1.data_ptr(),
+                                     code, n, lq, lk, h, 0.125, stream), "K1")
+    tkernels.check(lib.dct_flash_fwd_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         o3.data_ptr(), lse.data_ptr(), code, n, lq, lk, h,
+                                         0.125, stream), "K3")
+    torch.cuda.synchronize()
+    for buf in (o1, o3, lse):
+        assert bool((buf[-4096:] == 7.0).all())
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _rel(o1[:numel].view_as(q), ref) <= tol and _rel(o3[:numel].view_as(q), ref) <= tol
+    assert (lse[:rows].view(n, h, lq) - ref_lse).abs().max().item() <= 1e-3
+
+
+def test_k1_k3_tensor_core_kernel_refuses_a_scale_that_is_not_positive(cuda):
+    """The bf16 kernel takes the running max on raw logits: only scale > 0
+    is exact, and any other scale raises rather than taking another route."""
+    q = torch.zeros(1, 64, 64, device=cuda, dtype=torch.bfloat16)
+    for fn in (tflash.flash_fwd, tflash.flash_fwd_lse):
+        for scale in (0.0, -0.125):
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                fn(q, q, q, 1, scale)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])

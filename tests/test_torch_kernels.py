@@ -198,6 +198,44 @@ def test_k3_plain_matches_jax_fwd_with_lse(lq, lk):
                                atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("n,lq,lk,h", [(1, 1, 1, 1), (2, 17, 77, 2), (2, 65, 64, 1)])
+@pytest.mark.parametrize("which", ["K1", "K3"])
+def test_k1_k3_plain_match_jax_kernels_in_bf16(which, n, lq, lk, h):
+    """bf16, where the card runs K1/K3 on the tensor cores with p rounded to
+    bf16 before the PV product: the plain versions that kernel is held
+    against round p as the Pallas kernels do (`p.astype(v.dtype)`). Ragged
+    for the card kernel's 128-row query and 64-row key tiles. Tolerance: the
+    inputs' rounding (atol = rtol = 2e-2, as for K6 and K9); the plain
+    version rounds the logits to bf16 (`xla_attention`'s math), the Pallas
+    kernel keeps them in fp32, which lse shows at up to ~1e-2."""
+    q, k, v = _variant_inputs(n, lq, lk, h, "bfloat16", 30 + lq)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    jq, jk, jv = (_head_major(a, h).astype(jnp.bfloat16) for a in (q, k, v))
+    if which == "K1":
+        out = tflash.flash_fwd(tq, tk, tv, h, 0.125)
+        ref = j_flash(*(_heads_split(a, h, "bfloat16") for a in (q, k, v)), interpret=True)
+        ref = np.asarray(ref.astype(jnp.float32)).reshape(n, lq, h * 64)
+    else:
+        out, lse = tflash.flash_fwd_lse(tq, tk, tv, h, 0.125)
+        o_ref, lse_ref = _flash_fwd(jq, jk, jv, 0.125, 128, 128, True, save_lse=True)
+        ref = _nlhd(o_ref.astype(jnp.float32))
+        np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref)[:, :, :lq, 0],
+                                   **VARIANT_TOL["bfloat16"])
+    assert out.dtype == torch.bfloat16 and out.shape == (n, lq, h * 64)
+    np.testing.assert_allclose(out.float().numpy(), ref, **VARIANT_TOL["bfloat16"])
+
+
+def test_profile_families_name_the_flash_forward_kernels():
+    from dynamicrafter_tpu_torch.profile_unet import family
+
+    for name in ("void (anonymous namespace)::flash_fwd_tc_kernel<false>(__nv_bfloat16 const*)",
+                 "void (anonymous namespace)::flash_fwd_tc_kernel<true>(__nv_bfloat16 const*)",
+                 "void (anonymous namespace)::flash_fwd_fma_kernel<false>(float const*)"):
+        assert family(name) == "K1 flash_fwd"
+    assert family("void (anonymous namespace)::small_t_kernel<__nv_bfloat16>()") == \
+        "K2 small_t_kernel"
+
+
 @pytest.mark.parametrize("lq,lk", LENGTHS)
 def test_k4_plain_matches_jax_bwd(lq, lk):
     """dq, dk, dv from the same o and lse (JAX's), ragged and Lq != Lk."""
