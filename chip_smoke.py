@@ -7,8 +7,8 @@ Run from the repository root. Phases, each printing one line:
 
   1. the device (torch and nvidia-smi name and power limit); build the CUDA
      kernels from `dynamicrafter_tpu_torch/csrc/` with nvcc; each kernel's
-     registers and spill bytes as `ptxas -v` reports them (the bf16 K1/K3
-     kernel must not spill);
+     registers and spill bytes as `ptxas -v` reports them (the bf16 K1/K3,
+     K4a and K4b kernels must not spill);
   2. K1 (spatial flash attention) against its plain version at the 320x512
      shape (32, 2560, 5*64) bf16, ragged L = 300 and Lq 130 / Lk 77 cases,
      and fp32 checks; bf16 runs on the tensor cores, fp32 on FMAs. Phases 2,
@@ -29,14 +29,22 @@ Run from the repository root. Phases, each printing one line:
   6. K3 (flash forward with logsumexp) against its plain version at
      (32, 2560, 5*64) bf16, ragged L = 300 and Lq 77 / Lk 130 cases, and
      fp32;
-  7. K4a and K4b (flash backward dq, dk/dv) against `flash_bwd_plain` at the
-     same shapes; the gradients of the differentiable `flash_attention` and
-     `small_t_attention_tmajor` against autograd of their plain versions;
+  7. K4a and K4b (flash backward dq, dk/dv; bf16 on the tensor cores after a
+     di pre-pass, fp32 on FMAs) against `flash_bwd_plain` at the same shapes
+     (Lq 77 / Lk 130 for the ragged one), with their TFLOP/s and their factor
+     over the library's backward, and the pre-pass against its plain
+     version; a level-0 attention forward + backward at (32, 2560, 5*64) and
+     (32, 300, 5*64) bf16 timed three ways (`flash_attention`, bf16
+     `plain_attention` under autograd, the library); the gradients of the
+     differentiable `flash_attention` and `small_t_attention_tmajor` against
+     autograd of their plain versions;
   8. one full-width training forward and backward of
      configs/training_512_v1.0.yaml (batch 2 x 16 frames at 320x512, bf16
      autocast, fp32 trainable weights), through the kernels and through the
      plain versions on the same weights and draws: loss and flattened
-     gradient compared, kernel launches per micro-step counted;
+     gradient compared, kernel launches per micro-step counted; the median,
+     min and max of 10 more micro-steps on the kernel route, and one
+     profiled, its device time by kernel family;
   9. the training slice end to end through `dynamicrafter_tpu_torch.train.main`
      (the `python -m dynamicrafter_tpu_torch.train` entry point): 4
      micro-steps at accumulation 2 from N(0, 0.02) weights on synthetic
@@ -96,17 +104,27 @@ Run from the repository root. Phases, each printing one line:
      seconds per step and stage peaks; then two steps with fixed draws,
      kernels against plain;
  24. the app backend `Image2Video` at 320x512 with random weights:
-     `get_image` at 10 steps in mode i2v and in mode loop (15 frames out).
+     `get_image` at 10 steps in mode i2v and in mode loop (15 frames out);
+ 25. K4a, K4b and the pre-pass at the 576x1024 shapes (N = 16, L = 9216 x 5
+     heads and L = 2304 x 10), one launch each against the plain version two
+     rows of N at a time, timed beside the bound and the library's backward;
+     one full-width training micro-step of configs/training_1024_v1.0.yaml
+     (batch 1 x 16 frames at 576x1024, latents 72x128, bf16 autocast,
+     synthetic frames): finite loss and gradient, peak memory, launches per
+     micro-step, one profiled by kernel family; then that UNet cut to 2
+     frames, forward and backward through the kernels and through the plain
+     versions, gradients compared.
 
 Then a JSON line with, for each kernel, its launches on its main path (K1 and
-K2 phase 5, K3, K4a and K4b phase 9, K5 phase 13, K6, K9 and K10 phase 19, K7
-and K8 phase 21; `launches_by_path` has every path), error against the plain
-version (K6, K9, K10: the worst over phase 18's bf16 shapes; K7, K8: at the
-first shape of phase 21), and times: the kernel, the plain
+K2 phase 5, K3, K4a, K4b and the di pre-pass phase 9, K5 phase 13, K6, K9 and
+K10 phase 19, K7 and K8 phase 21; `launches_by_path` has every path), error
+against the plain version (K6, K9, K10: the worst over phase 18's bf16
+shapes; K7, K8: at the first shape of phase 21), and times: the kernel, the plain
 version, the bound (the larger of bytes over 3.35 TB/s and operations over
 the peak rate of the input type, from the shapes) and one library call
-(`F.scaled_dot_product_attention`, or for K7 and K8 the group_norm, silu,
-conv2d route; timed here and used nowhere in the
+(`F.scaled_dot_product_attention` or its backward, `torch.linalg.vecdot`
+for the pre-pass, or for K7 and K8 the group_norm, silu, conv2d route;
+timed here and used nowhere in the
 package); the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 Any failure raises, so the script exits nonzero; without a CUDA device it
 exits 1 before printing any result. Float32 matmuls and convolutions run
@@ -124,6 +142,7 @@ import time
 
 CONFIG = "configs/inference_512_v1.0.yaml"
 TRAIN_CONFIG = "configs/training_512_v1.0.yaml"
+TRAIN_CONFIG_1024 = "configs/training_1024_v1.0.yaml"
 CONFIG_256 = "configs/inference_256_v1.0.yaml"
 CONFIG_1024 = "configs/inference_1024_v1.0.yaml"
 PROMPTS = "prompts/512"
@@ -257,7 +276,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke test "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from dynamicrafter_tpu_torch import generate_guidance, inference
+    from dynamicrafter_tpu_torch import generate_guidance, inference, profile_unet
     from dynamicrafter_tpu_torch.app import Image2Video
     from dynamicrafter_tpu_torch.config import ModelConfig
     from dynamicrafter_tpu_torch.experiments.fused_conv import bench_fused_conv
@@ -279,8 +298,9 @@ def main() -> int:
     from dynamicrafter_tpu_torch.experiments.flash_pairs.flash_pairs import (
         flash_attention_pairs)
     from dynamicrafter_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_bwd, flash_bwd_dkv, flash_bwd_dq, flash_bwd_plain, flash_fwd,
-        flash_fwd_lse, flash_fwd_lse_plain, flash_fwd_packed, flash_fwd_plain)
+        flash_attention, flash_bwd, flash_bwd_di, flash_bwd_di_plain, flash_bwd_dkv, flash_bwd_dq,
+        flash_bwd_plain, flash_fwd, flash_fwd_lse, flash_fwd_lse_plain, flash_fwd_packed,
+        flash_fwd_plain)
     from dynamicrafter_tpu_torch.ops.norms import keep_norms_fp32
     from dynamicrafter_tpu_torch.ops.small_attention import (
         small_t_attention, small_t_attention_tmajor, small_t_fwd, small_t_fwd_plain,
@@ -313,9 +333,12 @@ def main() -> int:
         f"kernels built in {time.perf_counter() - t0:.2f}s (nvcc "
         f"{kernels.build_seconds:.2f}s) | ptxas (registers, spill stores): "
         + "; ".join(f"{name} {r['regs']} regs {r['spill']} B" for name, r in ptxas.items()))
-    tc = {name: r for name, r in ptxas.items() if "flash_fwd_tc_kernel" in name}
-    check(len(tc) == 2 and all(r["spill"] == 0 for r in tc.values()),
-          f"the bf16 K1/K3 kernel spills or is missing: {tc}")
+    for what, key, count in (("K1/K3", "flash_fwd_tc_kernel", 2),
+                             ("K4a", "flash_bwd_dq_tc_kernel", 1),
+                             ("K4b", "flash_bwd_dkv_tc_kernel", 1)):
+        tc = {name: r for name, r in ptxas.items() if key in name}
+        check(len(tc) == count and all(r["spill"] == 0 for r in tc.values()),
+              f"the bf16 {what} kernel spills or is missing: {tc}")
     phase_s["1"] = time.perf_counter() - t0
 
     report = {}
@@ -509,26 +532,26 @@ def main() -> int:
 
     # -- phase 7: K4a and K4b; the differentiable entries -------------------
     t0 = time.perf_counter()
-    for n, l, dtype, tol in [(32, 2560, torch.bfloat16, 2e-2), (4, 300, torch.bfloat16, 2e-2),
-                             (4, 2560, torch.float32, 1e-4), (4, 300, torch.float32, 1e-4)]:
-        q, k, v, do = (torch.randn(n, l, h1 * 64, device=dev, generator=gen).to(dtype)
-                       for _ in range(4))
+    for n, lq, lk, dtype, tol in [
+            (32, 2560, 2560, bf16, 2e-2), (4, 300, 300, bf16, 2e-2), (3, 77, 130, bf16, 2e-2),
+            (4, 2560, 2560, fp32, 1e-4), (4, 300, 300, fp32, 1e-4), (3, 77, 130, fp32, 1e-4)]:
+        q, k, v = draw_qkv(n, lq, lk, h1, dtype)
+        do = torch.randn(n, lq, h1 * 64, device=dev, generator=gen).to(dtype)
         o, lse = flash_fwd_lse_plain(q.float(), k.float(), v.float(), h1, 0.125)
         refs = flash_bwd_plain(q.float(), k.float(), v.float(), o, lse, do.float(), h1, 0.125)
         o = o.to(dtype)
         grads = flash_bwd(q, k, v, o, lse, do, h1, 0.125)
         torch.cuda.synchronize()
         errs = [errors(g, r) for g, r in zip(grads, refs)]
-        ms_dq = cuda_ms(lambda: flash_bwd_dq(q, k, v, o, lse, do, h1, 0.125))
-        ms_dkv = cuda_ms(lambda: flash_bwd_dkv(q, k, v, o, lse, do, h1, 0.125))
+        # bf16: both kernels read one pre-pass's di, as `flash_bwd` runs them
+        di = flash_bwd_di(o, do, h1) if dtype == bf16 else None
+        ms_dq = cuda_ms(lambda: flash_bwd_dq(q, k, v, o, lse, do, h1, 0.125, di))
+        ms_dkv = cuda_ms(lambda: flash_bwd_dkv(q, k, v, o, lse, do, h1, 0.125, di))
         plain_ms = cuda_ms(lambda: flash_bwd_plain(q, k, v, o, lse, do, h1, 0.125))
-        log(f"[7] K4 flash_bwd ({n}, {l}, {h1}*64) {str(dtype)[6:]}: "
-            + ", ".join(f"{name} max_abs {a:.3e} rel_l2 {r:.3e}"
-                        for name, (a, r) in zip(("dq", "dk", "dv"), errs))
-            + f" (tol {tol:g}) | K4a {ms_dq:.3f} ms + K4b {ms_dkv:.3f} ms, plain "
-            f"(dq, dk, dv together) {plain_ms:.3f} ms")
-        check(all(r <= tol for _, r in errs), f"K4 at {(n, l, dtype)}: {errs}")
-        if (n, l, dtype) == (32, 2560, torch.bfloat16):
+        flops = 2.0 * n * h1 * lq * lk * 64   # one product
+        timing = (f"K4a {ms_dq:.3f} ms ({3 * flops / ms_dq / 1e9:.1f} TFLOP/s) + K4b "
+                  f"{ms_dkv:.3f} ms ({4 * flops / ms_dkv / 1e9:.1f} TFLOP/s)")
+        if dtype == bf16:
             # the library's backward computes dq, dk and dv in one call, as
             # the plain version does: both kernels are held against that time
             leaves = [heads_first(x, h1).detach().requires_grad_() for x in (q, k, v)]
@@ -537,17 +560,59 @@ def main() -> int:
             lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, lib_do,
                                                          retain_graph=True))
             del leaves, lib_out, lib_do
-            # K4a reads q, k, v, o, lse, do and writes dq (three products);
-            # K4b reads the same and writes dk, dv (four products); Lq = Lk
+            di_ms = cuda_ms(lambda: flash_bwd_di(o, do, h1))
+            di_err = errors(di, flash_bwd_di_plain(o, do, h1))
+            timing += (f", di pre-pass {di_ms:.4f} ms (max_abs {di_err[0]:.3e}); together "
+                       f"{(ms_dq + ms_dkv + di_ms) / lib_ms:.2f}x the library's backward "
+                       f"{lib_ms:.3f} ms")
+            check(di_err[1] <= 1e-6, f"di pre-pass rel L2 {di_err[1]} at {(n, lq, lk)}")
+        log(f"[7] K4 flash_bwd ({n}, Lq {lq}, Lk {lk}, {h1}*64) {str(dtype)[6:]}: "
+            + ", ".join(f"{name} max_abs {a:.3e} rel_l2 {r:.3e}"
+                        for name, (a, r) in zip(("dq", "dk", "dv"), errs))
+            + f" (tol {tol:g}) | {timing}, plain (dq, dk, dv together) {plain_ms:.3f} ms")
+        check(all(r <= tol for _, r in errs), f"K4 at {(n, lq, lk, dtype)}: {errs}")
+        if (n, lq, dtype) == (32, 2560, bf16):
+            # K4a reads q, k, v, lse, di, do and writes dq (three products);
+            # K4b reads the same and writes dk, dv (four products); Lq = Lk.
+            # The pre-pass reads o and do and writes di, fp32 (N, H, Lq).
+            k4 = lambda ms, products: dict(
+                tflops=products * flops / ms / 1e9, over_library=ms / lib_ms,
+                library_ms=lib_ms, library_covers="dq+dk+dv")
             report["flash_bwd_dq"] = dict(
-                max_abs_err=errs[0][0], ms=ms_dq, plain_ms=plain_ms,
-                **attention_bound(n, l, l, h1, 64, dtype, products=3, extra_tensors=2,
-                                  lse=True), library_ms=lib_ms, library_covers="dq+dk+dv")
+                max_abs_err=errs[0][0], rel_l2=errs[0][1], ms=ms_dq, plain_ms=plain_ms,
+                **attention_bound(n, lq, lk, h1, 64, dtype, products=3, extra_tensors=2,
+                                  lse=True), **k4(ms_dq, 3))
             report["flash_bwd_dkv"] = dict(
-                max_abs_err=max(errs[1][0], errs[2][0]), ms=ms_dkv, plain_ms=plain_ms,
-                **attention_bound(n, l, l, h1, 64, dtype, products=4, extra_tensors=3,
-                                  lse=True), library_ms=lib_ms, library_covers="dq+dk+dv")
-        del q, k, v, do, o, lse, refs, grads
+                max_abs_err=max(errs[1][0], errs[2][0]), rel_l2_dk=errs[1][1],
+                rel_l2_dv=errs[2][1], ms=ms_dkv, plain_ms=plain_ms,
+                **attention_bound(n, lq, lk, h1, 64, dtype, products=4, extra_tensors=3,
+                                  lse=True), **k4(ms_dkv, 4))
+            di_lib = lambda: torch.linalg.vecdot(o.unflatten(-1, (h1, 64)),
+                                                 do.unflatten(-1, (h1, 64)))
+            report["flash_bwd_di"] = dict(
+                max_abs_err=di_err[0], ms=di_ms,
+                plain_ms=cuda_ms(lambda: flash_bwd_di_plain(o, do, h1)),
+                # fp32 FMAs off the tensor cores: the float32 rate
+                **bound(2 * 2 * n * lq * h1 * 64 + 4 * n * h1 * lq, 2.0 * n * lq * h1 * 64, fp32),
+                library_ms=cuda_ms(di_lib))
+        del q, k, v, do, o, lse, refs, grads, di
+
+    # a level-0 attention forward + backward three ways: flash (K3, the
+    # pre-pass, K4a, K4b), bf16 plain attention under autograd, and the library
+    for l in (2560, 300):
+        xs = [torch.randn(32, l, h1, 64, device=dev, generator=gen).to(bf16).requires_grad_()
+              for _ in range(3)]
+        g_out = torch.randn(32, l, h1, 64, device=dev, generator=gen).to(bf16)
+        sdpa_bhld = lambda q, k, v: F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in (q, k, v))).transpose(1, 2)
+        fwd_bwd = {name: cuda_ms(lambda: torch.autograd.grad(fn(*xs), xs, g_out))
+                   for name, fn in (("flash_attention", flash_attention),
+                                    ("plain_attention", attention.plain_attention),
+                                    ("library", sdpa_bhld))}
+        log(f"[7] level-0 attention forward + backward (32, {l}, {h1}, 64) bf16: "
+            + ", ".join(f"{name} {ms:.3f} ms" for name, ms in fwd_bwd.items()))
+        report["flash_bwd_dq"].setdefault("fwd_bwd_ms", {})[f"(32, {l}, {h1}*64)"] = fwd_bwd
+        del xs, g_out
 
     def grad_check(fn, plain_fn, shape, what):
         xs = [torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16).requires_grad_()
@@ -589,14 +654,32 @@ def main() -> int:
                                        dtype=torch.long, device=dev),
              "fs": torch.full((bsz,), 8.0, device=dev)}
     draws = trainer.draw(batch)
-    reset(*train_wrappers)
+    reset(*train_wrappers, flash_bwd_di)
     t1 = time.perf_counter()
     loss, _, grads = trainer.loss_and_grads(batch, draws)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t1
     per_step = counts(*train_wrappers)
+    di_per_step = flash_bwd_di.launches
     g_kern = torch.cat([g.flatten() for g in grads])
     del grads
+
+    # the micro-step's spread on the kernel route, and where its device time goes
+    micro_step = lambda: trainer.loss_and_grads(batch, draws)
+    secs_after = []
+    for _ in range(10):
+        t1 = time.perf_counter()
+        micro_step()
+        torch.cuda.synchronize()
+        secs_after.append(time.perf_counter() - t1)
+    fam, _, window_ms, _ = profile_unet.profile_families(micro_step, 1)
+    device_ms = sum(fam.values())
+    log(f"[8] micro-step on the kernel route, 10 after the first: median "
+        f"{np.median(secs_after):.3f} s, min {min(secs_after):.3f}, max {max(secs_after):.3f} | "
+        f"one profiled: {device_ms:.1f} ms of device time in a {window_ms:.1f} ms window "
+        f"({100 * device_ms / window_ms:.1f} % busy): "
+        + ", ".join(f"{name} {ms:.1f}" for name, ms in fam.most_common()))
+    report["flash_bwd_dq"]["train_512_ms_by_family"] = dict(fam)
     with attention.use_backend("plain"):
         t1 = time.perf_counter()
         loss_plain, _, grads = trainer.loss_and_grads(batch, draws)
@@ -622,13 +705,15 @@ def main() -> int:
         f"level-0 spatial attn1 to_q/to_k/to_v weights rel_l2 {qkv_rel:.3e} max_abs "
         f"{qkv_abs:.3e}, norm {g_kern[sel].norm().item():.4e} | launches per "
         f"micro-step K3 {per_step[0]} K4a {per_step[1]} K4b {per_step[2]} K2 {per_step[3]} "
-        f"K1 {per_step[4]} | fwd+bwd {step_s:.2f} s with kernels (first call), "
+        f"K1 {per_step[4]} (di pre-pass {di_per_step}) | fwd+bwd {step_s:.2f} s with kernels "
+        f"(first call), "
         f"{plain_step_s:.2f} s plain")
     check(bool(torch.isfinite(g_kern).all()) and g_kern.norm().item() > 0, "training gradient")
     check(g_rel <= 5e-2, f"training gradient kernels vs plain rel L2 {g_rel} > 5e-2")
     check(abs(loss.item() - loss_plain.item()) <= 1e-2 * abs(loss_plain.item()),
           f"training loss kernels {loss.item()} vs plain {loss_plain.item()}")
     check(per_step == (5, 5, 5, 68, 0), f"launches per micro-step {per_step} != (5, 5, 5, 68, 0)")
+    check(di_per_step == 5, f"di pre-pass launches per micro-step {di_per_step} != 5")
     del pipe, trainer, batch, draws, g_kern, g_plain, sel, loss, loss_plain
     torch.cuda.empty_cache()
     phase_s["8"] = time.perf_counter() - t0
@@ -637,13 +722,14 @@ def main() -> int:
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
     with tempfile.TemporaryDirectory(dir=REPO) as logdir:
-        reset(*train_wrappers)
+        reset(*train_wrappers, flash_bwd_di)
         result = train.main([
             "--config", TRAIN_CONFIG, "--synthetic_data", "--bf16",
             "--max_steps", str(TRAIN_STEPS), "--device", "cuda", "--seed", str(SEED),
             "--logdir", logdir, "--name", "smoke", "--log_every", "1"])
         torch.cuda.synchronize()
         train_launches = counts(*train_wrappers)
+        train_di = flash_bwd_di.launches
         train_peak = torch.cuda.max_memory_allocated(dev)
         trainer = result["trainer"]
         hist, secs = result["metrics"], result["step_seconds"]
@@ -677,14 +763,16 @@ def main() -> int:
         f"frozen unchanged {frozen_same} | checkpoint step {saved_step} "
         f"{ckpt_bytes / 2**30:.2f} GiB reloads equal {reloaded} | launches K3 "
         f"{train_launches[0]} K4a {train_launches[1]} K4b {train_launches[2]} K2 "
-        f"{train_launches[3]} K1 {train_launches[4]}")
+        f"{train_launches[3]} K1 {train_launches[4]} di pre-pass {train_di}")
     check(len(hist) == TRAIN_STEPS and finite, "training losses / grad norms not finite")
     check(all(m["grad_norm"] > 0 for m in hist), "zero grad_norm")
     check(delta > 0 and len(moved) >= n_trainable // 2, "trainable weights did not move")
     check(frozen_same, "a frozen weight changed")
     check(saved_step == TRAIN_STEPS and reloaded, "checkpoint missing or does not reload")
-    check(train_launches == tuple(TRAIN_STEPS * c for c in per_step),
-          f"launches {train_launches} != {TRAIN_STEPS} x {per_step}")
+    check(train_launches == tuple(TRAIN_STEPS * c for c in per_step)
+          and train_di == TRAIN_STEPS * di_per_step,
+          f"launches {train_launches}, di {train_di} != {TRAIN_STEPS} x {per_step}, "
+          f"{di_per_step}")
     phase_s["9"] = time.perf_counter() - t0
     del result, trainer, hist, secs
     torch.cuda.empty_cache()
@@ -1350,6 +1438,134 @@ def main() -> int:
             torch.cuda.empty_cache()
     phase_s["24"] = time.perf_counter() - t0
 
+    # -- phase 25: one full-width 576x1024 training micro-step ------------------
+    t0 = time.perf_counter()
+    # K4 at the shapes this micro-step gives it (levels 0 and 1): one N = 16
+    # backward, as the path makes it, held against the plain version two rows
+    # of N at a time (its p is N*H*Lq*Lk fp32)
+    for l, h in [(9216, 5), (2304, 10)]:
+        q, k, v = draw_qkv(16, l, l, h, bf16)
+        do = torch.randn(16, l, h * 64, device=dev, generator=gen).to(bf16)
+        o, lse = flash_fwd_lse(q, k, v, h, 0.125)
+        grads = flash_bwd(q, k, v, o, lse, do, h, 0.125)
+        torch.cuda.synchronize()
+        rels = [0.0, 0.0, 0.0]
+        for i in range(0, 16, 2):
+            sl = slice(i, i + 2)
+            refs = flash_bwd_plain(q[sl].float(), k[sl].float(), v[sl].float(), o[sl].float(),
+                                   lse[sl], do[sl].float(), h, 0.125)
+            rels = [max(r, errors(g[sl], ref)[1]) for r, g, ref in zip(rels, grads, refs)]
+            del refs
+        di = flash_bwd_di(o, do, h)
+        ms_dq = cuda_ms(lambda: flash_bwd_dq(q, k, v, o, lse, do, h, 0.125, di), iters=5)
+        ms_dkv = cuda_ms(lambda: flash_bwd_dkv(q, k, v, o, lse, do, h, 0.125, di), iters=5)
+        ms_di = cuda_ms(lambda: flash_bwd_di(o, do, h), iters=5)
+        leaves = [heads_first(x, h).detach().requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, heads_first(do, h),
+                                                     retain_graph=True), iters=5)
+        flops = 2.0 * 16 * h * l * l * 64
+        b_dq = attention_bound(16, l, l, h, 64, bf16, products=3, extra_tensors=2, lse=True)
+        b_dkv = attention_bound(16, l, l, h, 64, bf16, products=4, extra_tensors=3, lse=True)
+        log(f"[25] K4 flash_bwd (16, {l}, {h}*64) bf16: one N=16 backward vs plain in eight N=2 "
+            f"slices, worst rel_l2 dq {rels[0]:.3e} dk {rels[1]:.3e} dv {rels[2]:.3e} (tol 2e-2) | "
+            f"K4a {ms_dq:.3f} ms ({3 * flops / ms_dq / 1e9:.1f} TFLOP/s, bound "
+            f"{b_dq['bound_ms']:.3f}) + K4b {ms_dkv:.3f} ms ({4 * flops / ms_dkv / 1e9:.1f} TFLOP/s, "
+            f"bound {b_dkv['bound_ms']:.3f}) + di {ms_di:.3f} ms = "
+            f"{(ms_dq + ms_dkv + ms_di) / lib_ms:.2f}x the library's backward {lib_ms:.3f} ms")
+        check(max(rels) <= 2e-2, f"K4 at (16, {l}, {h}): {rels}")
+        for name, ms, b in (("flash_bwd_dq", ms_dq, b_dq), ("flash_bwd_dkv", ms_dkv, b_dkv)):
+            report[name].setdefault("by_shape", {})[f"(16, {l}, {h}*64)"] = dict(
+                ms=ms, library_ms=lib_ms, **b)
+        del q, k, v, do, o, lse, grads, di, leaves, lib_out
+    torch.cuda.empty_cache()
+    tc = TrainingConfig.from_yaml(TRAIN_CONFIG_1024)
+    mc = tc.model
+    pipe = DynamiCrafterPipeline.for_training(mc, dev, frozen_dtype=torch.bfloat16)
+    pipe.init_random(seed=SEED)
+    trainer = Trainer(pipe, TrainConfig(
+        accumulate_grad_batches=tc.accumulate_grad_batches, use_ema=False,
+        uncond_prob=mc.uncond_prob, rand_cond_frame=mc.rand_cond_frame,
+        parameterization=mc.parameterization, bf16=True), seed=SEED)
+    bsz, t_len = tc.batch_size, mc.unet["temporal_length"]
+    hh, ww = tc.train_data["resolution"]
+    batch = {"video": torch.rand(bsz, t_len, hh, ww, 3, device=dev, generator=gen) * 2 - 1,
+             "tokens": torch.as_tensor(pipe.tokenizer(["a fox running"] * bsz),
+                                       dtype=torch.long, device=dev),
+             "fs": torch.full((bsz,), 10.0, device=dev)}
+    draws = trainer.draw(batch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held_1024 = torch.cuda.memory_allocated(dev)   # weights, batch, and any leftovers
+    reset(*train_wrappers, flash_bwd_di)
+    secs_1024 = []
+    for i in range(2):
+        t1 = time.perf_counter()
+        loss, _, grads = trainer.loss_and_grads(batch, draws)
+        torch.cuda.synchronize()
+        secs_1024.append(time.perf_counter() - t1)
+        if i == 0:
+            per_step_1024 = (*counts(*train_wrappers), flash_bwd_di.launches)
+            finite = all(bool(torch.isfinite(g).all()) for g in grads)
+            g_norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.float()) for g in grads])).item()
+        del grads
+    peak_1024 = torch.cuda.max_memory_allocated(dev)
+    fam, _, window_ms, _ = profile_unet.profile_families(
+        lambda: trainer.loss_and_grads(batch, draws), 1)
+    device_ms = sum(fam.values())
+    log(f"[25] training micro-step {TRAIN_CONFIG_1024} (batch {bsz} x {t_len} at {hh}x{ww}, "
+        f"latents 72x128, bf16 autocast, synthetic frames): loss {loss.item():.6f}, gradient "
+        f"finite {finite} norm {g_norm:.4e} | launches per micro-step K3 {per_step_1024[0]} "
+        f"K4a {per_step_1024[1]} K4b {per_step_1024[2]} K2 {per_step_1024[3]} K1 "
+        f"{per_step_1024[4]} di pre-pass {per_step_1024[5]} (flash at the 5 level-0 spatial "
+        f"self-attentions, L = 9216, and the 5 of level 1, L = 2304: K3 once, its (o, lse) "
+        f"kept across the checkpoint; K2 at 34 temporal attentions, again in the recompute) "
+        f"| s/micro-step {secs_1024[0]:.2f} (first), {secs_1024[1]:.2f} | peak allocated "
+        f"{peak_1024 / 2**30:.2f} GiB ({held_1024 / 2**30:.2f} held before the step) | one profiled: {device_ms:.1f} ms of device time in a "
+        f"{window_ms:.1f} ms window ({100 * device_ms / window_ms:.1f} % busy): "
+        + ", ".join(f"{name} {ms:.1f}" for name, ms in fam.most_common()))
+    check(finite and g_norm > 0 and bool(torch.isfinite(loss)), "1024 training loss or gradient")
+    check(per_step_1024 == (10, 10, 10, 68, 0, 10),
+          f"launches per 1024 micro-step {per_step_1024} != (10, 10, 10, 68, 0, 10)")
+    del batch, draws, loss
+    # kernels against plain on the same UNet cut to 2 frames: the plain
+    # logits of 16 frames at L = 9216 are 27 GB in fp32, per attention
+    torch.cuda.empty_cache()
+    unet = pipe.unet
+    params = [p for p in unet.parameters() if p.requires_grad]
+    x = torch.randn(1, 2, 72, 128, 8, device=dev, generator=gen)
+    target = torch.randn(1, 2, 72, 128, 4, device=dev, generator=gen)
+    ts = torch.full((1,), 500, dtype=torch.long, device=dev)
+    ctx_t = torch.randn(1, 77, 1024, device=dev, generator=gen)
+    ctx_i = torch.randn(1, 2, 16, 1024, device=dev, generator=gen)
+    fs = torch.full((1,), 10, dtype=torch.long, device=dev)
+
+    def cut_grads():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            pred = unet(x, ts, context_text=ctx_t, context_img=ctx_i, fs=fs)
+        loss = (pred.float() - target).square().mean()
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return loss.detach(), torch.cat([(g if g is not None else torch.zeros_like(p)).flatten()
+                                         for g, p in zip(grads, params)])
+
+    reset(*train_wrappers, flash_bwd_di)
+    loss_k, g_kern = cut_grads()
+    per_cut = (*counts(*train_wrappers), flash_bwd_di.launches)
+    with attention.use_backend("plain"):
+        loss_p, g_plain = cut_grads()
+    g_abs, g_rel = errors(g_kern, g_plain)
+    log(f"[25] the 1024 UNet cut to 2 frames (1, 2, 72, 128, 8), forward + backward under bf16 "
+        f"autocast, kernels vs plain: loss {loss_k.item():.6f} / {loss_p.item():.6f}, flattened "
+        f"gradient rel_l2 {g_rel:.3e} max_abs {g_abs:.3e} (tol 5e-2) | launches K3 {per_cut[0]} "
+        f"K4a {per_cut[1]} K4b {per_cut[2]} K2 {per_cut[3]} K1 {per_cut[4]} di {per_cut[5]}")
+    check(g_rel <= 5e-2 and abs(loss_k.item() - loss_p.item()) <= 1e-2 * abs(loss_p.item()),
+          f"1024 cut kernels vs plain: gradient rel L2 {g_rel}, loss {loss_k} vs {loss_p}")
+    check(per_cut == per_step_1024, f"launches in the 2-frame cut {per_cut} != {per_step_1024}")
+    del pipe, trainer, unet, params, g_kern, g_plain
+    torch.cuda.empty_cache()
+    phase_s["25"] = time.perf_counter() - t0
+
     log("[wall] " + " ".join(f"phase {k} {v:.1f}s" for k, v in phase_s.items())
         + f" | total {time.perf_counter() - t_start:.1f}s")
 
@@ -1369,16 +1585,23 @@ def main() -> int:
                                {"inference_512": launches[1], "train_512": train_launches[3],
                                 "inference_256_bs8": launches_256[1],
                                 "inference_1024": launches_1024[1],
+                                "train_1024_per_micro_step": per_step_1024[3],
                                 "inference_512_dpm30": n_dpm[1],
                                 "inference_512_unipc20": n_unipc[1],
                                 "inference_512_deepcache5": n_dc[1], "sds_512": n_sds[1],
                                 "app_512": n_app["i2v"][1] + n_app["loop"][1]}),
         "flash_fwd_lse": (src + "flash_attention.cu", tpu + "flash_attention.py:32",
-                          train_launches[0], {"train_512": train_launches[0]}),
+                          train_launches[0], {"train_512": train_launches[0],
+                                              "train_1024_per_micro_step": per_step_1024[0]}),
         "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:304",
-                         train_launches[1], {"train_512": train_launches[1]}),
+                         train_launches[1], {"train_512": train_launches[1],
+                                             "train_1024_per_micro_step": per_step_1024[1]}),
         "flash_bwd_dkv": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:339",
-                          train_launches[2], {"train_512": train_launches[2]}),
+                          train_launches[2], {"train_512": train_launches[2],
+                                              "train_1024_per_micro_step": per_step_1024[2]}),
+        "flash_bwd_di": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:329",
+                         train_di, {"train_512": train_di,
+                                    "train_1024_per_micro_step": per_step_1024[5]}),
         "small_t_fwd": (src + "small_attention.cu", tpu + "small_attention.py:32",
                         launches_256[2], {"inference_256_bs8": launches_256[2],
                                           "inference_1024": launches_1024[2]}),

@@ -237,7 +237,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = kTcWarps * 32;
 constexpr int kStride = kD + 8;   // bf16 per shared row: 144 bytes, conflict-free ldmatrix
-constexpr int kChunksPerRow = kD / 8;   // 16-byte chunks of one head row
 // Each warp owns 32 query rows (two m16 tiles, a 128-row block) and the K/V
 // ring has two stages. With two m tiles every K and V fragment taken from
 // shared memory feeds two MMAs: at 16 rows per warp the ldmatrix traffic
@@ -256,22 +255,12 @@ constexpr int kTcBQ = kTcWarps * 16 * kMTiles;   // query rows per block
 constexpr int kTileElems = kBK * kStride;        // one K or V tile
 constexpr int kTcSmemBytes = 2 * (2 * kStages * kTileElems + kTcBQ * kStride);
 
-// cp.async of rows row0 .. row0 + kRows - 1 of one head (64 bf16 each, row
-// stride `stride` elements) into dst[kRows][kStride]; rows >= nvalid are
-// zero-filled. Consecutive threads take consecutive 16-byte chunks of a row.
+// cp.async of rows row0 .. row0 + kRows - 1 of one head into
+// dst[kRows][kStride]; rows >= nvalid are zero-filled.
 template <int kRows>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, size_t stride,
                                           int row0, int nvalid, int tid) {
-  constexpr int kChunks = kRows * kChunksPerRow;
-  static_assert(kChunks % kTcThreads == 0, "whole chunks per thread");
-#pragma unroll
-  for (int it = 0; it < kChunks / kTcThreads; ++it) {
-    const int i = tid + it * kTcThreads;
-    const int r = i / kChunksPerRow, c = (i % kChunksPerRow) * 8;
-    const bool valid = row0 + r < nvalid;
-    dct::cp_async16_zfill(dst + r * kStride + c,
-                          src + (size_t)(valid ? row0 + r : 0) * stride + c, valid);
-  }
+  dct::cp_async_head_rows<kRows, kTcThreads, kStride>(dst, src, stride, row0, nvalid, tid);
 }
 
 template <bool kLse>

@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy building blocks for Hopper (sm_90a),
-// shared by the bf16 paths of flash_attention.cu (K1, K3) and fused_conv.cu
-// (K7, K8): cp.async into shared memory, ldmatrix, and the m16n8k16 bf16
-// mma.sync with fp32 accumulators.
+// shared by the bf16 paths of flash_attention.cu (K1, K3),
+// flash_attention_bwd.cu (K4a, K4b) and fused_conv.cu (K7, K8): cp.async
+// into shared memory, ldmatrix, and the m16n8k16 bf16 mma.sync with fp32
+// accumulators.
 #pragma once
 
 #include "common.cuh"
@@ -22,6 +23,14 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, b
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
                : "memory");
 }
+// 4 bytes from global to shared memory (through L1: .cg takes only 16), or
+// 4 zero bytes when `valid` is false; `gmem` must still be a valid address.
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -29,6 +38,27 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// cp.async of rows row0 .. row0 + kRows - 1 of one 64-wide bf16 head (row
+// stride `stride` elements) into dst[kRows][kDstStride]; rows >= nvalid are
+// zero-filled. Consecutive threads of the block's kThreads take consecutive
+// 16-byte chunks of a row.
+template <int kRows, int kThreads, int kDstStride>
+__device__ __forceinline__ void cp_async_head_rows(__nv_bfloat16* dst,
+                                                   const __nv_bfloat16* src, size_t stride,
+                                                   int row0, int nvalid, int tid) {
+  constexpr int kChunksPerRow = 64 / 8;
+  constexpr int kChunks = kRows * kChunksPerRow;
+  static_assert(kChunks % kThreads == 0, "whole chunks per thread");
+#pragma unroll
+  for (int it = 0; it < kChunks / kThreads; ++it) {
+    const int i = tid + it * kThreads;
+    const int r = i / kChunksPerRow, c = (i % kChunksPerRow) * 8;
+    const bool valid = row0 + r < nvalid;
+    cp_async16_zfill(dst + r * kDstStride + c,
+                     src + (size_t)(valid ? row0 + r : 0) * stride + c, valid);
+  }
 }
 
 // Four 8 x 8 b16 matrices: lane l supplies the 16-byte row l % 8 of matrix

@@ -15,8 +15,11 @@ launches in `.launches`.
     `_fwd_kernel` with save_lse=True.
   * `flash_bwd_dq` (K4a) and `flash_bwd_dkv` (K4b),
     `csrc/flash_attention_bwd.cu`: the FlashAttention-2 backward from o
-    and lse, replacing `_bwd_dq_kernel` and `_bwd_dkv_kernel`;
-    `flash_bwd` runs both.
+    and lse, replacing `_bwd_dq_kernel` and `_bwd_dkv_kernel`; `flash_bwd`
+    runs both. bf16 inputs run every product on the tensor cores and read
+    di = rowsum(dO * o) from one pre-pass (`flash_bwd_di`, launched by
+    `flash_bwd` once for both, or by either wrapper called alone); fp32
+    inputs run the FMA kernels, which compute di themselves.
   * `flash_fwd_packed` (K6, `csrc/flash_packed.cu`): K1's function with one
     block per group of heads, served from whole staged rows; replaces
     `_fwd_kernel_packed`, behind `flash_attention(packed=True)`.
@@ -80,17 +83,21 @@ def flash_fwd_lse_plain(q: Tensor, k: Tensor, v: Tensor, heads: int,
     return _attend(sim, v, heads, q.dtype), torch.logsumexp(sim, dim=-1)
 
 
+def flash_bwd_di_plain(o: Tensor, do: Tensor, heads: int) -> Tensor:
+    """rowsum(dO * o) per head in fp32, (N, H, Lq): `flash_bwd_plain`'s di."""
+    return (_heads(do, heads).float() * _heads(o, heads).float()).sum(-1)
+
+
 def flash_bwd_plain(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
                     do: Tensor, heads: int, scale: float) -> Tuple[Tensor, Tensor, Tensor]:
     """The FlashAttention-2 backward written out (the Pallas kernels'
     formulas, not autograd of the forward): p = exp(s - lse) from fp32
     logits, dp = dO v^T and di = rowsum(dO * o) in fp32, ds = p (dp - di)
     scale rounded to the input dtype, dq = ds k, dk = ds^T q, dv = p^T dO."""
-    qh, kh, vh = (_heads(x, heads).float() for x in (q, k, v))
-    oh, doh = _heads(o, heads).float(), _heads(do, heads).float()
+    qh, kh, vh, doh = (_heads(x, heads).float() for x in (q, k, v, do))
     p = torch.exp(torch.matmul(qh, kh.transpose(-1, -2)) * scale - lse[..., None])
     dp = torch.matmul(doh, vh.transpose(-1, -2))
-    di = (doh * oh).sum(-1, keepdim=True)
+    di = flash_bwd_di_plain(o, do, heads)[..., None]
     ds = (p * (dp - di) * scale).to(q.dtype).float()
     dq = torch.matmul(ds, kh)
     dk = torch.matmul(ds.transpose(-1, -2), qh)
@@ -181,53 +188,98 @@ def flash_fwd_lse(q: Tensor, k: Tensor, v: Tensor, heads: int,
     return out, lse
 
 
+def _bwd_di(name: str, q: Tensor, o: Tensor, lse: Tensor, do: Tensor, heads: int,
+            di: Optional[Tensor]) -> Optional[Tensor]:
+    """What the bf16 K4a/K4b read as di: the given one (checked), else the
+    pre-pass's. The fp32 kernels compute di themselves and take none."""
+    if q.dtype != torch.bfloat16:
+        return None
+    if di is None:
+        return flash_bwd_di(o, do, heads)
+    if (di.device != q.device or di.dtype != torch.float32 or not di.is_contiguous()
+            or di.shape != lse.shape):
+        raise ValueError(f"{name}: di must be contiguous fp32 (N, H, Lq) on {q.device}")
+    return di
+
+
+def flash_bwd_di(o: Tensor, do: Tensor, heads: int) -> Tensor:
+    """di = rowsum(dO * o) per head, (N, H, Lq) fp32: the bf16 backward's
+    pre-pass (`csrc/flash_attention_bwd.cu`), once per backward."""
+    if o.device.type == "cpu":
+        return flash_bwd_di_plain(o, do, heads)
+    if o.device.type != "cuda":
+        raise ValueError(f"flash_bwd_di: unsupported device {o.device}")
+    kernels.check_operands("flash_bwd_di", o, do)
+    n, lq, hd = o.shape
+    if do.shape != o.shape or hd != heads * HEAD_DIM:
+        raise ValueError(f"flash_bwd_di: bad shapes o{tuple(o.shape)} dO{tuple(do.shape)} "
+                         f"for {heads} heads of {HEAD_DIM}")
+    di = torch.empty((n, heads, lq), device=o.device, dtype=torch.float32)
+    with torch.cuda.device(o.device):
+        code = kernels.library().dct_flash_bwd_di(
+            o.data_ptr(), do.data_ptr(), di.data_ptr(), kernels.DTYPE_CODES[o.dtype], n, lq,
+            heads, kernels.stream_handle(o.device))
+    kernels.check(code, "flash_bwd_di launch")
+    flash_bwd_di.launches += 1
+    return di
+
+
 def flash_bwd_dq(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor, do: Tensor,
-                 heads: int, scale: float) -> Tensor:
-    """K4a: dq (N, Lq, H*D) in q's dtype."""
+                 heads: int, scale: float, di: Optional[Tensor] = None) -> Tensor:
+    """K4a: dq (N, Lq, H*D) in q's dtype. `di` (bf16 only): the pre-pass's
+    output when the caller already has it."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, heads, scale)[0]
     _check_bwd("flash_bwd_dq", q, k, v, o, lse, do, heads)
+    di = _bwd_di("flash_bwd_dq", q, o, lse, do, heads, di)
     n, lq, _ = q.shape
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         code = kernels.library().dct_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), kernels.DTYPE_CODES[q.dtype], n, lq,
-            k.shape[1], heads, float(scale), kernels.stream_handle(q.device))
+            None if di is None else di.data_ptr(), do.data_ptr(), dq.data_ptr(),
+            kernels.DTYPE_CODES[q.dtype], n, lq, k.shape[1], heads, float(scale),
+            kernels.stream_handle(q.device))
     kernels.check(code, "flash_bwd_dq launch")
     flash_bwd_dq.launches += 1
     return dq
 
 
 def flash_bwd_dkv(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor, do: Tensor,
-                  heads: int, scale: float) -> Tuple[Tensor, Tensor]:
-    """K4b: dk, dv (N, Lk, H*D) in k's dtype."""
+                  heads: int, scale: float,
+                  di: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """K4b: dk, dv (N, Lk, H*D) in k's dtype; `di` as for `flash_bwd_dq`."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, heads, scale)[1:]
     _check_bwd("flash_bwd_dkv", q, k, v, o, lse, do, heads)
+    di = _bwd_di("flash_bwd_dkv", q, o, lse, do, heads, di)
     n, lq, _ = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         code = kernels.library().dct_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            do.data_ptr(), dk.data_ptr(), dv.data_ptr(), kernels.DTYPE_CODES[q.dtype],
-            n, lq, k.shape[1], heads, float(scale), kernels.stream_handle(q.device))
+            None if di is None else di.data_ptr(), do.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), kernels.DTYPE_CODES[q.dtype], n, lq, k.shape[1], heads,
+            float(scale), kernels.stream_handle(q.device))
     kernels.check(code, "flash_bwd_dkv launch")
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
 flash_fwd.launches = flash_fwd_lse.launches = flash_fwd_packed.launches = 0
-flash_bwd_dq.launches = flash_bwd_dkv.launches = 0
+flash_bwd_dq.launches = flash_bwd_dkv.launches = flash_bwd_di.launches = 0
 
 
 def flash_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor, do: Tensor,
               heads: int, scale: float) -> Tuple[Tensor, Tensor, Tensor]:
-    """(dq, dk, dv): K4a and K4b, or `flash_bwd_plain` for CPU tensors."""
+    """(dq, dk, dv): K4a and K4b (for bf16 after one di pre-pass that both
+    read), or `flash_bwd_plain` for CPU tensors."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, heads, scale)
-    return (flash_bwd_dq(q, k, v, o, lse, do, heads, scale),
-            *flash_bwd_dkv(q, k, v, o, lse, do, heads, scale))
+    _check_bwd("flash_bwd", q, k, v, o, lse, do, heads)
+    di = _bwd_di("flash_bwd", q, o, lse, do, heads, None)
+    return (flash_bwd_dq(q, k, v, o, lse, do, heads, scale, di),
+            *flash_bwd_dkv(q, k, v, o, lse, do, heads, scale, di))
 
 
 @torch.library.custom_op("dct::flash_attn", mutates_args=())

@@ -106,12 +106,14 @@ def library() -> ctypes.CDLL:
         lib.dct_flash_fwd_lse.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                           i32, i32, f32, ptr]
         lib.dct_flash_fwd_lse.restype = i32
-        lib.dct_flash_bwd_dq.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+        lib.dct_flash_bwd_dq.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
                                          i32, i32, i32, i32, f32, ptr]
         lib.dct_flash_bwd_dq.restype = i32
-        lib.dct_flash_bwd_dkv.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        lib.dct_flash_bwd_dkv.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                           i32, i32, i32, i32, i32, f32, ptr]
         lib.dct_flash_bwd_dkv.restype = i32
+        lib.dct_flash_bwd_di.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.dct_flash_bwd_di.restype = i32
         for name in ("dct_flash_fwd_packed", "dct_flash_fwd_pairs"):
             getattr(lib, name).argtypes = lib.dct_flash_fwd.argtypes
             getattr(lib, name).restype = i32

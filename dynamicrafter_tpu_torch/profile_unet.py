@@ -20,13 +20,16 @@ import argparse
 import collections
 import subprocess
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
 # first match wins; copies before elementwise (a copy is an elementwise kernel
 # by name), layout transposes before convolutions
 FAMILIES = (
+    ("K4a flash_bwd_dq", ("flash_bwd_dq",)),
+    ("K4b flash_bwd_dkv", ("flash_bwd_dkv",)),
+    ("K4 di pre-pass", ("flash_bwd_di",)),
     ("K1 flash_fwd", ("flash_fwd_tc_kernel", "flash_fwd_fma_kernel")),
     ("K5 small_t_posmajor_kernel", ("small_t_posmajor_kernel",)),
     ("K2 small_t_kernel", ("small_t_kernel",)),
@@ -49,6 +52,33 @@ def family(kernel_name: str) -> str:
     return "other"
 
 
+def profile_families(run: Callable[[], object], iters: int):
+    """Run `run` `iters` times under `torch.profiler` (CPU and CUDA
+    activity). Returns device milliseconds per run by family and by kernel
+    name, the window's wall milliseconds, and the number of kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        window_ms = 1e3 * (time.perf_counter() - t0)
+    by_family, by_kernel = collections.Counter(), collections.Counter()
+    n_kernels = 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = evt.cuda_time_total
+        by_family[family(evt.name)] += us / 1e3 / iters
+        by_kernel[evt.name] += us / 1e3 / iters
+        n_kernels += 1
+    return by_family, by_kernel, window_ms, n_kernels
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
@@ -64,9 +94,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_unet needs a CUDA device")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from dynamicrafter_tpu_torch.config import ModelConfig
     from dynamicrafter_tpu_torch.models.unet3d import UNetConfig, UNetModel
     from dynamicrafter_tpu_torch.ops.norms import keep_norms_fp32
@@ -97,23 +124,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             run()
         torch.cuda.synchronize()
         unprofiled_ms = 1e3 * (time.perf_counter() - t0) / args.iters
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.iters):
-                run()
-            torch.cuda.synchronize()
-            window_ms = 1e3 * (time.perf_counter() - t0)
-    by_family, by_kernel = collections.Counter(), collections.Counter()
-    n_kernels = 0
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(evt, "device_time_total", None)
-        if us is None:
-            us = evt.cuda_time_total
-        by_family[family(evt.name)] += us / 1e3 / args.iters
-        by_kernel[evt.name] += us / 1e3 / args.iters
-        n_kernels += 1
+        by_family, by_kernel, window_ms, n_kernels = profile_families(run, args.iters)
     total = sum(by_family.values())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()

@@ -56,7 +56,8 @@ def test_yaml_outside_subset_raises():
         tconfig.parse_yaml("a:\n- b: 1\n")
 
 
-@pytest.mark.parametrize("name", ["training_512_v1.0.yaml", "training_512_interp.yaml"])
+@pytest.mark.parametrize("name", ["training_512_v1.0.yaml", "training_512_interp.yaml",
+                                  "training_1024_v1.0.yaml"])
 def test_training_config_reads_data_and_lightning(name):
     """The `data:` and `lightning:` roots, with the defaults
     scripts/train.py of the JAX package applies."""

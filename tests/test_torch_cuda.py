@@ -11,7 +11,9 @@ inputs' own rounding, the output's, and that of p before the PV product in
 the tensor-core K1/K3 and in K6, K9 and K10, which read about 2.3e-3; <= 5e-3
 for K6, K9 and K10); lse max abs <= 1e-3; the backward's dq, dk, dv
 <= 1e-4 in fp32 and <= 2e-2 in bf16 (ds is rounded to bf16 before its
-products, as in the Pallas kernels); weight gradients through a whole
+products, as in the Pallas kernels, and in the tensor-core K4b p before the
+dV product; they read about 2.4e-3); its di pre-pass <= 1e-6 (fp32 sums in
+another order); weight gradients through a whole
 transformer in bf16 <= 2e-2. TF32 is off for the plain versions' fp32
 matmuls. K7 and K8 (fused GroupNorm -> SiLU -> 3x3 conv): <= 1e-5 in fp32
 and <= 1e-2 in bf16 (each output is rounded once, 2^-9 relative, and bf16
@@ -235,14 +237,25 @@ def test_k1_k3_tensor_core_kernel_refuses_a_scale_that_is_not_positive(cuda):
                 fn(q, q, q, 1, scale)
 
 
+# K4's shapes: K3's, and Lq != Lk with neither a multiple of any tile (the
+# bf16 kernels' 64-row blocks and 64-row streamed tiles, the FMA kernels' 64)
+K4_SHAPES = SHAPES + [(3, 77, 130, 5), (2, 2301, 2560, 5)]
+
+
+def _k4_inputs(n, lq, lk, h, dtype, device, scale=0.125):
+    """q, k, v, dO in `dtype`, and o, lse of the plain forward in fp32."""
+    q, do = _qkv((n, lq, h * 64), dtype, device)[:2]
+    _, k, v = _qkv((n, lk, h * 64), dtype, device, seed=1)
+    o, lse = tflash.flash_fwd_lse_plain(q.float(), k.float(), v.float(), h, scale)
+    return q, k, v, do, o, lse
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("n,lq,lk,h", SHAPES)
+@pytest.mark.parametrize("n,lq,lk,h", K4_SHAPES)
 def test_k4_kernels_match_plain(cuda, dtype, tol, n, lq, lk, h):
     """K4a and K4b from the plain forward's o and lse, against
     `flash_bwd_plain` on the same (fp32) inputs."""
-    q, do = _qkv((n, lq, h * 64), dtype, cuda)[:2]
-    _, k, v = _qkv((n, lk, h * 64), dtype, cuda, seed=1)
-    o, lse = tflash.flash_fwd_lse_plain(q.float(), k.float(), v.float(), h, 0.125)
+    q, k, v, do, o, lse = _k4_inputs(n, lq, lk, h, dtype, cuda)
     refs = tflash.flash_bwd_plain(q.float(), k.float(), v.float(), o, lse, do.float(),
                                   h, 0.125)
     before = (tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches)
@@ -253,6 +266,97 @@ def test_k4_kernels_match_plain(cuda, dtype, tol, n, lq, lk, h):
     for name, g, ref, x in zip(("dq", "dk", "dv"), grads, refs, (q, k, v)):
         assert g.dtype == dtype and g.shape == x.shape, name
         assert _rel(g, ref) <= tol, (name, _rel(g, ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,lq,h", [(2, 300, 5), (3, 77, 1)])
+def test_k4_di_prepass_matches_plain(cuda, dtype, n, lq, h):
+    """The pre-pass's rowsum(dO * o) against the plain version's, fp32 sums
+    in another order."""
+    o, do = _qkv((n, lq, h * 64), dtype, cuda)[:2]
+    before = tflash.flash_bwd_di.launches
+    di = tflash.flash_bwd_di(o, do, h)
+    torch.cuda.synchronize()
+    assert tflash.flash_bwd_di.launches == before + 1
+    assert di.dtype == torch.float32 and di.shape == (n, h, lq)
+    assert _rel(di, tflash.flash_bwd_di_plain(o, do, h)) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,lq,lk,h", [(3, 77, 130, 5), (2, 130, 77, 1)])
+def test_k4_write_nothing_past_dq_dk_dv(cuda, dtype, n, lq, lk, h):
+    """Ragged tiles: the library entries write dq, dk and dv into the head of
+    larger buffers whose NaN tails stay NaN (rows past Lq for dq, past Lk for
+    dk and dv)."""
+    q, k, v, do, o, lse = _k4_inputs(n, lq, lk, h, dtype, cuda)
+    o = o.to(dtype)
+    refs = tflash.flash_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                  do.float(), h, 0.125)
+    di = tflash.flash_bwd_di(o, do, h) if dtype == torch.bfloat16 else None
+    lib, code = tkernels.library(), tkernels.DTYPE_CODES[dtype]
+    stream = tkernels.stream_handle(cuda)
+    bufs = [torch.full((x.numel() + 4096,), float("nan"), device=cuda, dtype=dtype)
+            for x in (q, k, v)]
+    ptrs = [b.data_ptr() for b in bufs]
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            None if di is None else di.data_ptr(), do.data_ptr())
+    tkernels.check(lib.dct_flash_bwd_dq(*args, ptrs[0], code, n, lq, lk, h, 0.125, stream),
+                   "K4a")
+    tkernels.check(lib.dct_flash_bwd_dkv(*args, *ptrs[1:], code, n, lq, lk, h, 0.125, stream),
+                   "K4b")
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for buf, x, ref in zip(bufs, (q, k, v), refs):
+        assert bool(buf[x.numel():].isnan().all())
+        assert _rel(buf[:x.numel()].view_as(x), ref) <= tol
+
+
+@pytest.mark.parametrize("n,lq,lk,h", [(3, 77, 130, 5), (2, 2560, 2560, 5)])
+def test_k4_bf16_is_deterministic(cuda, n, lq, lk, h):
+    """Each block owns its output tile and sums in a fixed order (no
+    atomics): two runs agree bit for bit."""
+    q, k, v, do, o, lse = _k4_inputs(n, lq, lk, h, torch.bfloat16, cuda)
+    o = o.to(torch.bfloat16)
+    first = tflash.flash_bwd(q, k, v, o, lse, do, h, 0.125)
+    second = tflash.flash_bwd(q, k, v, o, lse, do, h, 0.125)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("scale", [0.3, -0.125])
+def test_k4_takes_any_scale(cuda, dtype, tol, scale):
+    """The backward takes lse as given (no running max), so any scale is
+    exact: K4 at 0.3 and -0.125 against `flash_bwd_plain` with its lse."""
+    n, lq, lk, h = 2, 200, 333, 5
+    q, k, v, do, o, lse = _k4_inputs(n, lq, lk, h, dtype, cuda, scale=scale)
+    refs = tflash.flash_bwd_plain(q.float(), k.float(), v.float(), o, lse, do.float(), h, scale)
+    grads = tflash.flash_bwd(q, k, v, o.to(dtype), lse, do, h, scale)
+    torch.cuda.synchronize()
+    for name, g, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert _rel(g, ref) <= tol, (name, _rel(g, ref))
+
+
+@pytest.mark.parametrize("dtype,kernels", [
+    (torch.bfloat16, ("flash_bwd_di_kernel<__nv_bfloat16>", "flash_bwd_dq_tc_kernel",
+                      "flash_bwd_dkv_tc_kernel")),
+    (torch.float32, ("flash_bwd_dq_kernel<float>", "flash_bwd_dkv_kernel<float>"))])
+def test_k4_routes_by_dtype(cuda, dtype, kernels):
+    """bf16 runs the di pre-pass and the tensor-core kernels, fp32 the FMA
+    kernels and no pre-pass: the kernel symbols the profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, do, o, lse = _k4_inputs(2, 130, 77, 1, dtype, cuda)
+    o = o.to(dtype)
+    tflash.flash_bwd(q, k, v, o, lse, do, 1, 0.125)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tflash.flash_bwd(q, k, v, o, lse, do, 1, 0.125)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "flash_bwd" in e.name]
+    assert len(names) == len(kernels), names
+    for want in kernels:
+        assert sum(want in name for name in names) == 1, (want, names)
 
 
 def _weight_grads(module, run, backend):

@@ -155,6 +155,8 @@ def test_wrappers_refuse_other_devices():
         tflash.flash_bwd_dq(m, m, m, m, lse, m, 1, 0.125)
     with pytest.raises(ValueError, match="unsupported device"):
         tflash.flash_bwd_dkv(m, m, m, m, lse, m, 1, 0.125)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tflash.flash_bwd_di(m, m, 1)
     m5 = torch.empty(1, 16, 4, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tsmall.small_t_fwd_tmajor(m5, m5, m5, 1, 0.125)
@@ -234,6 +236,14 @@ def test_profile_families_name_the_flash_forward_kernels():
         assert family(name) == "K1 flash_fwd"
     assert family("void (anonymous namespace)::small_t_kernel<__nv_bfloat16>()") == \
         "K2 small_t_kernel"
+    # the backward's kernels, both routes, and the bf16 route's pre-pass
+    for name, fam in (("flash_bwd_dq_tc_kernel(__nv_bfloat16 const*)", "K4a flash_bwd_dq"),
+                      ("flash_bwd_dq_kernel<float>(float const*)", "K4a flash_bwd_dq"),
+                      ("flash_bwd_dkv_tc_kernel(__nv_bfloat16 const*)", "K4b flash_bwd_dkv"),
+                      ("flash_bwd_dkv_kernel<float>(float const*)", "K4b flash_bwd_dkv"),
+                      ("flash_bwd_di_kernel<__nv_bfloat16>(__nv_bfloat16 const*)",
+                       "K4 di pre-pass")):
+        assert family("void (anonymous namespace)::" + name) == fam
 
 
 @pytest.mark.parametrize("lq,lk", LENGTHS)
@@ -251,6 +261,29 @@ def test_k4_plain_matches_jax_bwd(lq, lk):
     assert (tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches) == before
     for g, ref in zip(got, refs):
         np.testing.assert_allclose(g.numpy(), _nlhd(ref), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_wrappers_split_the_plain_backward_on_the_cpu(dtype):
+    """On CPU tensors K4a's and K4b's wrappers return exactly
+    `flash_bwd_plain`'s dq and (dk, dv), the pre-pass's wrapper its di
+    (rowsum(dO * o) per head, (N, H, Lq) fp32), and nothing is launched."""
+    q, k, v, do = (torch.from_numpy(x).to(dtype) for x in _k34_inputs(130, 77))
+    o, lse = tflash.flash_fwd_lse(q, k, v, 2, 0.125)
+    args = (q, k, v, o, lse, do, 2, 0.125)
+    before = (tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches,
+              tflash.flash_bwd_di.launches)
+    dq, dk, dv = tflash.flash_bwd_plain(*args)
+    assert torch.equal(tflash.flash_bwd_dq(*args), dq)
+    got_dk, got_dv = tflash.flash_bwd_dkv(*args)
+    assert torch.equal(got_dk, dk) and torch.equal(got_dv, dv)
+    assert all(torch.equal(a, b) for a, b in zip(tflash.flash_bwd(*args), (dq, dk, dv)))
+    di = tflash.flash_bwd_di(o, do, 2)
+    assert di.dtype == torch.float32 and di.shape == lse.shape
+    ref = (do.float().view(2, 130, 2, 64) * o.float().view(2, 130, 2, 64)).sum(-1)
+    torch.testing.assert_close(di, ref.transpose(1, 2), rtol=1e-6, atol=1e-6)
+    assert (tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches,
+            tflash.flash_bwd_di.launches) == before
 
 
 def _grads_match(t_fn, j_fn, shape, seed):
