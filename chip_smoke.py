@@ -8,7 +8,7 @@ Run from the repository root. Phases, each printing one line:
   1. the device (torch and nvidia-smi name and power limit); build the CUDA
      kernels from `dynamicrafter_tpu_torch/csrc/` with nvcc; each kernel's
      registers and spill bytes as `ptxas -v` reports them (the bf16 K1/K3,
-     K4a and K4b kernels must not spill);
+     K4a, K4b, K6 and K9 kernels must not spill);
   2. K1 (spatial flash attention) against its plain version at the 320x512
      shape (32, 2560, 5*64) bf16, ragged L = 300 and Lq 130 / Lk 77 cases,
      and fp32 checks; bf16 runs on the tensor cores, fp32 on FMAs. Phases 2,
@@ -81,11 +81,16 @@ Run from the repository root. Phases, each printing one line:
      5*64) and (32, 2304, 10*64) as one N = 32 launch held against the plain
      version two rows of N at a time, and at ragged shapes; the four
      attention variants and K1 against each other; K9's odd-H guard region;
+     the bf16 K6 and K9 (tensor cores) at the card tests' shapes at scales
+     0.3 and -0.125, with NaN sentinels past the output and three runs
+     bit-identical (inputs from a generator of the phase's own);
  19. the bench entry points as K9's and K10's path
      (`experiments/flash_pairs/bench_flash_variants.main`,
      `bench_flash_pairs.main`, the three hot shapes at N = 32) and
      `flash_attention(packed=True)` at the same shapes as K6's, with their
-     times beside K1's, the plain version's and the library call's;
+     times beside K1's, the plain version's (at L = 2560) and the library
+     call's, and K6's, K9's and K1's TFLOP/s, share of the bound and factor
+     over the library call;
  20. K7 (`fused_gn_silu_conv`) and K8 (`fused_gn_silu_conv_tiled`) against
      their plain versions in fp32 and bf16, with and without emb, at small
      and ragged shapes and at Co != C; K7 against K8 on the same fp32 input;
@@ -134,6 +139,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -232,32 +238,6 @@ def read_clip(path: str):
     return np.stack(frames)
 
 
-def ptxas_report(build_log: str) -> dict:
-    """{kernel: {"regs", "spill"}} from nvcc's `-Xptxas -v` output: each
-    entry function's registers and spill-store bytes, its name demangled
-    where c++filt exists."""
-    import re
-
-    rows, name = {}, None
-    for ln in build_log.splitlines():
-        m = re.search(r"(?:entry function '|Function properties for )(\w+)", ln)
-        if m:
-            name = m.group(1)
-            rows.setdefault(name, {"regs": 0, "spill": 0})
-        elif name and "spill stores" in ln:
-            rows[name]["spill"] = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
-        elif name and "Used" in ln:
-            rows[name]["regs"] = int(re.search(r"Used (\d+) registers", ln).group(1))
-    names = list(rows)
-    if names and shutil.which("c++filt"):
-        out = subprocess.run(["c++filt", "-p", *names], capture_output=True, text=True,
-                             timeout=60).stdout.splitlines()
-        if len(out) == len(names):
-            return {short.replace("(anonymous namespace)::", ""): rows[n]
-                    for n, short in zip(names, out)}
-    return rows
-
-
 def counts(*wrappers) -> tuple:
     return tuple(w.launches for w in wrappers)
 
@@ -326,16 +306,24 @@ def main() -> int:
 
     # -- phase 1: device and build --------------------------------------
     t_start = t0 = time.perf_counter()
+    # build from the checkout's sources: a library cached by an earlier run
+    # would leave no ptxas report to check
+    shutil.rmtree(kernels.BUILD_DIR, ignore_errors=True)
     kernels.library()
-    ptxas = ptxas_report(kernels.build_log)
+    ptxas = kernels.ptxas_report(kernels.build_log)
     log(f"[1] device {kind!r} | nvidia-smi {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | allow_tf32 matmul=False cudnn=False | "
         f"kernels built in {time.perf_counter() - t0:.2f}s (nvcc "
         f"{kernels.build_seconds:.2f}s) | ptxas (registers, spill stores): "
         + "; ".join(f"{name} {r['regs']} regs {r['spill']} B" for name, r in ptxas.items()))
+    # K6 has one bf16 kernel per group size, 1 .. kPackedMaxHeads
+    k6_sizes = int(re.search(r"constexpr int kPackedMaxHeads = (\d+);", open(os.path.join(
+        kernels.CSRC, "flash_packed.cu")).read()).group(1))
     for what, key, count in (("K1/K3", "flash_fwd_tc_kernel", 2),
                              ("K4a", "flash_bwd_dq_tc_kernel", 1),
-                             ("K4b", "flash_bwd_dkv_tc_kernel", 1)):
+                             ("K4b", "flash_bwd_dkv_tc_kernel", 1),
+                             ("K6", "flash_fwd_packed_tc_kernel", k6_sizes),
+                             ("K9", "flash_fwd_pairs_tc_kernel", 1)):
         tc = {name: r for name, r in ptxas.items() if key in name}
         check(len(tc) == count and all(r["spill"] == 0 for r in tc.values()),
               f"the bf16 {what} kernel spills or is missing: {tc}")
@@ -1182,6 +1170,38 @@ def main() -> int:
             f"{intact}, rel_l2 {rel:.3e}")
         check(intact and rel <= 5e-3, f"K9 wrote past H*64 columns at H = {h}")
         del q, k, v, buf, out
+    # bf16 K6 and K9 (tensor cores) at the card tests' shapes: any scale, no
+    # write past the output, three runs bit-identical. The inputs come from a
+    # generator of this phase's own, so later phases draw what they drew
+    # before these checks existed.
+    local_gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    tc_entries = {"K6": (flash_fwd_packed, "dct_flash_fwd_packed"),
+                  "K9": (flash_attention_pairs, "dct_flash_fwd_pairs")}
+    for n, lq, lk, h in [(2, 300, 300, 5), (2, 2560, 2560, 5), (2, 130, 77, 1), (1, 200, 333, 20),
+                         (2, 64, 32, 2), (1, 97, 150, 7), (1, 2304, 2304, 10)]:
+        q, k, v = (torch.randn(n, ln, h * 64, device=dev, generator=local_gen).to(bf16)
+                   for ln in (lq, lk, lk))
+        refs = {sc: flash_fwd_plain(q.float(), k.float(), v.float(), h, sc) for sc in (0.3, -0.125)}
+        parts = []
+        for name, (fn, entry) in tc_entries.items():
+            rels = {sc: errors(fn(q, k, v, h, sc), ref)[1] for sc, ref in refs.items()}
+            check(max(rels.values()) <= 5e-3,
+                  f"{name} bf16 rel L2 {rels} > 5e-3 at scales 0.3, -0.125, {(n, lq, lk, h)}")
+            buf = torch.full((q.numel() + 4096,), float("nan"), device=dev, dtype=bf16)
+            kernels.check(getattr(kernels.library(), entry)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(),
+                kernels.DTYPE_CODES[bf16], n, lq, lk, h, 0.125, kernels.stream_handle(dev)), entry)
+            first, second = fn(q, k, v, h, 0.125), fn(q, k, v, h, 0.125)
+            torch.cuda.synchronize()
+            intact = bool(buf[q.numel():].isnan().all())
+            same = torch.equal(buf[:q.numel()].view_as(q), first) and torch.equal(first, second)
+            check(intact, f"{name} wrote past its output at {(n, lq, lk, h)}")
+            check(same, f"{name} bf16 runs differ at {(n, lq, lk, h)}")
+            parts.append(f"{name} rel_l2 {rels[0.3]:.3e} at scale 0.3, {rels[-0.125]:.3e} at "
+                         f"-0.125, NaN sentinels intact, three runs bit-identical")
+        log(f"[18] ({n}, Lq {lq}, Lk {lk}, {h}*64) bf16 tensor cores: " + "; ".join(parts)
+            + " (tol 5e-3)")
+        del q, k, v, refs, buf, first, second
     torch.cuda.empty_cache()
     phase_s["18"] = time.perf_counter() - t0
 
@@ -1216,6 +1236,14 @@ def main() -> int:
             f"{modes['exp2']:.3f} nosoftmax {modes['nosoftmax']:.3f} (softmax share of exp2 "
             f"{1 - modes['nosoftmax'] / modes['exp2']:.1%}) | library {lib_ms:.3f} | bound "
             f"{b['bound_ms']:.3f} ms by {b['bound_by']}")
+        log(f"[19] {label.strip()} bf16 rates: K6 packed "
+            + rate(k6_ms, n, l, l, h, lib_ms) + ", K9 pairs "
+            + rate(bench_ms[(l, h, "K9 pairs")], n, l, l, h, lib_ms) + ", K1 "
+            + rate(common["k1_ms"], n, l, l, h, lib_ms)
+            + f" | share of the bound: K6 {b['bound_ms'] / k6_ms:.1%}, K9 "
+            f"{b['bound_ms'] / bench_ms[(l, h, 'K9 pairs')]:.1%}, K1 "
+            f"{b['bound_ms'] / common['k1_ms']:.1%} | K6 / K1 {k6_ms / common['k1_ms']:.3f}, "
+            f"K9 / K1 {bench_ms[(l, h, 'K9 pairs')] / common['k1_ms']:.3f}")
         del q, k, v, q4, k4, v4
     variant_launches = counts(*variant_wrappers)
     first = "(32, 2560, 5*64)"

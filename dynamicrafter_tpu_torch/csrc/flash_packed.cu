@@ -5,37 +5,69 @@
 // (flash_attention.cu): non-causal softmax(Q K^T * scale) V per head on
 // (N, L, H*64) row-major operands, online softmax in fp32, KV positions
 // >= Lk masked, l == 0 guarded, p rounded to the input type before the PV
-// product.
+// product, any finite scale (negative included, as the Pallas kernel scales
+// the logits before their max).
 //
-// The packed idea: whole H*64-wide rows are the unit of data movement, and
+// The packed idea: whole multi-head rows are the unit of data movement, and
 // the head is an index into them. How heads are assigned, and how that
-// differs from K1: K1 runs one block per (64-row Q tile, ONE head, n); it
+// differs from K1: K1 runs one block per (query tile, ONE head, n) and
 // reads 64-column head slices out of the rows (128 bytes of every 640 in
-// bf16 at H = 5) and converts them to fp32 transposed tiles. This kernel
-// runs one block per (64-row Q tile, GROUP of up to 5 heads, n). The block
-// stages the group's contiguous columns of each Q row once and of each K
-// and V row once per KV tile, as raw 16-byte copies in the input type (at
-// H = 5 whole 640-byte rows, fully coalesced), and then one 128-thread
-// warp group per head serves its head out of that staging at column offset
-// g*64, all heads of the group at the same time, each with its own online
-// softmax state in registers. Nothing is transposed or converted while
-// staging; operands are converted to fp32 as the products read them.
+// bf16 at H = 5). This kernel runs one block per (query tile, GROUP of
+// heads, n). The block stages the group's contiguous columns of each Q row
+// once and of each K and V row once per KV tile, and serves each head out
+// of that staging at column offset g*64, all heads of the group at the same
+// time. A head count that does not divide into groups of the largest size
+// is split as evenly as it goes (fp32, groups of up to 5: H = 7 as 4 and
+// 3; bf16, groups of up to 2: H = 5 as 2, 2 and 1).
 //
-// Shared memory decides the tile: 64 Q rows and 32 KV rows of a 5-head group
-// are 128 x 320 elements (80 KB in bf16, 160 KB in fp32), plus one fp32
-// P^T tile per head (43 KB for 5): 125 KB in bf16 and 205 KB in fp32, under
-// the 227 KB a block may have. Hence the KV tile of 32 rows (K1: 64) and
-// the group limit of 5: H = 10 runs 2 groups of 5, H = 20 runs 4, and a
-// head count that does not divide is split as evenly as it goes (H = 7: 4
-// and 3); warp groups without a head in the last group only help staging.
+// What bounds it: arithmetic, as K1 (4*N*H*Lq*Lk*64 operations against 2 or
+// 4 bytes * N*H*64*(2*Lq + 2*Lk)). The input type chooses the kernel:
 //
-// What bounds it: arithmetic, as K1 (4*N*H*Lq*Lk*64 operations on the fp32
-// SIMT pipes against 2 or 4 bytes * N*H*64*(2*Lq + 2*Lk)).
+// bf16: `flash_fwd_packed_tc_kernel<G>`, both products on the tensor cores,
+//   the main loop of flash_tc.cuh (K1's, serving G heads from one staged
+//   row, bit for bit K1's output), one instantiation per group size G = 1
+//   .. kPackedMaxHeads. The register file bounds G and the rows per warp:
+//   K1's 32 rows a warp (two m16 tiles, every K and V fragment feeding two
+//   MMAs) take about 250 registers a thread, so 65 536 registers hold 8
+//   such warps per SM: 4 warps a head fits G <= 2, 2 warps a head (64-row
+//   tiles) G <= 4, 1 warp G <= 8; 16 rows a warp take 128-173 registers but
+//   double the ldmatrix traffic per MMA. Each head's warps copy their head's
+//   columns of the staged rows and wait at a barrier of their own
+//   (kPackedHeadSync); one barrier per KV tile for the whole group ran
+//   9-12 % slower at G <= 2 and 23-34 % at G <= 4. G and the tile were
+//   chosen by bring-up timing (`experiments/flash_pairs/tune_flash_tc.py`,
+//   N = 32, NVIDIA H100 80GB HBM3 at 700 W, uncoupled heads, at L = 2560 x
+//   5 heads, 9216 x 5, 2304 x 10 and 576 x 20, K1 0.930 / 11.173 / 1.467 /
+//   0.237 ms in the same call): up to 2 heads of 4 warps x 32 rows 0.996 /
+//   12.056 / 1.510 / 0.252 ms; up to 4 heads of 2 warps x 32 rows 1.202 /
+//   14.672 / 1.586 / 0.234 (H = 5 splits 3 + 2: a 6-warp block, one per
+//   SM); 1 warp x 32 rows 2.288 / 27.729 / 2.931 / 0.376 (32-row tiles: K
+//   and V staged four times as often); 4 warps x 16 rows 1.123 / 13.853 /
+//   1.938 / 0.275, spilling at G = 3 and 4. So the shipped tile is the
+//   pair's, groups of at most 2 heads (H = 5: 2 + 2 + 1, as K9): staging
+//   wider rows for more heads bought nothing on the tensor cores, and one
+//   head a block (K1's tile through this loop, 0.921 / 11.115 / 1.424 /
+//   0.231) is the fastest of all.
+//
+// fp32: `flash_fwd_packed_kernel<float>`, the first version, kept for fp32
+//   inputs only (TF32 would drop 13 bits of each operand; the fp32 tolerance
+//   is 1e-5). One 128-thread warp group per head of a group of up to 5; raw
+//   16-byte copies of 64 Q rows and 32 KV rows of the group's columns (at
+//   H = 5 whole 640-byte rows), operands converted to fp32 as the products
+//   read them, one fp32 P^T tile per head in shared memory (205 KB at 5
+//   heads, hence the KV tile of 32 rows), products as fp32 FMAs on the SIMT
+//   pipes.
+#include "flash_tc.cuh"
 #include "flash_tile.cuh"
 
 namespace {
 
 constexpr int kD = 64;             // head dim
+
+// ---------------------------------------------------------------------------
+// fp32: the FMA kernel
+// ---------------------------------------------------------------------------
+
 constexpr int kBQ = 64;            // query rows per block
 constexpr int kBK = 32;            // key/value rows per KV tile
 constexpr int kGroupThreads = 128; // one warp group per head
@@ -205,14 +237,88 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int n, 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kPackedMaxHeads = 2;      // heads a block serves at once
+constexpr int kPackedWarpsPerHead = 4;  // warps on each head
+constexpr int kPackedMTiles = 2;        // m16 tiles (16 query rows) a warp
+constexpr int kPackedStages = 3;        // KV ring slots, where they fit
+constexpr int kPackedHeadSync = 1;      // 1: each head's warps copy and sync on their own
+
+// The ring's depth for a group of kG heads: kPackedStages, or fewer where
+// that many slots would not fit in a block's shared memory.
+template <int kG>
+constexpr int packed_stages() {
+  constexpr int slot_bytes = 2 * 64 * (kG * kD + 8) * 2;
+  return kPackedStages * slot_bytes <= 232448 ? kPackedStages : 232448 / slot_bytes;
+}
+
+template <int kG>
+using PackedTile =
+    dct::FlashTcTile<kG, kPackedWarpsPerHead, kPackedMTiles, packed_stages<kG>(),
+                     kPackedHeadSync>;
+
+template <int kG>
+__global__ void __launch_bounds__(PackedTile<kG>::kThreads, 1)
+flash_fwd_packed_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                           int lq, int lk, int heads, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h0 = blockIdx.y * kG;
+  const size_t n = blockIdx.z;
+  const size_t hd = (size_t)heads * kD;
+  dct::flash_fwd_tc_block<PackedTile<kG>>(
+      q + n * lq * hd + h0 * kD, k + n * lk * hd + h0 * kD, v + n * lk * hd + h0 * kD,
+      o + n * lq * hd + h0 * kD, hd, blockIdx.x * PackedTile<kG>::kBQ, lq, lk,
+      min(kG, heads - h0), scale_log2, reinterpret_cast<__nv_bfloat16*>(smem_raw));
+}
+
+template <int kG>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int n, int lq,
+                      int lk, int heads, float scale, cudaStream_t stream) {
+  using Tile = PackedTile<kG>;
+  const auto kernel = flash_fwd_packed_tc_kernel<kG>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Tile::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((lq + Tile::kBQ - 1) / Tile::kBQ, (heads + kG - 1) / kG, n);
+  kernel<<<grid, Tile::kThreads, Tile::kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lq, lk, heads,
+      scale * dct::kLog2e);
+  return cudaGetLastError();
+}
+
+// The launch for groups of `gheads` heads (1 <= gheads <= kG).
+template <int kG>
+cudaError_t launch_tc_group_size(int gheads, const void* q, const void* k, const void* v,
+                                 void* o, int n, int lq, int lk, int heads, float scale,
+                                 cudaStream_t stream) {
+  if constexpr (kG > 1) {
+    if (gheads < kG)
+      return launch_tc_group_size<kG - 1>(gheads, q, k, v, o, n, lq, lk, heads, scale, stream);
+  }
+  return launch_tc<kG>(q, k, v, o, n, lq, lk, heads, scale, stream);
+}
+
 }  // namespace
 
 extern "C" int dct_flash_fwd_packed(const void* q, const void* k, const void* v, void* o,
                                     int dtype, int n, int lq, int lk, int heads,
                                     float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == dct::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, o, n, lq, lk, heads, scale, s);
+  if (dtype == dct::kBFloat16) {
+    // groups of at most kPackedMaxHeads heads, as even as they go
+    const int ngroups = (heads + kPackedMaxHeads - 1) / kPackedMaxHeads;
+    return launch_tc_group_size<kPackedMaxHeads>((heads + ngroups - 1) / ngroups, q, k, v, o,
+                                                 n, lq, lk, heads, scale, s);
+  }
   if (dtype == dct::kFloat32) return launch<float>(q, k, v, o, n, lq, lk, heads, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,36 +5,69 @@
 // (flash_attention.cu): non-causal softmax(Q K^T * scale) V per head on
 // (N, L, H*64) row-major operands, online softmax in fp32, KV positions
 // >= Lk masked, l == 0 guarded, p rounded to the input type before the PV
-// product.
+// product, any finite scale (negative included, as the Pallas kernel scales
+// the logits before their max).
 //
 // How heads are assigned, and how that differs from K1: K1 runs one block
-// per (64-row Q tile, ONE head, n) and moves 64-column head slices. This
-// kernel runs one block per (64-row Q tile, head PAIR, n): every tile it
-// moves is 128 columns wide, [head 2p | head 2p+1], read from and written to
-// 256 contiguous bytes of each row (bf16), and every thread carries two
-// independent online softmaxes (m, l and a 4 x 4 accumulator patch per
-// head), one per half of the tile. The Pallas kernel expands K and V into
-// block-diagonal (2*bk, 128) form so that one 128-deep product serves both
-// heads on a 128-wide systolic array; that has no purpose on SIMT pipes
-// and is not carried over: the two heads' 64-deep products are computed
-// directly, each on its own half of the tile.
+// per (query tile, ONE head, n) and moves 64-column head slices. This
+// kernel runs one block per (query tile, head PAIR, n): every row it moves
+// is 128 columns wide, [head 2p | head 2p+1], 256 contiguous bytes in bf16.
+// The Pallas kernel expands K and V into block-diagonal (2*bk, 128) form so
+// that one 128-deep product serves both heads on a 128-wide systolic array;
+// that has no purpose on Hopper's m16n8k16 products and is not carried
+// over: each head's 64-deep products run on its own half of the staging.
 //
 // Odd H: the last pair has one head. The Pallas wrapper pads the last axis
 // to a multiple of 128 columns on the host side; this kernel instead reads
-// and writes only `ncols` = 64 columns of that pair (the upper half of its
-// shared tiles is zero-filled and neither computed nor stored), so no
-// address at or beyond column H*64 of a row is touched and no padded copy
-// of q, k, v is made.
+// and writes only the 64 columns of that pair's one head, so no address at
+// or beyond column H*64 of a row is touched and no padded copy of q, k, v
+// is made.
 //
 // What bounds it: as K1, arithmetic (4*N*H*Lq*Lk*64 operations against
-// 2 or 4 bytes * N*H*64*(2*Lq + 2*Lk)); the products run on the fp32 SIMT
-// pipes. One block holds 134 KB of shared memory, so one block is resident
-// per SM where K1 has several.
+// 2 or 4 bytes * N*H*64*(2*Lq + 2*Lk)). The input type chooses the kernel:
+//
+// bf16: `flash_fwd_pairs_tc_kernel`, both products on the tensor cores, the
+//   main loop of flash_tc.cuh (K1's, serving two heads from one staged
+//   row, bit for bit K1's output). One block of 8 warps per (128-row query
+//   tile, pair, n): warps 0-3 on head 2p and 4-7 on head 2p+1, each warp 32
+//   query rows as in K1 (two m16 tiles: every K and V fragment taken from
+//   shared memory feeds two MMAs). At 255 registers a thread the block is
+//   65 280 registers, one block per SM: the same 8 warps per SM as K1's two
+//   4-warp blocks. Shared memory: a ring of three K/V slots of 64 rows x
+//   136 elements, 102 KB, the Q tile in the last slot. Each head's warps
+//   copy their head's 128 bytes of every staged row and wait at a barrier
+//   of their own (kPairHeadSync): with one barrier per KV tile for both
+//   heads, as the Pallas program shares its grid step, the kernel ran 8-10 %
+//   slower. Bring-up timing (`experiments/flash_pairs/tune_flash_tc.py`,
+//   N = 32, NVIDIA H100 80GB HBM3 at 700 W, K1 in the same call): shipped
+//   0.999 / 12.019 / 1.509 / 0.253 ms at L = 2560 x 5 heads, 9216 x 5,
+//   2304 x 10, 576 x 20 (K1 0.930 / 11.173 / 1.467 / 0.237); one barrier
+//   for both heads 1.103 / 13.240 / 1.666 / 0.274; two warps a head (64-row
+//   tiles, 4-warp blocks, two blocks per SM) 1.171 / 14.505 / 1.631 /
+//   0.234; two ring slots 1-2 % slower than three, four within 1 %.
+//   What is left between K9 and K1 follows the block's granularity: 1.07x
+//   K1's time at H = 5, where a third of the blocks hold an odd H's
+//   one-head last pair (its 4 warps alone on their SM: a block frees its
+//   registers only when all its warps are done), 1.03x at H = 10, where
+//   none does.
+//
+// fp32: `flash_fwd_pairs_kernel<float>`, the first version, kept for fp32
+//   inputs only (TF32 would drop 13 bits of each operand; the fp32
+//   tolerance is 1e-5). One 256-thread block per (64-row Q tile, pair, n);
+//   every tile converted to fp32 and transposed in shared memory (134 KB,
+//   one block per SM), every thread two independent online softmaxes (a
+//   4 x 4 patch per head), products as fp32 FMAs on the SIMT pipes.
+#include "flash_tc.cuh"
 #include "flash_tile.cuh"
 
 namespace {
 
 constexpr int kD = 64;         // head dim
+
+// ---------------------------------------------------------------------------
+// fp32: the FMA kernel
+// ---------------------------------------------------------------------------
+
 constexpr int kPW = 2 * kD;    // columns of a pair tile
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // key/value rows per KV tile
@@ -173,14 +206,54 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int n, 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kPairWarpsPerHead = 4;  // warps on each head
+constexpr int kPairStages = 3;        // KV ring slots
+constexpr int kPairHeadSync = 1;      // 1: each head's warps copy and sync on their own
+using PairTile = dct::FlashTcTile<2, kPairWarpsPerHead, 2, kPairStages, kPairHeadSync>;
+
+__global__ void __launch_bounds__(PairTile::kThreads, 1)
+flash_fwd_pairs_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                          int lq, int lk, int heads, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h0 = blockIdx.y * 2;
+  const size_t n = blockIdx.z;
+  const size_t hd = (size_t)heads * kD;
+  dct::flash_fwd_tc_block<PairTile>(
+      q + n * lq * hd + h0 * kD, k + n * lk * hd + h0 * kD, v + n * lk * hd + h0 * kD,
+      o + n * lq * hd + h0 * kD, hd, blockIdx.x * PairTile::kBQ, lq, lk, min(2, heads - h0),
+      scale_log2, reinterpret_cast<__nv_bfloat16*>(smem_raw));
+}
+
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int n, int lq,
+                      int lk, int heads, float scale, cudaStream_t stream) {
+  const auto kernel = flash_fwd_pairs_tc_kernel;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         PairTile::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((lq + PairTile::kBQ - 1) / PairTile::kBQ, (heads + 1) / 2, n);
+  kernel<<<grid, PairTile::kThreads, PairTile::kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lq, lk, heads,
+      scale * dct::kLog2e);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int dct_flash_fwd_pairs(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int n, int lq, int lk, int heads,
                                    float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == dct::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, o, n, lq, lk, heads, scale, s);
+  if (dtype == dct::kBFloat16) return launch_tc(q, k, v, o, n, lq, lk, heads, scale, s);
   if (dtype == dct::kFloat32) return launch<float>(q, k, v, o, n, lq, lk, heads, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

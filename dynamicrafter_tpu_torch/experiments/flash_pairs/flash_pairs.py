@@ -2,7 +2,9 @@
 
 `flash_attention_pairs` computes K1's function, softmax(q k^T * scale) v per
 head on (N, L, H*64), through `csrc/flash_pairs.cu`, which assigns a pair
-of heads to each block and moves 128-column tiles. It replaces
+of heads to each block and moves 128-column rows: bf16 inputs run both
+products on the tensor cores (the main loop of `csrc/flash_tc.cuh`), fp32
+inputs as fp32 FMAs. Any finite scale, negative included. It replaces
 `experiments/flash_pairs/flash_pairs.py::_fwd_kernel_pairs` of the JAX
 repository (entry `flash_attention_pairs` there, without the Pallas tile
 sizes `block_q`, `block_k`). Head dim 64 only; any H >= 1, odd H included

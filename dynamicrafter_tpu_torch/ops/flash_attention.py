@@ -22,7 +22,10 @@ launches in `.launches`.
     inputs run the FMA kernels, which compute di themselves.
   * `flash_fwd_packed` (K6, `csrc/flash_packed.cu`): K1's function with one
     block per group of heads, served from whole staged rows; replaces
-    `_fwd_kernel_packed`, behind `flash_attention(packed=True)`.
+    `_fwd_kernel_packed`, behind `flash_attention(packed=True)`. bf16
+    inputs run both products on the tensor cores (the main loop of
+    `csrc/flash_tc.cuh`), fp32 inputs as fp32 FMAs; any finite scale, as
+    the Pallas kernel takes.
 
 `flash_attention` is the entry point on the (..., L, H, D) convention of
 `ops.attention`, as in the JAX package. When no input needs a gradient it

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -53,21 +54,23 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-def build() -> Path:
-    """Compile csrc/*.cu into one shared library (cached by content)."""
+def build(csrc: Optional[Path] = None, build_dir: Optional[Path] = None) -> Path:
+    """Compile `csrc`/*.cu (default CSRC) into one shared library in
+    `build_dir` (default BUILD_DIR), cached by content."""
     global build_seconds, build_log
-    sources = sorted(CSRC.glob("*.cu"))
+    csrc, build_dir = csrc or CSRC, build_dir or BUILD_DIR
+    sources = sorted(csrc.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sorted(csrc.glob("*.cu*")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     tag = digest.hexdigest()[:16]
-    out = BUILD_DIR / f"libdct_kernels_{tag}.so"
+    out = build_dir / f"libdct_kernels_{tag}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    objs = [BUILD_DIR / f"{src.stem}_{tag}.{os.getpid()}.o" for src in sources]
+    objs = [build_dir / f"{src.stem}_{tag}.{os.getpid()}.o" for src in sources]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(sources, objs)]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -138,6 +141,30 @@ def library() -> ctypes.CDLL:
         lib.dct_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: {"regs", "spill"}} from nvcc's `-Xptxas -v` output (such as
+    `build_log`): each entry function's registers and spill-store bytes, its
+    name demangled where c++filt exists."""
+    rows, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )(\w+)", ln)
+        if m:
+            name = m.group(1)
+            rows.setdefault(name, {"regs": 0, "spill": 0})
+        elif name and "spill stores" in ln:
+            rows[name]["spill"] = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
+        elif name and "Used" in ln:
+            rows[name]["regs"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    names = list(rows)
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt", "-p", *names], capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            return {short.replace("(anonymous namespace)::", ""): rows[n]
+                    for n, short in zip(names, out)}
+    return rows
 
 
 def check(code: int, what: str) -> None:

@@ -30,6 +30,8 @@ FAMILIES = (
     ("K4a flash_bwd_dq", ("flash_bwd_dq",)),
     ("K4b flash_bwd_dkv", ("flash_bwd_dkv",)),
     ("K4 di pre-pass", ("flash_bwd_di",)),
+    ("K6 flash_fwd_packed", ("flash_fwd_packed_tc_kernel", "flash_fwd_packed_kernel")),
+    ("K9 flash_attention_pairs", ("flash_fwd_pairs_tc_kernel", "flash_fwd_pairs_kernel")),
     ("K1 flash_fwd", ("flash_fwd_tc_kernel", "flash_fwd_fma_kernel")),
     ("K5 small_t_posmajor_kernel", ("small_t_posmajor_kernel",)),
     ("K2 small_t_kernel", ("small_t_kernel",)),

@@ -8,8 +8,8 @@ The file imports no JAX, so it runs on the GPU machine as it is:
 Tolerances: forward outputs relative L2 <= 1e-5 in fp32 (the kernels
 accumulate in fp32, in another order than cuBLAS) and <= 1e-2 in bf16 (the
 inputs' own rounding, the output's, and that of p before the PV product in
-the tensor-core K1/K3 and in K6, K9 and K10, which read about 2.3e-3; <= 5e-3
-for K6, K9 and K10); lse max abs <= 1e-3; the backward's dq, dk, dv
+the tensor-core K1/K3, K6 and K9 and in K10, which read about 2.3e-3; <= 5e-3
+for K6, K9 and K10, at scales 0.125, 0.3 and -0.125 for K6 and K9); lse max abs <= 1e-3; the backward's dq, dk, dv
 <= 1e-4 in fp32 and <= 2e-2 in bf16 (ds is rounded to bf16 before its
 products, as in the Pallas kernels, and in the tensor-core K4b p before the
 dV product; they read about 2.4e-3); its di pre-pass <= 1e-6 (fp32 sums in
@@ -492,6 +492,80 @@ def test_k9_odd_heads_touch_nothing_past_the_last_head(cuda, dtype, h):
     assert bool((buf[numel:] == 7.0).all())
     ref = tflash.flash_fwd_plain(q.float(), k.float(), v.float(), h, 0.125)
     assert _rel(out, ref) <= (1e-5 if dtype == torch.float32 else 5e-3)
+
+
+# K6 and K9: bf16 on the tensor cores (csrc/flash_tc.cuh), fp32 on FMAs
+K6_K9 = {"K6": (tflash.flash_fwd_packed, "dct_flash_fwd_packed"),
+         "K9": (flash_attention_pairs, "dct_flash_fwd_pairs")}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("n,lq,lk,h", VARIANT_SHAPES)
+@pytest.mark.parametrize("scale", [0.3, -0.125])
+@pytest.mark.parametrize("which", ["K6", "K9"])
+def test_k6_k9_take_any_scale(cuda, which, scale, n, lq, lk, h, dtype, tol):
+    """The Pallas K6 and K9 scale the logits before their max, so any finite
+    scale is theirs: the kernels against `flash_fwd_plain` at 0.3 and
+    -0.125 (the tensor-core kernels move the scale's sign into Q)."""
+    fn = K6_K9[which][0]
+    q = _qkv((n, lq, h * 64), dtype, cuda)[0]
+    _, k, v = _qkv((n, lk, h * 64), dtype, cuda, seed=1)
+    out = fn(q, k, v, h, scale)
+    ref = tflash.flash_fwd_plain(q.float(), k.float(), v.float(), h, scale)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= tol, _rel(out, ref)
+
+
+@pytest.mark.parametrize("n,lq,lk,h", VARIANT_SHAPES)
+@pytest.mark.parametrize("which", ["K6", "K9"])
+def test_k6_k9_write_nothing_past_the_output(cuda, which, n, lq, lk, h):
+    """bf16: the library entry writes o into the head of a larger buffer
+    whose NaN tail (right behind the last row) stays NaN, and the head is
+    the wrapper's output bit for bit."""
+    fn, entry = K6_K9[which]
+    q = _qkv((n, lq, h * 64), torch.bfloat16, cuda)[0]
+    _, k, v = _qkv((n, lk, h * 64), torch.bfloat16, cuda, seed=1)
+    buf = torch.full((q.numel() + 4096,), float("nan"), device=cuda, dtype=torch.bfloat16)
+    tkernels.check(getattr(tkernels.library(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(),
+        tkernels.DTYPE_CODES[torch.bfloat16], n, lq, lk, h, 0.125,
+        tkernels.stream_handle(cuda)), entry)
+    torch.cuda.synchronize()
+    assert bool(buf[q.numel():].isnan().all())
+    assert torch.equal(buf[:q.numel()].view_as(q), fn(q, k, v, h, 0.125))
+
+
+@pytest.mark.parametrize("n,lq,lk,h", [(2, 2560, 2560, 5), (1, 97, 150, 7)])
+@pytest.mark.parametrize("which", ["K6", "K9"])
+def test_k6_k9_bf16_is_deterministic(cuda, which, n, lq, lk, h):
+    """Each block owns its output tile and sums in a fixed order (no
+    atomics): two runs agree bit for bit."""
+    fn = K6_K9[which][0]
+    q = _qkv((n, lq, h * 64), torch.bfloat16, cuda)[0]
+    _, k, v = _qkv((n, lk, h * 64), torch.bfloat16, cuda, seed=1)
+    assert torch.equal(fn(q, k, v, h, 0.125), fn(q, k, v, h, 0.125))
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.bfloat16, {"K6": "flash_fwd_packed_tc_kernel", "K9": "flash_fwd_pairs_tc_kernel"}),
+    (torch.float32, {"K6": "flash_fwd_packed_kernel<float>",
+                     "K9": "flash_fwd_pairs_kernel<float>"})])
+@pytest.mark.parametrize("which", ["K6", "K9"])
+def test_k6_k9_route_by_dtype(cuda, which, dtype, kernel):
+    """bf16 runs the tensor-core kernel, fp32 the FMA kernel: the one
+    kernel symbol the profiler records for one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn = K6_K9[which][0]
+    q = _qkv((1, 130, 5 * 64), dtype, cuda)[0]
+    _, k, v = _qkv((1, 77, 5 * 64), dtype, cuda, seed=1)
+    fn(q, k, v, 5, 0.125)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(q, k, v, 5, 0.125)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "flash_fwd" in e.name]
+    assert len(names) == 1 and kernel[which] in names[0], names
 
 
 def test_flash_attention_packed_routes(cuda):

@@ -7,9 +7,11 @@ K1 and K2, K3 (`_flash_fwd(save_lse=True)`), K4a/K4b (`_flash_bwd`), and
 the gradients of the differentiable entries against `jax.grad`; K6
 (`flash_attention(packed=True)`) and K9 (`flash_attention_pairs`) against
 their Pallas kernels in interpret mode in fp32 and bf16 (bf16 at atol =
-rtol = 2e-2, the inputs' rounding), K10's plain version against
+rtol = 2e-2, the inputs' rounding) and in fp32 at scales 0.3 and -0.125,
+K10's plain version against
 `xla_attention` and, for `nosoftmax`, its formula in numpy; the wrappers take the plain path for CPU tensors without building or
-launching anything; the routing rule; a missing nvcc is a clear error.
+launching anything; the routing rule; a missing nvcc is a clear error;
+the K6/K9 tile-constant probe rewrites only copies of the sources.
 
 The CUDA kernels themselves are tested on the card in test_torch_cuda.py.
 """
@@ -237,6 +239,15 @@ def test_profile_families_name_the_flash_forward_kernels():
     assert family("void (anonymous namespace)::small_t_kernel<__nv_bfloat16>()") == \
         "K2 small_t_kernel"
     # the backward's kernels, both routes, and the bf16 route's pre-pass
+    # K6 and K9 compute K1's function: their own families, not K1's
+    for name, fam in (("flash_fwd_packed_tc_kernel<3>(__nv_bfloat16 const*)",
+                       "K6 flash_fwd_packed"),
+                      ("flash_fwd_packed_kernel<float>(float const*)", "K6 flash_fwd_packed"),
+                      ("flash_fwd_pairs_tc_kernel(__nv_bfloat16 const*)",
+                       "K9 flash_attention_pairs"),
+                      ("flash_fwd_pairs_kernel<float>(float const*)",
+                       "K9 flash_attention_pairs")):
+        assert family("void (anonymous namespace)::" + name) == fam
     for name, fam in (("flash_bwd_dq_tc_kernel(__nv_bfloat16 const*)", "K4a flash_bwd_dq"),
                       ("flash_bwd_dq_kernel<float>(float const*)", "K4a flash_bwd_dq"),
                       ("flash_bwd_dkv_tc_kernel(__nv_bfloat16 const*)", "K4b flash_bwd_dkv"),
@@ -397,6 +408,38 @@ def test_k9_plain_matches_jax_pairs_kernel(n, lq, lk, h, dtype):
     np.testing.assert_allclose(out.float().numpy(), ref, **VARIANT_TOL[dtype])
 
 
+@pytest.mark.parametrize("n,lq,lk,h", [(1, 130, 77, 3), (2, 96, 160, 2)])
+@pytest.mark.parametrize("scale", [0.3, -0.125])
+@pytest.mark.parametrize("which", ["K6", "K9"])
+def test_k6_k9_plain_match_jax_at_any_scale(which, scale, n, lq, lk, h):
+    """The Pallas K6 and K9 scale the logits before their running max, so
+    any finite scale is theirs to take, a negative one included: the plain
+    versions behind `flash_attention(packed=True)` and
+    `flash_attention_pairs` agree with them in fp32 at 0.3 and -0.125 (odd
+    and even H, ragged Lq != Lk), the contract the CUDA kernels keep."""
+    from experiments.flash_pairs.flash_pairs import flash_attention_pairs as j_pairs
+
+    from dynamicrafter_tpu_torch.experiments.flash_pairs.flash_pairs import (
+        flash_attention_pairs)
+
+    dtype = "float32"
+    q, k, v = _variant_inputs(n, lq, lk, h, dtype, 23)
+    tdtype = getattr(torch, dtype)
+    args = [torch.from_numpy(a).to(tdtype) for a in (q, k, v)]
+    if which == "K6":
+        ref = j_flash(*(_heads_split(a, h, dtype) for a in (q, k, v)), scale=scale,
+                      interpret=True, packed=True).reshape(q.shape)
+        out = tflash.flash_attention(*(a.unflatten(-1, (h, 64)) for a in args), scale=scale,
+                                     packed=True).flatten(-2)
+    else:
+        ref = j_pairs(*(jnp.asarray(a, dtype) for a in (q, k, v)), h, scale, 128, 128,
+                      interpret=True)
+        out = flash_attention_pairs(*args, h, scale)
+    assert out.dtype == tdtype and out.shape == q.shape
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               **VARIANT_TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", ["exp", "exp2", "nosoftmax"])
 @pytest.mark.parametrize("n,lq,lk,h", [(2, 128, 128, 5), (1, 128, 256, 2)])
@@ -435,7 +478,7 @@ def test_k10_plain_matches_reference(n, lq, lk, h, mode, dtype):
 
 
 def test_variant_wrappers_refuse_other_devices_and_modes():
-    from dynamicrafter_tpu_torch.experiments.flash_pairs import bench_flash_pairs
+    from dynamicrafter_tpu_torch.experiments.flash_pairs import bench_flash_pairs, tune_flash_tc
     from dynamicrafter_tpu_torch.experiments.flash_pairs import bench_flash_variants as bv
     from dynamicrafter_tpu_torch.experiments.flash_pairs.flash_pairs import (
         flash_attention_pairs)
@@ -451,9 +494,29 @@ def test_variant_wrappers_refuse_other_devices_and_modes():
     with pytest.raises(ValueError, match="unknown mode"):
         bv.run_variant_plain(q, q, q, 1, 0.125, "tanh")
     # the benches time CUDA kernels: no CPU run, and no silent one without a card
-    for main in (bv.main, bench_flash_pairs.main):
+    for main in (bv.main, bench_flash_pairs.main, tune_flash_tc.main):
         with pytest.raises(ValueError, match="times CUDA kernels"):
             main(["--device", "cpu"])
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 main([])
+
+
+def test_tune_variants_rewrite_one_constant_each(tmp_path, monkeypatch):
+    """Each variant of the tile-constant probe rewrites constants that exist,
+    once each, in a copy of the sources under the build directory: the
+    shipped sources stay as they are."""
+    from dynamicrafter_tpu_torch.experiments.flash_pairs import tune_flash_tc
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "kernels")
+    before = {p.name: p.read_text() for p in kernels.CSRC.iterdir()}
+    for name, overrides in tune_flash_tc.VARIANTS.items():
+        src, lib = tune_flash_tc.variant_sources(name, overrides)
+        assert src.parent == lib.parent and tmp_path in src.parents
+        assert {p.name for p in src.glob("*.cu")} == set(tune_flash_tc.SOURCES)
+        text = "".join((src / s).read_text() for s in tune_flash_tc.SOURCES)
+        for const, value in overrides.items():
+            assert f"constexpr int {const} = {value};" in text
+    with pytest.raises(ValueError, match="kNoSuchConstant: 0 definitions"):
+        tune_flash_tc.variant_sources("bad", {"kNoSuchConstant": 1})
+    assert {p.name: p.read_text() for p in kernels.CSRC.iterdir()} == before
