@@ -89,8 +89,8 @@ Run from the repository root. Phases, each printing one line:
      `bench_flash_pairs.main`, the three hot shapes at N = 32) and
      `flash_attention(packed=True)` at the same shapes as K6's, with their
      times beside K1's, the plain version's (at L = 2560) and the library
-     call's, and K6's, K9's and K1's TFLOP/s, share of the bound and factor
-     over the library call;
+     call's; K6, K9 and K1 timed in turn in one loop, with their TFLOP/s,
+     share of the bound and factor over the library call;
  20. K7 (`fused_gn_silu_conv`) and K8 (`fused_gn_silu_conv_tiled`) against
      their plain versions in fp32 and bf16, with and without emb, at small
      and ragged shapes and at Co != C; K7 against K8 on the same fp32 input;
@@ -139,7 +139,6 @@ from __future__ import annotations
 
 import json
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -316,13 +315,10 @@ def main() -> int:
         f"kernels built in {time.perf_counter() - t0:.2f}s (nvcc "
         f"{kernels.build_seconds:.2f}s) | ptxas (registers, spill stores): "
         + "; ".join(f"{name} {r['regs']} regs {r['spill']} B" for name, r in ptxas.items()))
-    # K6 has one bf16 kernel per group size, 1 .. kPackedMaxHeads
-    k6_sizes = int(re.search(r"constexpr int kPackedMaxHeads = (\d+);", open(os.path.join(
-        kernels.CSRC, "flash_packed.cu")).read()).group(1))
     for what, key, count in (("K1/K3", "flash_fwd_tc_kernel", 2),
                              ("K4a", "flash_bwd_dq_tc_kernel", 1),
                              ("K4b", "flash_bwd_dkv_tc_kernel", 1),
-                             ("K6", "flash_fwd_packed_tc_kernel", k6_sizes),
+                             ("K6", "flash_fwd_packed_tc_kernel", 1),
                              ("K9", "flash_fwd_pairs_tc_kernel", 1)):
         tc = {name: r for name, r in ptxas.items() if key in name}
         check(len(tc) == count and all(r["spill"] == 0 for r in tc.values()),
@@ -1216,13 +1212,22 @@ def main() -> int:
     for label, n, l, h in bench_flash_variants.CASES:
         q, k, v = bench_flash_variants.case_inputs(n, l, h, dev)
         q4, k4, v4 = (a.view(n, l, h, 64) for a in (q, k, v))
-        k6_ms = cuda_ms(lambda: flash_attention(q4, k4, v4, packed=True), iters=10, warmup=1)
+        # K6 (through its entry point), K9 and K1 timed in turn in one loop,
+        # so that clock drift between separate loops cannot tell them apart
+        turns = {"K6": lambda: flash_attention(q4, k4, v4, packed=True),
+                 "K9": lambda: flash_attention_pairs(q, k, v, h, 0.125),
+                 "K1": lambda: flash_fwd(q, k, v, h, 0.125)}
+        alt = {name: [] for name in turns}
+        for _ in range(5):
+            for name, fn in turns.items():
+                alt[name].append(cuda_ms(fn, iters=10, warmup=1))
+        alt_ms = {name: sorted(t)[2] for name, t in alt.items()}
         lib_ms = sdpa_ms(q, k, v, h, iters=10)
         b = attention_bound(n, l, l, h, 64, bf16)
         shape = f"({n}, {l}, {h}*64)"
         common = dict(k1_ms=bench_ms[(l, h, "K1 flash_fwd")], library_ms=lib_ms, **b)
-        by_shape["flash_fwd_packed"][shape] = dict(ms=k6_ms, **common)
-        by_shape["flash_attention_pairs"][shape] = dict(ms=bench_ms[(l, h, "K9 pairs")], **common)
+        by_shape["flash_fwd_packed"][shape] = dict(ms=alt_ms["K6"], **common)
+        by_shape["flash_attention_pairs"][shape] = dict(ms=alt_ms["K9"], **common)
         by_shape["run_variant"][shape] = dict(
             ms=bench_ms[(l, h, "K10 exp")],
             ms_by_mode={m: bench_ms[(l, h, f"K10 {m}")] for m in ("exp", "exp2", "nosoftmax")},
@@ -1231,19 +1236,20 @@ def main() -> int:
             plain_ms = cuda_ms(lambda: flash_fwd_plain(q, k, v, h, 0.125))
             plain_ns_ms = cuda_ms(lambda: run_variant_plain(q, k, v, h, 0.125, "nosoftmax"))
         modes = by_shape["run_variant"][shape]["ms_by_mode"]
-        log(f"[19] {label.strip()} bf16: K1 {common['k1_ms']:.3f} ms | K6 packed {k6_ms:.3f} | "
+        log(f"[19] {label.strip()} bf16: K1 {common['k1_ms']:.3f} ms | "
             f"K9 pairs {bench_ms[(l, h, 'K9 pairs')]:.3f} | K10 exp {modes['exp']:.3f} exp2 "
             f"{modes['exp2']:.3f} nosoftmax {modes['nosoftmax']:.3f} (softmax share of exp2 "
             f"{1 - modes['nosoftmax'] / modes['exp2']:.1%}) | library {lib_ms:.3f} | bound "
             f"{b['bound_ms']:.3f} ms by {b['bound_by']}")
-        log(f"[19] {label.strip()} bf16 rates: K6 packed "
-            + rate(k6_ms, n, l, l, h, lib_ms) + ", K9 pairs "
-            + rate(bench_ms[(l, h, "K9 pairs")], n, l, l, h, lib_ms) + ", K1 "
-            + rate(common["k1_ms"], n, l, l, h, lib_ms)
-            + f" | share of the bound: K6 {b['bound_ms'] / k6_ms:.1%}, K9 "
-            f"{b['bound_ms'] / bench_ms[(l, h, 'K9 pairs')]:.1%}, K1 "
-            f"{b['bound_ms'] / common['k1_ms']:.1%} | K6 / K1 {k6_ms / common['k1_ms']:.3f}, "
-            f"K9 / K1 {bench_ms[(l, h, 'K9 pairs')] / common['k1_ms']:.3f}")
+        log(f"[19] {label.strip()} bf16 K6, K9, K1 in turn (5 rounds of 10 calls, median; "
+            "min-max): " + ", ".join(f"{name} {alt_ms[name]:.3f} ({min(t):.3f}-{max(t):.3f})"
+                                     for name, t in alt.items()) + " ms")
+        log(f"[19] {label.strip()} bf16 rates: K6 packed " + rate(alt_ms["K6"], n, l, l, h, lib_ms)
+            + ", K9 pairs " + rate(alt_ms["K9"], n, l, l, h, lib_ms) + ", K1 "
+            + rate(alt_ms["K1"], n, l, l, h, lib_ms)
+            + " | share of the bound: " + ", ".join(
+                f"{name} {b['bound_ms'] / alt_ms[name]:.1%}" for name in alt_ms)
+            + f" | K6 / K1 {alt_ms['K6'] / alt_ms['K1']:.3f}, K9 / K1 {alt_ms['K9'] / alt_ms['K1']:.3f}")
         del q, k, v, q4, k4, v4
     variant_launches = counts(*variant_wrappers)
     first = "(32, 2560, 5*64)"
@@ -1259,7 +1265,7 @@ def main() -> int:
         max_abs_err_by_mode={m: worst[(f"K10 run_variant {m}", bf16)][0]
                              for m in ("exp", "exp2", "nosoftmax")})
     log(f"[19] launches: K6 {variant_launches[0]} (flash_attention(packed=True) at the three "
-        f"shapes), K9 {variant_launches[1]} (bench_flash_pairs.main), K10 "
+        f"shapes), K9 {variant_launches[1]} (bench_flash_pairs.main and the turns), K10 "
         f"{variant_launches[2]} (bench_flash_variants.main, three modes) | plain at {first}: "
         f"attention {plain_ms:.3f} ms, nosoftmax {plain_ns_ms:.3f} ms")
     torch.cuda.empty_cache()

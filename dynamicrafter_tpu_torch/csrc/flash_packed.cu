@@ -16,38 +16,37 @@
 // heads, n). The block stages the group's contiguous columns of each Q row
 // once and of each K and V row once per KV tile, and serves each head out
 // of that staging at column offset g*64, all heads of the group at the same
-// time. A head count that does not divide into groups of the largest size
-// is split as evenly as it goes (fp32, groups of up to 5: H = 7 as 4 and
-// 3; bf16, groups of up to 2: H = 5 as 2, 2 and 1).
+// time. In fp32 a head count that does not divide into groups of the
+// largest size is split as evenly as it goes (groups of up to 5: H = 7 as 4
+// and 3); in bf16 the groups are head pairs (H = 5 as 2, 2 and 1).
 //
 // What bounds it: arithmetic, as K1 (4*N*H*Lq*Lk*64 operations against 2 or
 // 4 bytes * N*H*64*(2*Lq + 2*Lk)). The input type chooses the kernel:
 //
-// bf16: `flash_fwd_packed_tc_kernel<G>`, both products on the tensor cores,
-//   the main loop of flash_tc.cuh (K1's, serving G heads from one staged
-//   row, bit for bit K1's output), one instantiation per group size G = 1
-//   .. kPackedMaxHeads. The register file bounds G and the rows per warp:
+// bf16: `flash_fwd_packed_tc_kernel`, both products on the tensor cores,
+//   the main loop of flash_tc.cuh (K1's, serving several heads from one
+//   staged row, bit for bit K1's output) with K9's tile and grid: one block
+//   of 8 warps per (128-row query tile, head pair, n), 4 warps a head, 32
+//   query rows a warp, each head's warps copying their own columns and
+//   meeting at a barrier of their own. Bring-up timing chose the pair over
+//   wider groups. The register file bounds the group and the rows per warp:
 //   K1's 32 rows a warp (two m16 tiles, every K and V fragment feeding two
 //   MMAs) take about 250 registers a thread, so 65 536 registers hold 8
-//   such warps per SM: 4 warps a head fits G <= 2, 2 warps a head (64-row
-//   tiles) G <= 4, 1 warp G <= 8; 16 rows a warp take 128-173 registers but
-//   double the ldmatrix traffic per MMA. Each head's warps copy their head's
-//   columns of the staged rows and wait at a barrier of their own
-//   (kPackedHeadSync); one barrier per KV tile for the whole group ran
-//   9-12 % slower at G <= 2 and 23-34 % at G <= 4. G and the tile were
-//   chosen by bring-up timing (`experiments/flash_pairs/tune_flash_tc.py`,
-//   N = 32, NVIDIA H100 80GB HBM3 at 700 W, uncoupled heads, at L = 2560 x
-//   5 heads, 9216 x 5, 2304 x 10 and 576 x 20, K1 0.930 / 11.173 / 1.467 /
-//   0.237 ms in the same call): up to 2 heads of 4 warps x 32 rows 0.996 /
-//   12.056 / 1.510 / 0.252 ms; up to 4 heads of 2 warps x 32 rows 1.202 /
-//   14.672 / 1.586 / 0.234 (H = 5 splits 3 + 2: a 6-warp block, one per
-//   SM); 1 warp x 32 rows 2.288 / 27.729 / 2.931 / 0.376 (32-row tiles: K
-//   and V staged four times as often); 4 warps x 16 rows 1.123 / 13.853 /
-//   1.938 / 0.275, spilling at G = 3 and 4. So the shipped tile is the
-//   pair's, groups of at most 2 heads (H = 5: 2 + 2 + 1, as K9): staging
-//   wider rows for more heads bought nothing on the tensor cores, and one
-//   head a block (K1's tile through this loop, 0.921 / 11.115 / 1.424 /
-//   0.231) is the fastest of all.
+//   such warps per SM: 4 warps a head fits 2 heads a block, 2 warps a head
+//   (64-row tiles) 4 heads, 1 warp 8 heads; 16 rows a warp take 128-173
+//   registers but double the ldmatrix traffic per MMA. Timed (PERF.md §6
+//   names the probe) at N = 32 on NVIDIA H100 80GB HBM3 at 700 W, at L = 2560 x 5 heads, 9216 x 5,
+//   2304 x 10 and 576 x 20, with K1 0.930 / 11.173 / 1.467 / 0.237 ms in the
+//   same call: groups of up to 2 heads of 4 warps x 32 rows 0.996 / 12.056 /
+//   1.510 / 0.252 ms; up to 4 heads of 2 warps x 32 rows 1.202 / 14.672 /
+//   1.586 / 0.234 (H = 5 splits 3 + 2: a 6-warp block, one per SM); 1 warp
+//   x 32 rows 2.288 / 27.729 / 2.931 / 0.376 (32-row tiles: K and V staged
+//   four times as often); 4 warps x 16 rows 1.123 / 13.853 / 1.938 / 0.275,
+//   spilling at 3 and 4 heads; one head a block (K1's tile through this
+//   loop) 0.921 / 11.115 / 1.424 / 0.231, the fastest of all. One barrier
+//   per KV tile for the whole group ran 9-12 % slower with pairs and 23-34 %
+//   with groups of up to 4. Staging wider rows for more heads bought nothing
+//   on the tensor cores, so K6 keeps the pair, as K9.
 //
 // fp32: `flash_fwd_packed_kernel<float>`, the first version, kept for fp32
 //   inputs only (TF32 would drop 13 bits of each operand; the fp32 tolerance
@@ -238,73 +237,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int n, 
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core kernel
+// bf16: the tensor-core kernel (flash_tc.cuh's pair tile and grid)
 // ---------------------------------------------------------------------------
 
-constexpr int kPackedMaxHeads = 2;      // heads a block serves at once
-constexpr int kPackedWarpsPerHead = 4;  // warps on each head
-constexpr int kPackedMTiles = 2;        // m16 tiles (16 query rows) a warp
-constexpr int kPackedStages = 3;        // KV ring slots, where they fit
-constexpr int kPackedHeadSync = 1;      // 1: each head's warps copy and sync on their own
-
-// The ring's depth for a group of kG heads: kPackedStages, or fewer where
-// that many slots would not fit in a block's shared memory.
-template <int kG>
-constexpr int packed_stages() {
-  constexpr int slot_bytes = 2 * 64 * (kG * kD + 8) * 2;
-  return kPackedStages * slot_bytes <= 232448 ? kPackedStages : 232448 / slot_bytes;
-}
-
-template <int kG>
-using PackedTile =
-    dct::FlashTcTile<kG, kPackedWarpsPerHead, kPackedMTiles, packed_stages<kG>(),
-                     kPackedHeadSync>;
-
-template <int kG>
-__global__ void __launch_bounds__(PackedTile<kG>::kThreads, 1)
+__global__ void __launch_bounds__(dct::FlashTcPairTile::kThreads, 1)
 flash_fwd_packed_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                            int lq, int lk, int heads, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int h0 = blockIdx.y * kG;
-  const size_t n = blockIdx.z;
-  const size_t hd = (size_t)heads * kD;
-  dct::flash_fwd_tc_block<PackedTile<kG>>(
-      q + n * lq * hd + h0 * kD, k + n * lk * hd + h0 * kD, v + n * lk * hd + h0 * kD,
-      o + n * lq * hd + h0 * kD, hd, blockIdx.x * PackedTile<kG>::kBQ, lq, lk,
-      min(kG, heads - h0), scale_log2, reinterpret_cast<__nv_bfloat16*>(smem_raw));
-}
-
-template <int kG>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int n, int lq,
-                      int lk, int heads, float scale, cudaStream_t stream) {
-  using Tile = PackedTile<kG>;
-  const auto kernel = flash_fwd_packed_tc_kernel<kG>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Tile::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((lq + Tile::kBQ - 1) / Tile::kBQ, (heads + kG - 1) / kG, n);
-  kernel<<<grid, Tile::kThreads, Tile::kSmemBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lq, lk, heads,
-      scale * dct::kLog2e);
-  return cudaGetLastError();
-}
-
-// The launch for groups of `gheads` heads (1 <= gheads <= kG).
-template <int kG>
-cudaError_t launch_tc_group_size(int gheads, const void* q, const void* k, const void* v,
-                                 void* o, int n, int lq, int lk, int heads, float scale,
-                                 cudaStream_t stream) {
-  if constexpr (kG > 1) {
-    if (gheads < kG)
-      return launch_tc_group_size<kG - 1>(gheads, q, k, v, o, n, lq, lk, heads, scale, stream);
-  }
-  return launch_tc<kG>(q, k, v, o, n, lq, lk, heads, scale, stream);
+  dct::flash_fwd_tc_pairs(q, k, v, o, lq, lk, heads, scale_log2,
+                          reinterpret_cast<__nv_bfloat16*>(smem_raw));
 }
 
 }  // namespace
@@ -313,12 +256,9 @@ extern "C" int dct_flash_fwd_packed(const void* q, const void* k, const void* v,
                                     int dtype, int n, int lq, int lk, int heads,
                                     float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == dct::kBFloat16) {
-    // groups of at most kPackedMaxHeads heads, as even as they go
-    const int ngroups = (heads + kPackedMaxHeads - 1) / kPackedMaxHeads;
-    return launch_tc_group_size<kPackedMaxHeads>((heads + ngroups - 1) / ngroups, q, k, v, o,
-                                                 n, lq, lk, heads, scale, s);
-  }
+  if (dtype == dct::kBFloat16)
+    return dct::launch_flash_tc_pairs(flash_fwd_packed_tc_kernel, q, k, v, o, n, lq, lk, heads,
+                                      scale * dct::kLog2e, s);
   if (dtype == dct::kFloat32) return launch<float>(q, k, v, o, n, lq, lk, heads, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -36,10 +36,10 @@
 //   4-warp blocks. Shared memory: a ring of three K/V slots of 64 rows x
 //   136 elements, 102 KB, the Q tile in the last slot. Each head's warps
 //   copy their head's 128 bytes of every staged row and wait at a barrier
-//   of their own (kPairHeadSync): with one barrier per KV tile for both
-//   heads, as the Pallas program shares its grid step, the kernel ran 8-10 %
-//   slower. Bring-up timing (`experiments/flash_pairs/tune_flash_tc.py`,
-//   N = 32, NVIDIA H100 80GB HBM3 at 700 W, K1 in the same call): shipped
+//   of their own: with one barrier per KV tile for both heads, as the
+//   Pallas program shares its grid step, the kernel ran 8-10 % slower.
+//   Bring-up timing (PERF.md §6 names the probe; N = 32, NVIDIA H100 80GB
+//   HBM3 at 700 W, K1 in the same call): shipped
 //   0.999 / 12.019 / 1.509 / 0.253 ms at L = 2560 x 5 heads, 9216 x 5,
 //   2304 x 10, 576 x 20 (K1 0.930 / 11.173 / 1.467 / 0.237); one barrier
 //   for both heads 1.103 / 13.240 / 1.666 / 0.274; two warps a head (64-row
@@ -207,44 +207,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int n, 
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core kernel
+// bf16: the tensor-core kernel (flash_tc.cuh's pair tile and grid)
 // ---------------------------------------------------------------------------
 
-constexpr int kPairWarpsPerHead = 4;  // warps on each head
-constexpr int kPairStages = 3;        // KV ring slots
-constexpr int kPairHeadSync = 1;      // 1: each head's warps copy and sync on their own
-using PairTile = dct::FlashTcTile<2, kPairWarpsPerHead, 2, kPairStages, kPairHeadSync>;
-
-__global__ void __launch_bounds__(PairTile::kThreads, 1)
+__global__ void __launch_bounds__(dct::FlashTcPairTile::kThreads, 1)
 flash_fwd_pairs_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                           int lq, int lk, int heads, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int h0 = blockIdx.y * 2;
-  const size_t n = blockIdx.z;
-  const size_t hd = (size_t)heads * kD;
-  dct::flash_fwd_tc_block<PairTile>(
-      q + n * lq * hd + h0 * kD, k + n * lk * hd + h0 * kD, v + n * lk * hd + h0 * kD,
-      o + n * lq * hd + h0 * kD, hd, blockIdx.x * PairTile::kBQ, lq, lk, min(2, heads - h0),
-      scale_log2, reinterpret_cast<__nv_bfloat16*>(smem_raw));
-}
-
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int n, int lq,
-                      int lk, int heads, float scale, cudaStream_t stream) {
-  const auto kernel = flash_fwd_pairs_tc_kernel;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         PairTile::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((lq + PairTile::kBQ - 1) / PairTile::kBQ, (heads + 1) / 2, n);
-  kernel<<<grid, PairTile::kThreads, PairTile::kSmemBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lq, lk, heads,
-      scale * dct::kLog2e);
-  return cudaGetLastError();
+  dct::flash_fwd_tc_pairs(q, k, v, o, lq, lk, heads, scale_log2,
+                          reinterpret_cast<__nv_bfloat16*>(smem_raw));
 }
 
 }  // namespace
@@ -253,7 +226,9 @@ extern "C" int dct_flash_fwd_pairs(const void* q, const void* k, const void* v, 
                                    int dtype, int n, int lq, int lk, int heads,
                                    float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == dct::kBFloat16) return launch_tc(q, k, v, o, n, lq, lk, heads, scale, s);
+  if (dtype == dct::kBFloat16)
+    return dct::launch_flash_tc_pairs(flash_fwd_pairs_tc_kernel, q, k, v, o, n, lq, lk, heads,
+                                      scale * dct::kLog2e, s);
   if (dtype == dct::kFloat32) return launch<float>(q, k, v, o, n, lq, lk, heads, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,9 @@
 // The tensor-core flash-forward main loop for blocks that serve several heads
-// from one staged row (sm_90a), shared by the bf16 paths of K6
-// (flash_packed.cu) and K9 (flash_pairs.cu). They differ only in how blocks
-// map to rows and heads, which `FlashTcTile` fixes.
+// from one staged row (sm_90a). `flash_fwd_tc_block` is the loop for any
+// `FlashTcTile` (heads a block, warps a head, rows a warp, ring slots);
+// `flash_fwd_tc_pairs` and `launch_flash_tc_pairs` map blocks to head pairs
+// for the bf16 paths of K6 (flash_packed.cu) and K9 (flash_pairs.cu), which
+// share that tile and grid: bring-up timing chose the pair for both.
 //
 // The function is K1's (flash_attention.cu): softmax(Q K^T * scale) V per
 // head on (N, L, H*64) row-major bf16 operands, fp32 online softmax, KV
@@ -27,20 +29,16 @@
 // slot: it is moved into registers before the first barrier of the KV loop,
 // and that slot is first refilled after it.
 //
-// Who copies and who waits (kHeadSync): either the whole block copies every
-// staged row and meets at one __syncthreads per KV tile, or each head's
-// warps copy their own head's columns of the same rows and meet at a named
-// barrier of their own (bar.sync 1 + head), so that no head waits for
-// another. The shipped kernels take the second: one barrier for all heads
-// made every head wait for the slowest warp of the block and ran 9-34 %
-// slower than uncoupled heads in the bring-up timing (flash_pairs.cu and
-// flash_packed.cu give the numbers).
+// Who copies and who waits: each head's warps copy their own head's
+// columns of the staged rows and meet at a named barrier of their own
+// (bar.sync 1 + head), so that no head waits for another. One
+// __syncthreads per KV tile for all heads of the block made every head wait
+// for the slowest warp and ran 8-34 % slower in the bring-up timing
+// (flash_pairs.cu and flash_packed.cu give the numbers).
 //
-// Heads past the last (the second head of an odd H's last pair, the empty
-// heads of a short last group): their columns are neither read nor written.
-// With kHeadSync their warps return at once; without, they skip the
-// products but take part in the copies and barriers. No address at or past
-// column H*64 of a row is touched.
+// Heads past the last (the second head of an odd H's last pair): their
+// warps return at once, and their columns are neither read nor written. No
+// address at or past column H*64 of a row is touched.
 //
 // Any scale: softmax(scale * q.k) = softmax(|scale| * (sign(scale) q).k),
 // and negating a bf16 value is exact, so the Q fragments are negated once
@@ -62,55 +60,31 @@ namespace dct {
 // One block: kHeads heads side by side, kWarpsPerHead warps on each head,
 // each warp kMTiles m16 tiles (16 * kMTiles query rows); KV tiles of 64 rows
 // in a ring of kStages slots.
-template <int kHeads_, int kWarpsPerHead_, int kMTiles_, int kStages_, bool kHeadSync_>
+template <int kHeads_, int kWarpsPerHead_, int kMTiles_, int kStages_>
 struct FlashTcTile {
   static constexpr int kHeads = kHeads_;
   static constexpr int kWarpsPerHead = kWarpsPerHead_;
   static constexpr int kMTiles = kMTiles_;
   static constexpr int kStages = kStages_;
-  // false: the whole block copies every staged row and meets at one barrier
-  // per KV tile; true: each head's warps copy their head's columns and meet
-  // at a barrier of their own (bar.sync 1 + head), the heads uncoupled
-  static constexpr bool kHeadSync = kHeadSync_;
   static constexpr int kD = 64;                           // head dim
   static constexpr int kBK = 64;                          // KV rows per tile
-  static constexpr int kThreads = kHeads * kWarpsPerHead * 32;
+  static constexpr int kHeadThreads = kWarpsPerHead * 32; // a head's threads
+  static constexpr int kThreads = kHeads * kHeadThreads;
   static constexpr int kBQ = kWarpsPerHead * 16 * kMTiles;  // query rows per block
-  static constexpr int kCols = kHeads * kD;               // staged columns
-  static constexpr int kStride = kCols + 8;               // elements per staged row
+  static constexpr int kStride = kHeads * kD + 8;         // elements per staged row
   static constexpr int kSlotElems = 2 * kBK * kStride;    // K tile, then V tile
-  static constexpr int kSyncThreads = kHeadSync ? kWarpsPerHead * 32 : kThreads;
-  static constexpr int kSyncCols = kHeadSync ? kD : kCols;  // columns a sync group copies
   static constexpr int kSmemBytes = kStages * kSlotElems * 2;
   static_assert(kStages >= 2, "a ring needs two slots");
   static_assert(kBQ <= 2 * kBK, "the Q tile is staged in one ring slot");
   static_assert(kSmemBytes <= 232448, "more shared memory than a block may have");
 };
 
-// cp.async of rows row0 .. row0 + kRows - 1, columns 0 .. ncols - 1 (of at
-// most kCols), of a (rows, stride) bf16 operand into dst[kRows][kStride] by
-// the kThreads threads numbered tid. Rows >= nvalid are zero-filled;
-// columns >= ncols are neither read nor written. Each thread owns one
-// 16-byte column chunk and every kRowStep-th row.
-template <int kRows, int kCols, int kThreads, int kStride>
-__device__ __forceinline__ void cp_async_staged_rows(__nv_bfloat16* dst,
-                                                     const __nv_bfloat16* src, size_t stride,
-                                                     int row0, int nvalid, int ncols, int tid) {
-  constexpr int kChunksPerRow = kCols / 8;
-  static_assert(kThreads % kChunksPerRow == 0, "whole rows per pass");
-  constexpr int kRowStep = kThreads / kChunksPerRow;
-  static_assert(kRows % kRowStep == 0, "whole passes per tile");
-  const int c = (tid % kChunksPerRow) * 8;
-  if (c >= ncols) return;
-  const int r0 = tid / kChunksPerRow;
-#pragma unroll
-  for (int it = 0; it < kRows / kRowStep; ++it) {
-    const int r = r0 + it * kRowStep;
-    const bool valid = row0 + r < nvalid;
-    cp_async16_zfill(dst + r * kStride + c, src + (size_t)(valid ? row0 + r : 0) * stride + c,
-                     valid);
-  }
-}
+// The tile of the bf16 K6 and K9: a head pair, 4 warps a head, 32 query rows
+// a warp (two m16 tiles: every K and V fragment taken from shared memory
+// feeds two MMAs), a ring of three K/V slots. At 255 registers a thread the
+// 8-warp block holds an SM's register file, the same 8 warps per SM as K1's
+// two 4-warp blocks; shared memory is 3 x 2 x 64 x 136 x 2 B = 102 KB.
+using FlashTcPairTile = FlashTcTile<2, 4, 2, 3>;
 
 // One block's work: query rows q0 .. q0 + kBQ - 1 of `nheads` (<= kHeads)
 // adjacent heads. qb, kb, vb and ob point at row 0, column 0 of the block's
@@ -127,28 +101,23 @@ __device__ __forceinline__ void flash_fwd_tc_block(
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int head = warp / Tile::kWarpsPerHead;
-  const bool active = head < nheads;
+  if (head >= nheads) return;   // no such head: nothing to read, write or wait for
   const int wrow = (warp % Tile::kWarpsPerHead) * 16 * kMT;   // warp's first row in the tile
   const int wcol = head * Tile::kD;                           // its head's staged columns
+  const int htid = tid % Tile::kHeadThreads;                  // thread within its head
   const int num_kv = (lk + kBK - 1) / kBK;
   bf16* sq = smem + (kStages - 1) * kSlot;
 
-  // what this thread copies: with kHeadSync its head's columns, numbered
-  // within the head's warps; else the block's columns, numbered in the block
-  if (Tile::kHeadSync && !active) return;
-  const int col0 = Tile::kHeadSync ? wcol : 0;
-  const int ncols = Tile::kHeadSync ? Tile::kD : nheads * Tile::kD;
-  const int ctid = Tile::kHeadSync ? tid % Tile::kSyncThreads : tid;
+  // this head's columns of rows row0 .. row0 + kRows - 1 (mma.cuh's
+  // cp_async_head_rows), by the head's threads; they meet at the head's own
+  // barrier
   const auto copy_rows = [&](bf16* dst, const bf16* src, int row0, int nvalid, auto rows) {
-    cp_async_staged_rows<decltype(rows)::value, Tile::kSyncCols, Tile::kSyncThreads, kStride>(
-        dst + col0, src + col0, hd, row0, nvalid, ncols, ctid);
+    cp_async_head_rows<decltype(rows)::value, Tile::kHeadThreads, kStride>(
+        dst + wcol, src + wcol, hd, row0, nvalid, htid);
   };
   using KVRows = std::integral_constant<int, kBK>;
   const auto sync = [&]() {
-    if constexpr (Tile::kHeadSync)
-      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + head), "n"(Tile::kSyncThreads) : "memory");
-    else
-      __syncthreads();
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + head), "n"(Tile::kHeadThreads) : "memory");
   };
 
   // groups in flight: Q, then KV tiles 0 .. kStages - 2 (empty groups past
@@ -180,16 +149,14 @@ __device__ __forceinline__ void flash_fwd_tc_block(
   const float sl2 = scale_log2 == 0.f ? 1.f : fabsf(scale_log2);
 
   uint32_t qf[kMT][4][4];   // Q as A fragments: [m tile][k step of 16 dims]
-  if (active) {
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        ldmatrix_x4(qf[mt][kk], sq + (wrow + mt * 16 + frow) * kStride + wcol + kk * 16 + fcol);
+    for (int kk = 0; kk < 4; ++kk) {
+      ldmatrix_x4(qf[mt][kk], sq + (wrow + mt * 16 + frow) * kStride + wcol + kk * 16 + fcol);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) qf[mt][kk][e] = (qf[mt][kk][e] ^ qflip) & qkeep;
-      }
-  }
+      for (int e = 0; e < 4; ++e) qf[mt][kk][e] = (qf[mt][kk][e] ^ qflip) & qkeep;
+    }
 
   // per m tile and row half (row g, row g + 8): running max (log2 domain,
   // scaled), this lane's partial row sum, and the output accumulators
@@ -209,8 +176,8 @@ __device__ __forceinline__ void flash_fwd_tc_block(
 
   int slot = 0, fill = kStages - 1;
   for (int kv = 0; kv < num_kv; ++kv) {
-    // tile kv has landed for every thread, and every warp is done with tile
-    // kv - 1 (on the first pass: with the Q tile), whose slot the next load
+    // tile kv has landed for every thread of the head, and each of its warps
+    // is done with tile kv - 1 (on the first pass: with the Q tile), whose slot the next load
     // overwrites
     cp_async_wait<kStages - 2>();
     sync();
@@ -224,7 +191,6 @@ __device__ __forceinline__ void flash_fwd_tc_block(
     const bf16* svt = skt + kBK * kStride;
     slot = slot + 1 == kStages ? 0 : slot + 1;
     fill = fill + 1 == kStages ? 0 : fill + 1;
-    if (!active) continue;
 
     // S = Q K^T: 8 column tiles of 8 keys, 4 k steps of 16 dims
     float s[kMT][8][4];
@@ -314,7 +280,6 @@ __device__ __forceinline__ void flash_fwd_tc_block(
     }
   }
   cp_async_wait<0>();   // only empty groups remain; leave none behind
-  if (!active) return;
 
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt) {
@@ -333,6 +298,46 @@ __device__ __forceinline__ void flash_fwd_tc_block(
             __floats2bfloat162_rn(acc[mt][j][2 * r] * inv, acc[mt][j][2 * r + 1] * inv);
     }
   }
+}
+
+// The bf16 K6 and K9: one FlashTcPairTile block per (128-row query tile,
+// head pair, n) of (N, L, H*64) operands, the block's heads 2p and 2p + 1
+// (only 2p in an odd H's last pair). A kernel's body; smem is its dynamic
+// shared memory.
+__device__ __forceinline__ void flash_fwd_tc_pairs(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int lq, int lk,
+    int heads, float scale_log2, __nv_bfloat16* smem) {
+  using Tile = FlashTcPairTile;
+  const int h0 = blockIdx.y * 2;
+  const size_t n = blockIdx.z;
+  const size_t hd = (size_t)heads * Tile::kD;
+  flash_fwd_tc_block<Tile>(q + n * lq * hd + h0 * Tile::kD, k + n * lk * hd + h0 * Tile::kD,
+                           v + n * lk * hd + h0 * Tile::kD, o + n * lq * hd + h0 * Tile::kD, hd,
+                           blockIdx.x * Tile::kBQ, lq, lk, min(2, heads - h0), scale_log2, smem);
+}
+
+using FlashTcPairKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
+                                   const __nv_bfloat16*, __nv_bfloat16*, int, int, int, float);
+
+// Launches a kernel whose body is flash_fwd_tc_pairs on n sequences of lq
+// query and lk key rows of `heads` heads.
+inline cudaError_t launch_flash_tc_pairs(FlashTcPairKernel kernel, const void* q, const void* k,
+                                         const void* v, void* o, int n, int lq, int lk,
+                                         int heads, float scale_log2, cudaStream_t stream) {
+  using Tile = FlashTcPairTile;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Tile::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((lq + Tile::kBQ - 1) / Tile::kBQ, (heads + 1) / 2, n);
+  kernel<<<grid, Tile::kThreads, Tile::kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lq, lk, heads,
+      scale_log2);
+  return cudaGetLastError();
 }
 
 }  // namespace dct

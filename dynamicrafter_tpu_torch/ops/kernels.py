@@ -54,23 +54,21 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-def build(csrc: Optional[Path] = None, build_dir: Optional[Path] = None) -> Path:
-    """Compile `csrc`/*.cu (default CSRC) into one shared library in
-    `build_dir` (default BUILD_DIR), cached by content."""
+def build() -> Path:
+    """Compile csrc/*.cu into one shared library (cached by content)."""
     global build_seconds, build_log
-    csrc, build_dir = csrc or CSRC, build_dir or BUILD_DIR
-    sources = sorted(csrc.glob("*.cu"))
+    sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(csrc.glob("*.cu*")):
+    for p in sorted(CSRC.glob("*.cu*")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     tag = digest.hexdigest()[:16]
-    out = build_dir / f"libdct_kernels_{tag}.so"
+    out = BUILD_DIR / f"libdct_kernels_{tag}.so"
     if out.exists():
         return out
-    build_dir.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    objs = [build_dir / f"{src.stem}_{tag}.{os.getpid()}.o" for src in sources]
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.{os.getpid()}.o" for src in sources]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(sources, objs)]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")

@@ -42,7 +42,6 @@ MODULES = [
     "dynamicrafter_tpu_torch.experiments.flash_pairs.flash_pairs",
     "dynamicrafter_tpu_torch.experiments.flash_pairs.bench_flash_variants",
     "dynamicrafter_tpu_torch.experiments.flash_pairs.bench_flash_pairs",
-    "dynamicrafter_tpu_torch.experiments.flash_pairs.tune_flash_tc",
     "dynamicrafter_tpu_torch.experiments.fused_conv.fused_conv",
     "dynamicrafter_tpu_torch.experiments.fused_conv.fused_conv_tiled",
     "dynamicrafter_tpu_torch.experiments.fused_conv.bench_fused_conv",

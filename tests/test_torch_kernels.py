@@ -11,7 +11,7 @@ rtol = 2e-2, the inputs' rounding) and in fp32 at scales 0.3 and -0.125,
 K10's plain version against
 `xla_attention` and, for `nosoftmax`, its formula in numpy; the wrappers take the plain path for CPU tensors without building or
 launching anything; the routing rule; a missing nvcc is a clear error;
-the K6/K9 tile-constant probe rewrites only copies of the sources.
+the registers and spill bytes read from a `ptxas -v` report.
 
 The CUDA kernels themselves are tested on the card in test_torch_cuda.py.
 """
@@ -240,7 +240,7 @@ def test_profile_families_name_the_flash_forward_kernels():
         "K2 small_t_kernel"
     # the backward's kernels, both routes, and the bf16 route's pre-pass
     # K6 and K9 compute K1's function: their own families, not K1's
-    for name, fam in (("flash_fwd_packed_tc_kernel<3>(__nv_bfloat16 const*)",
+    for name, fam in (("flash_fwd_packed_tc_kernel(__nv_bfloat16 const*)",
                        "K6 flash_fwd_packed"),
                       ("flash_fwd_packed_kernel<float>(float const*)", "K6 flash_fwd_packed"),
                       ("flash_fwd_pairs_tc_kernel(__nv_bfloat16 const*)",
@@ -478,7 +478,7 @@ def test_k10_plain_matches_reference(n, lq, lk, h, mode, dtype):
 
 
 def test_variant_wrappers_refuse_other_devices_and_modes():
-    from dynamicrafter_tpu_torch.experiments.flash_pairs import bench_flash_pairs, tune_flash_tc
+    from dynamicrafter_tpu_torch.experiments.flash_pairs import bench_flash_pairs
     from dynamicrafter_tpu_torch.experiments.flash_pairs import bench_flash_variants as bv
     from dynamicrafter_tpu_torch.experiments.flash_pairs.flash_pairs import (
         flash_attention_pairs)
@@ -494,7 +494,7 @@ def test_variant_wrappers_refuse_other_devices_and_modes():
     with pytest.raises(ValueError, match="unknown mode"):
         bv.run_variant_plain(q, q, q, 1, 0.125, "tanh")
     # the benches time CUDA kernels: no CPU run, and no silent one without a card
-    for main in (bv.main, bench_flash_pairs.main, tune_flash_tc.main):
+    for main in (bv.main, bench_flash_pairs.main):
         with pytest.raises(ValueError, match="times CUDA kernels"):
             main(["--device", "cpu"])
         if not torch.cuda.is_available():
@@ -502,21 +502,20 @@ def test_variant_wrappers_refuse_other_devices_and_modes():
                 main([])
 
 
-def test_tune_variants_rewrite_one_constant_each(tmp_path, monkeypatch):
-    """Each variant of the tile-constant probe rewrites constants that exist,
-    once each, in a copy of the sources under the build directory: the
-    shipped sources stay as they are."""
-    from dynamicrafter_tpu_torch.experiments.flash_pairs import tune_flash_tc
+PTXAS_ENTRY = """ptxas info    : Compiling entry function '{name}' for 'sm_90a'
+ptxas info    : Function properties for {name}
+    {spill} bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads
+ptxas info    : Used {regs} registers, used 1 barriers, 384 bytes cmem[0]
+"""
 
-    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "kernels")
-    before = {p.name: p.read_text() for p in kernels.CSRC.iterdir()}
-    for name, overrides in tune_flash_tc.VARIANTS.items():
-        src, lib = tune_flash_tc.variant_sources(name, overrides)
-        assert src.parent == lib.parent and tmp_path in src.parents
-        assert {p.name for p in src.glob("*.cu")} == set(tune_flash_tc.SOURCES)
-        text = "".join((src / s).read_text() for s in tune_flash_tc.SOURCES)
-        for const, value in overrides.items():
-            assert f"constexpr int {const} = {value};" in text
-    with pytest.raises(ValueError, match="kNoSuchConstant: 0 definitions"):
-        tune_flash_tc.variant_sources("bad", {"kNoSuchConstant": 1})
-    assert {p.name: p.read_text() for p in kernels.CSRC.iterdir()} == before
+
+@pytest.mark.parametrize("regs,spill", [(255, 0), (168, 48)])
+def test_ptxas_report_reads_registers_and_spills(regs, spill):
+    """`kernels.ptxas_report`, which holds the tensor-core kernels to 0
+    spill on the card, reads each entry function's registers and spill-store
+    bytes from nvcc's `-Xptxas -v` output."""
+    log = (PTXAS_ENTRY.format(name="flash_fwd_pairs_tc_kernel", regs=regs, spill=spill)
+           + PTXAS_ENTRY.format(name="small_t_kernel", regs=40, spill=0))
+    assert kernels.ptxas_report(log) == {
+        "flash_fwd_pairs_tc_kernel": {"regs": regs, "spill": spill},
+        "small_t_kernel": {"regs": 40, "spill": 0}}
