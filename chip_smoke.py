@@ -8,7 +8,7 @@ Run from the repository root. Phases, each printing one line:
   1. the device (torch and nvidia-smi name and power limit); build the CUDA
      kernels from `dynamicrafter_tpu_torch/csrc/` with nvcc; each kernel's
      registers and spill bytes as `ptxas -v` reports them (the bf16 K1/K3,
-     K4a, K4b, K6 and K9 kernels must not spill);
+     K2, K4a, K4b, K6, K9 and K10 kernels must not spill);
   2. K1 (spatial flash attention) against its plain version at the 320x512
      shape (32, 2560, 5*64) bf16, ragged L = 300 and Lq 130 / Lk 77 cases,
      and fp32 checks; bf16 runs on the tensor cores, fp32 on FMAs. Phases 2,
@@ -16,7 +16,10 @@ Run from the repository root. Phases, each printing one line:
      library call;
   3. K2 (temporal attention) against its plain version at the shapes the
      320x512 (B = 2), 256x256 --bs 8 (B = 16) and 576x1024 (B = 1, G up to
-     9216) paths give it (bf16) and one fp32 shape;
+     9216) paths give it (bf16, on the tensor cores) and one fp32 shape; then,
+     from a generator of the phase's own, the bf16 route at T = 1, 5, 16, 17
+     and 32 and at head dim 32 (the SIMT route), at scales 0.125 and -0.125,
+     with NaN sentinels past the output and three runs bit-identical;
   4. one full-width UNet forward of configs/inference_512_v1.0.yaml on a
      batched-CFG input (2, 16, 40, 64, 8), bf16, N(0, 0.02) weights,
      through the kernels and through the plain versions, compared; counts
@@ -81,16 +84,19 @@ Run from the repository root. Phases, each printing one line:
      5*64) and (32, 2304, 10*64) as one N = 32 launch held against the plain
      version two rows of N at a time, and at ragged shapes; the four
      attention variants and K1 against each other; K9's odd-H guard region;
-     the bf16 K6 and K9 (tensor cores) at the card tests' shapes at scales
-     0.3 and -0.125, with NaN sentinels past the output and three runs
-     bit-identical (inputs from a generator of the phase's own);
+     the bf16 K6, K9 and K10 modes (tensor cores) at the card tests' shapes
+     at scales 0.3 and -0.125, with NaN sentinels past the output and three
+     runs bit-identical (inputs from a generator of the phase's own); bf16
+     K10 exp2 equal to K1 bit for bit at every shape (at -0.125: K1 on -q);
  19. the bench entry points as K9's and K10's path
      (`experiments/flash_pairs/bench_flash_variants.main`,
      `bench_flash_pairs.main`, the three hot shapes at N = 32) and
      `flash_attention(packed=True)` at the same shapes as K6's, with their
      times beside K1's, the plain version's (at L = 2560) and the library
-     call's; K6, K9 and K1 timed in turn in one loop, with their TFLOP/s,
-     share of the bound and factor over the library call;
+     call's; K6, K9, K1 and K10's three modes timed in turn in one loop,
+     with their TFLOP/s, share of the bound and factor over the library
+     call, and the softmax's share of the tensor-core loop, 1 - nosoftmax /
+     exp2;
  20. K7 (`fused_gn_silu_conv`) and K8 (`fused_gn_silu_conv_tiled`) against
      their plain versions in fp32 and bf16, with and without emb, at small
      and ragged shapes and at Co != C; K7 against K8 on the same fp32 input;
@@ -316,10 +322,12 @@ def main() -> int:
         f"{kernels.build_seconds:.2f}s) | ptxas (registers, spill stores): "
         + "; ".join(f"{name} {r['regs']} regs {r['spill']} B" for name, r in ptxas.items()))
     for what, key, count in (("K1/K3", "flash_fwd_tc_kernel", 2),
+                             ("K2", "small_t_tc_kernel", 2),
                              ("K4a", "flash_bwd_dq_tc_kernel", 1),
                              ("K4b", "flash_bwd_dkv_tc_kernel", 1),
                              ("K6", "flash_fwd_packed_tc_kernel", 1),
-                             ("K9", "flash_fwd_pairs_tc_kernel", 1)):
+                             ("K9", "flash_fwd_pairs_tc_kernel", 1),
+                             ("K10", "flash_variants_tc_kernel", 3)):
         tc = {name: r for name, r in ptxas.items() if key in name}
         check(len(tc) == count and all(r["spill"] == 0 for r in tc.values()),
               f"the bf16 {what} kernel spills or is missing: {tc}")
@@ -404,10 +412,42 @@ def main() -> int:
         if (b, g, h, dtype) == (2, 2560, 5, bf16):
             # the library call on the (B, G, h, T, 64) view of the same data
             lib_ms = sdpa_ms(*(x.transpose(1, 2) for x in (q, k, v)), h, iters=50)
+            b2 = attention_bound(b * g, 16, 16, h, 64, dtype)
             report["small_t_fwd_tmajor"] = dict(
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                **attention_bound(b * g, 16, 16, h, 64, dtype), library_ms=lib_ms)
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, **b2, library_ms=lib_ms,
+                bound_share=b2["bound_ms"] / ms)
+            log(f"[3] K2 at (2, 16, 2560, 5*64) bf16: {b2['bound_ms'] / ms:.1%} of the "
+                f"{b2['bound_ms']:.4f} ms bound ({b2['bound_by']}), library {lib_ms:.4f} ms")
         del q, k, v, out, ref
+    # the bf16 route at T = 1, 5, 16, 17 and 32 (one m16 tile of rows, then
+    # two) and at head dim 32 (the SIMT route), at any scale, with NaN
+    # sentinels past the output and three runs bit-identical. The inputs come
+    # from a generator of this phase's own, so later phases draw what they
+    # drew before these checks existed.
+    local_gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for b, t, g, h, d in [(2, 1, 37, 3, 64), (2, 5, 37, 3, 64), (1, 16, 160, 5, 64),
+                          (1, 17, 160, 5, 64), (2, 32, 37, 3, 64), (2, 16, 37, 3, 32)]:
+        q, k, v = (torch.randn(b, t, g, h * d, device=dev, generator=local_gen).to(bf16)
+                   for _ in range(3))
+        rels = {sc: errors(small_t_fwd_tmajor(q, k, v, h, sc),
+                           small_t_fwd_tmajor_plain(q.float(), k.float(), v.float(), h, sc))[1]
+                for sc in (0.125, -0.125)}
+        check(max(rels.values()) <= 1e-2,
+              f"K2 bf16 rel L2 {rels} > 1e-2 at {(b, t, g, h, d)}")
+        buf = torch.full((q.numel() + 4096,), float("nan"), device=dev, dtype=bf16)
+        kernels.check(kernels.library().dct_small_t_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), kernels.DTYPE_CODES[bf16],
+            b, t, g, h, d, 0.125, kernels.stream_handle(dev)), "dct_small_t_fwd")
+        first, second = (small_t_fwd_tmajor(q, k, v, h, 0.125) for _ in range(2))
+        torch.cuda.synchronize()
+        intact = bool(buf[q.numel():].isnan().all())
+        same = torch.equal(buf[:q.numel()].view_as(q), first) and torch.equal(first, second)
+        log(f"[3] K2 ({b}, {t}, {g}, {h}*{d}) bf16 {'tensor cores' if d == 64 else 'SIMT'}: "
+            f"rel_l2 {rels[0.125]:.3e} at scale 0.125, {rels[-0.125]:.3e} at -0.125 (tol 1e-2), "
+            f"NaN sentinels intact {intact}, three runs bit-identical {same}")
+        check(intact, f"K2 wrote past its output at {(b, t, g, h, d)}")
+        check(same, f"K2 bf16 runs differ at {(b, t, g, h, d)}")
+        del q, k, v, buf, first, second
 
     phase_s["3"] = time.perf_counter() - t0
 
@@ -1115,6 +1155,10 @@ def main() -> int:
             log(f"[18] ({n}, Lq {lq}, Lk {lk}, {h}*64) {str(dtype)[6:]} rel_l2 vs plain: "
                 + ", ".join(f"{name} {r:.3e}" for name, r in rels.items())
                 + f" (tol {variant_tol[dtype]:g})")
+            if dtype == bf16:
+                check(torch.equal(run_variant(q, k, v, h, 0.125, "exp2"),
+                                  flash_fwd(q, k, v, h, 0.125)),
+                      f"bf16 K10 exp2 differs from K1 at {(n, lq, lk, h)}")
             if (n, lq, dtype) == (32, 2560, bf16):
                 outs = {"K1 flash_fwd": flash_fwd(q, k, v, h, 0.125),
                         **{name: fn(q, k, v, h, 0.125) for name, fn in variants.items()}}
@@ -1150,6 +1194,9 @@ def main() -> int:
                 f"N=2 slices, worst slice rel_l2: "
                 + ", ".join(f"{name} {r:.3e}" for name, r in rels.items())
                 + f" (tol {variant_tol[dtype]:g})")
+            if dtype == bf16:
+                check(torch.equal(outs["K10 run_variant exp2"], flash_fwd(q, k, v, h, 0.125)),
+                      f"bf16 K10 exp2 differs from K1 at (32, {l}, {h})")
             del q, k, v, outs, out_ns
     # K9 at odd H: a guard region right behind the output keeps its fill
     for h in (1, 5):
@@ -1166,27 +1213,48 @@ def main() -> int:
             f"{intact}, rel_l2 {rel:.3e}")
         check(intact and rel <= 5e-3, f"K9 wrote past H*64 columns at H = {h}")
         del q, k, v, buf, out
-    # bf16 K6 and K9 (tensor cores) at the card tests' shapes: any scale, no
-    # write past the output, three runs bit-identical. The inputs come from a
-    # generator of this phase's own, so later phases draw what they drew
-    # before these checks existed.
+    # bf16 K6, K9 and the K10 modes (tensor cores) at the card tests' shapes:
+    # any scale, no write past the output, three runs bit-identical, K10 exp2
+    # equal to K1 (at -0.125: K1 on -q, as K10 moves the sign into Q). The
+    # inputs come from a generator of this phase's own, so later phases draw
+    # what they drew before these checks existed.
     local_gen = torch.Generator(device=dev).manual_seed(SEED + 18)
     tc_entries = {"K6": (flash_fwd_packed, "dct_flash_fwd_packed"),
-                  "K9": (flash_attention_pairs, "dct_flash_fwd_pairs")}
+                  "K9": (flash_attention_pairs, "dct_flash_fwd_pairs"),
+                  **{f"K10 {m}": ((lambda *a, m=m: run_variant(*a, m)), m)
+                     for m in ("exp", "exp2", "nosoftmax")}}
+
+    def entry_call(entry, q, k, v, out, n, lq, lk, h):
+        """The library entry of a tc_entries row, writing into `out`."""
+        lib = kernels.library()
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                kernels.DTYPE_CODES[bf16])
+        if entry in bench_flash_variants.MODES:
+            code = lib.dct_flash_variant(*args, bench_flash_variants.MODES[entry], n, lq, lk, h,
+                                         0.125, kernels.stream_handle(dev))
+        else:
+            code = getattr(lib, entry)(*args, n, lq, lk, h, 0.125, kernels.stream_handle(dev))
+        kernels.check(code, entry)
+
     for n, lq, lk, h in [(2, 300, 300, 5), (2, 2560, 2560, 5), (2, 130, 77, 1), (1, 200, 333, 20),
                          (2, 64, 32, 2), (1, 97, 150, 7), (1, 2304, 2304, 10)]:
         q, k, v = (torch.randn(n, ln, h * 64, device=dev, generator=local_gen).to(bf16)
                    for ln in (lq, lk, lk))
         refs = {sc: flash_fwd_plain(q.float(), k.float(), v.float(), h, sc) for sc in (0.3, -0.125)}
+        refs_ns = {sc: run_variant_plain(q.float(), k.float(), v.float(), h, sc, "nosoftmax")
+                   for sc in (0.3, -0.125)}
         parts = []
         for name, (fn, entry) in tc_entries.items():
-            rels = {sc: errors(fn(q, k, v, h, sc), ref)[1] for sc, ref in refs.items()}
+            rels = {sc: errors(fn(q, k, v, h, sc), ref)[1]
+                    for sc, ref in (refs_ns if entry == "nosoftmax" else refs).items()}
             check(max(rels.values()) <= 5e-3,
                   f"{name} bf16 rel L2 {rels} > 5e-3 at scales 0.3, -0.125, {(n, lq, lk, h)}")
+            if entry == "exp2":
+                check(torch.equal(fn(q, k, v, h, 0.3), flash_fwd(q, k, v, h, 0.3))
+                      and torch.equal(fn(q, k, v, h, -0.125), flash_fwd(-q, k, v, h, 0.125)),
+                      f"bf16 K10 exp2 differs from K1 at scale 0.3 or -0.125, {(n, lq, lk, h)}")
             buf = torch.full((q.numel() + 4096,), float("nan"), device=dev, dtype=bf16)
-            kernels.check(getattr(kernels.library(), entry)(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(),
-                kernels.DTYPE_CODES[bf16], n, lq, lk, h, 0.125, kernels.stream_handle(dev)), entry)
+            entry_call(entry, q, k, v, buf, n, lq, lk, h)
             first, second = fn(q, k, v, h, 0.125), fn(q, k, v, h, 0.125)
             torch.cuda.synchronize()
             intact = bool(buf[q.numel():].isnan().all())
@@ -1196,8 +1264,8 @@ def main() -> int:
             parts.append(f"{name} rel_l2 {rels[0.3]:.3e} at scale 0.3, {rels[-0.125]:.3e} at "
                          f"-0.125, NaN sentinels intact, three runs bit-identical")
         log(f"[18] ({n}, Lq {lq}, Lk {lk}, {h}*64) bf16 tensor cores: " + "; ".join(parts)
-            + " (tol 5e-3)")
-        del q, k, v, refs, buf, first, second
+            + " (tol 5e-3); K10 exp2 equal to K1 bit for bit at 0.3 and -0.125")
+        del q, k, v, refs, refs_ns, buf, first, second
     torch.cuda.empty_cache()
     phase_s["18"] = time.perf_counter() - t0
 
@@ -1212,11 +1280,14 @@ def main() -> int:
     for label, n, l, h in bench_flash_variants.CASES:
         q, k, v = bench_flash_variants.case_inputs(n, l, h, dev)
         q4, k4, v4 = (a.view(n, l, h, 64) for a in (q, k, v))
-        # K6 (through its entry point), K9 and K1 timed in turn in one loop,
-        # so that clock drift between separate loops cannot tell them apart
+        # K6 (through its entry point), K9, K1 and K10's three modes timed in
+        # turn in one loop, so that clock drift between separate loops cannot
+        # tell them apart
         turns = {"K6": lambda: flash_attention(q4, k4, v4, packed=True),
                  "K9": lambda: flash_attention_pairs(q, k, v, h, 0.125),
-                 "K1": lambda: flash_fwd(q, k, v, h, 0.125)}
+                 "K1": lambda: flash_fwd(q, k, v, h, 0.125),
+                 **{f"K10 {m}": (lambda m=m: run_variant(q, k, v, h, 0.125, m))
+                    for m in ("exp", "exp2", "nosoftmax")}}
         alt = {name: [] for name in turns}
         for _ in range(5):
             for name, fn in turns.items():
@@ -1229,27 +1300,30 @@ def main() -> int:
         by_shape["flash_fwd_packed"][shape] = dict(ms=alt_ms["K6"], **common)
         by_shape["flash_attention_pairs"][shape] = dict(ms=alt_ms["K9"], **common)
         by_shape["run_variant"][shape] = dict(
-            ms=bench_ms[(l, h, "K10 exp")],
-            ms_by_mode={m: bench_ms[(l, h, f"K10 {m}")] for m in ("exp", "exp2", "nosoftmax")},
-            **common)
+            ms=alt_ms["K10 exp"],
+            ms_by_mode={m: alt_ms[f"K10 {m}"] for m in ("exp", "exp2", "nosoftmax")},
+            bench_ms_by_mode={m: bench_ms[(l, h, f"K10 {m}")]
+                              for m in ("exp", "exp2", "nosoftmax")},
+            softmax_share=1 - alt_ms["K10 nosoftmax"] / alt_ms["K10 exp2"], **common)
         if l == 2560:
             plain_ms = cuda_ms(lambda: flash_fwd_plain(q, k, v, h, 0.125))
             plain_ns_ms = cuda_ms(lambda: run_variant_plain(q, k, v, h, 0.125, "nosoftmax"))
-        modes = by_shape["run_variant"][shape]["ms_by_mode"]
-        log(f"[19] {label.strip()} bf16: K1 {common['k1_ms']:.3f} ms | "
+        modes = by_shape["run_variant"][shape]["bench_ms_by_mode"]
+        log(f"[19] {label.strip()} bf16 bench entry points: K1 {common['k1_ms']:.3f} ms | "
             f"K9 pairs {bench_ms[(l, h, 'K9 pairs')]:.3f} | K10 exp {modes['exp']:.3f} exp2 "
-            f"{modes['exp2']:.3f} nosoftmax {modes['nosoftmax']:.3f} (softmax share of exp2 "
-            f"{1 - modes['nosoftmax'] / modes['exp2']:.1%}) | library {lib_ms:.3f} | bound "
-            f"{b['bound_ms']:.3f} ms by {b['bound_by']}")
-        log(f"[19] {label.strip()} bf16 K6, K9, K1 in turn (5 rounds of 10 calls, median; "
+            f"{modes['exp2']:.3f} nosoftmax {modes['nosoftmax']:.3f} | library {lib_ms:.3f} | "
+            f"bound {b['bound_ms']:.3f} ms by {b['bound_by']}")
+        log(f"[19] {label.strip()} bf16 K6, K9, K1, K10 in turn (5 rounds of 10 calls, median; "
             "min-max): " + ", ".join(f"{name} {alt_ms[name]:.3f} ({min(t):.3f}-{max(t):.3f})"
                                      for name, t in alt.items()) + " ms")
-        log(f"[19] {label.strip()} bf16 rates: K6 packed " + rate(alt_ms["K6"], n, l, l, h, lib_ms)
-            + ", K9 pairs " + rate(alt_ms["K9"], n, l, l, h, lib_ms) + ", K1 "
-            + rate(alt_ms["K1"], n, l, l, h, lib_ms)
+        log(f"[19] {label.strip()} bf16 rates: " + ", ".join(
+                f"{name} " + rate(alt_ms[name], n, l, l, h, lib_ms) for name in alt_ms)
             + " | share of the bound: " + ", ".join(
                 f"{name} {b['bound_ms'] / alt_ms[name]:.1%}" for name in alt_ms)
-            + f" | K6 / K1 {alt_ms['K6'] / alt_ms['K1']:.3f}, K9 / K1 {alt_ms['K9'] / alt_ms['K1']:.3f}")
+            + " | / K1: " + ", ".join(f"{name} {alt_ms[name] / alt_ms['K1']:.3f}"
+                                      for name in alt_ms if name != "K1")
+            + " | softmax share of the tensor-core loop, 1 - nosoftmax / exp2: "
+            + f"{by_shape['run_variant'][shape]['softmax_share']:.1%}")
         del q, k, v, q4, k4, v4
     variant_launches = counts(*variant_wrappers)
     first = "(32, 2560, 5*64)"
@@ -1261,13 +1335,15 @@ def main() -> int:
                             bound_ms=at["bound_ms"], bound_by=at["bound_by"],
                             library_ms=at["library_ms"], by_shape=by_shape[name])
     report["run_variant"].update(
-        ms_by_mode=by_shape["run_variant"][first]["ms_by_mode"], plain_ms_nosoftmax=plain_ns_ms,
+        ms_by_mode=by_shape["run_variant"][first]["ms_by_mode"],
+        softmax_share=by_shape["run_variant"][first]["softmax_share"],
+        plain_ms_nosoftmax=plain_ns_ms,
         max_abs_err_by_mode={m: worst[(f"K10 run_variant {m}", bf16)][0]
                              for m in ("exp", "exp2", "nosoftmax")})
     log(f"[19] launches: K6 {variant_launches[0]} (flash_attention(packed=True) at the three "
         f"shapes), K9 {variant_launches[1]} (bench_flash_pairs.main and the turns), K10 "
-        f"{variant_launches[2]} (bench_flash_variants.main, three modes) | plain at {first}: "
-        f"attention {plain_ms:.3f} ms, nosoftmax {plain_ns_ms:.3f} ms")
+        f"{variant_launches[2]} (bench_flash_variants.main and the turns, three modes) | plain "
+        f"at {first}: attention {plain_ms:.3f} ms, nosoftmax {plain_ns_ms:.3f} ms")
     torch.cuda.empty_cache()
     phase_s["19"] = time.perf_counter() - t0
 

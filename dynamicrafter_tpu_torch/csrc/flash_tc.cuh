@@ -45,7 +45,19 @@
 // (sign bits flipped) for a negative scale and the loop runs K1's
 // arithmetic with |scale|: the running max of the raw logits, scaled after,
 // is then exact. A zero scale is q = 0 with scale 1 (every logit 0). This
-// costs nothing per logit; K1's kernel refuses scale <= 0 instead.
+// costs nothing per logit; K1's kernel refuses scale <= 0 instead. In every
+// softmax mode below S * |scale| with Q's sign flipped is the same number
+// as S * scale, so the rule holds in all three.
+//
+// Softmax modes (dct::SoftmaxMode, flash_tile.cuh; a template parameter of
+// flash_fwd_tc_block, only the softmax step differs). kSoftmaxExp2, the
+// default and K1's step: the multiplier is scale * log2(e), the running max
+// and p are in the log2 domain, exponentials by exp2f; K6 and K9 take it, so
+// their code is K1's. kSoftmaxExp (K10 exp): the multiplier is the scale,
+// max and p in the natural-log domain, exponentials by __expf, as the
+// Pallas body scales the logits before their max. kNoSoftmax (K10
+// nosoftmax, not attention): p = clamp(S * scale, -1, 1) with no max, no
+// rescale and l = 1 (the epilogue's 1/l is 1); keys at or past Lk get p = 0.
 //
 // Determinism: each block owns its output tile and sums in a fixed order;
 // there are no atomics, so two runs agree bit for bit.
@@ -53,6 +65,7 @@
 
 #include <type_traits>
 
+#include "flash_tile.cuh"
 #include "mma.cuh"
 
 namespace dct {
@@ -88,13 +101,14 @@ using FlashTcPairTile = FlashTcTile<2, 4, 2, 3>;
 
 // One block's work: query rows q0 .. q0 + kBQ - 1 of `nheads` (<= kHeads)
 // adjacent heads. qb, kb, vb and ob point at row 0, column 0 of the block's
-// first head in its sequence; `hd` is the row stride (H*64); scale_log2 is
-// scale * log2(e), of any sign.
-template <class Tile>
+// first head in its sequence; `hd` is the row stride (H*64); `mult` is the
+// logits' multiplier of the mode, of any sign: scale * log2(e) in
+// kSoftmaxExp2, the scale in kSoftmaxExp and kNoSoftmax.
+template <class Tile, int kMode = kSoftmaxExp2>
 __device__ __forceinline__ void flash_fwd_tc_block(
     const __nv_bfloat16* __restrict__ qb, const __nv_bfloat16* __restrict__ kb,
     const __nv_bfloat16* __restrict__ vb, __nv_bfloat16* __restrict__ ob, size_t hd, int q0,
-    int lq, int lk, int nheads, float scale_log2, __nv_bfloat16* smem) {
+    int lq, int lk, int nheads, float mult, __nv_bfloat16* smem) {
   using bf16 = __nv_bfloat16;
   constexpr int kMT = Tile::kMTiles, kStages = Tile::kStages, kStride = Tile::kStride;
   constexpr int kBK = Tile::kBK, kSlot = Tile::kSlotElems;
@@ -144,9 +158,9 @@ __device__ __forceinline__ void flash_fwd_tc_block(
   const int g = lane >> 2, t = lane & 3;   // the mma fragment row and column pair
 
   // the sign of the scale moves into Q (exact); a zero scale is q = 0
-  const uint32_t qflip = scale_log2 < 0.f ? 0x80008000u : 0u;
-  const uint32_t qkeep = scale_log2 == 0.f ? 0u : 0xffffffffu;
-  const float sl2 = scale_log2 == 0.f ? 1.f : fabsf(scale_log2);
+  const uint32_t qflip = mult < 0.f ? 0x80008000u : 0u;
+  const uint32_t qkeep = mult == 0.f ? 0u : 0xffffffffu;
+  const float sl2 = mult == 0.f ? 1.f : fabsf(mult);
 
   uint32_t qf[kMT][4][4];   // Q as A fragments: [m tile][k step of 16 dims]
 #pragma unroll
@@ -214,45 +228,58 @@ __device__ __forceinline__ void flash_fwd_tc_block(
       }
     }
     const int k0 = kv * kBK;
-    if (k0 + kBK > lk) {   // the last tile is ragged: keys >= lk get p = 0
+    // the last tile is ragged: keys >= lk get p = 0 (-inf before the
+    // exponential; 0 in kNoSoftmax, where p = clamp(s) takes no exponential)
+    if (k0 + kBK > lk) {
+      const float masked = kMode == kNoSoftmax ? 0.f : -CUDART_INF_F;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           if (k0 + j * 8 + 2 * t + (e & 1) < lk) continue;
 #pragma unroll
-          for (int mt = 0; mt < kMT; ++mt) s[mt][j][e] = -CUDART_INF_F;
+          for (int mt = 0; mt < kMT; ++mt) s[mt][j][e] = masked;
         }
     }
 
-    // online softmax on the accumulators; every KV tile holds >= 1 valid
-    // key, so the running max is finite after the first tile
+    // the softmax step on the accumulators. Online softmax: every KV tile
+    // holds >= 1 valid key, so the running max is finite after the first
+    // tile
     uint32_t pf[kMT][4][4];   // p as A fragments: [m tile][k step of 16 keys]
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = -CUDART_INF_F;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[mt][j][2 * r], s[mt][j][2 * r + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[mt][r], mx * sl2);
-        const float alpha = exp2f(m[mt][r] - m_new);
-        float sum = 0.f;
+      if constexpr (kMode == kNoSoftmax) {
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int e = 2 * r; e < 2 * r + 2; ++e) {
-            s[mt][j][e] = exp2f(fmaf(s[mt][j][e], sl2, -m_new));
-            sum += s[mt][j][e];
-          }
-        l[mt][r] = l[mt][r] * alpha + sum;
-        m[mt][r] = m_new;
+          for (int e = 0; e < 4; ++e) s[mt][j][e] = fminf(fmaxf(s[mt][j][e] * sl2, -1.f), 1.f);
+      } else {
+        const auto ex = [](float x) { return kMode == kSoftmaxExp ? __expf(x) : exp2f(x); };
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[mt][j][2 * r] *= alpha;
-          acc[mt][j][2 * r + 1] *= alpha;
+        for (int r = 0; r < 2; ++r) {
+          float mx = -CUDART_INF_F;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            mx = fmaxf(mx, fmaxf(s[mt][j][2 * r], s[mt][j][2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[mt][r], mx * sl2);
+          const float alpha = ex(m[mt][r] - m_new);
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 2 * r; e < 2 * r + 2; ++e) {
+              s[mt][j][e] = ex(fmaf(s[mt][j][e], sl2, -m_new));
+              sum += s[mt][j][e];
+            }
+          l[mt][r] = l[mt][r] * alpha + sum;
+          m[mt][r] = m_new;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            acc[mt][j][2 * r] *= alpha;
+            acc[mt][j][2 * r + 1] *= alpha;
+          }
         }
       }
 #pragma unroll
@@ -290,7 +317,7 @@ __device__ __forceinline__ void flash_fwd_tc_block(
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       const int row = q0 + wrow + mt * 16 + g + 8 * r;
       if (row >= lq) continue;
-      const float inv = sum == 0.f ? 1.f : 1.f / sum;
+      const float inv = kMode == kNoSoftmax || sum == 0.f ? 1.f : 1.f / sum;
       bf16* orow = ob + (size_t)row * hd + wcol + 2 * t;
 #pragma unroll
       for (int j = 0; j < 8; ++j)

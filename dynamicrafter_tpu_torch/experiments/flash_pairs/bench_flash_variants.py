@@ -1,7 +1,7 @@
 """K10, and where the flash forward's time goes at the model's hot shapes.
 
-`run_variant` computes K1's function with one block walking all heads
-(`csrc/flash_variants.cu`), in one of three modes:
+`run_variant` computes K1's function (`csrc/flash_variants.cu`) in one of
+three modes, any finite scale:
 
   * `exp`       natural-log logits through `__expf`;
   * `exp2`      log2(e) folded into the scale, `exp2f` (what K1 does);
@@ -9,6 +9,13 @@
                 l = 1. NOT attention: the time of the products on the same
                 data movement, which bounds what any change to the softmax
                 can gain.
+
+bf16 inputs run both products on the tensor cores through the loop K1, K6
+and K9 share (`csrc/flash_tc.cuh`, the mode a switch in its softmax step),
+on K1's tile and grid, one head a block: in mode `exp2` the output is K1's
+bit for bit, so 1 - nosoftmax / exp2 is the softmax's share of the loop K1
+runs. fp32 inputs run the FMA kernel, one block walking all heads as the
+Pallas body does.
 
 It replaces `experiments/flash_pairs/bench_flash_variants.py::_kernel` of the
 JAX repository (entry `run_variant` there, without the Pallas tile sizes).

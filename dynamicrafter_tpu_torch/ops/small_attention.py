@@ -5,7 +5,10 @@ K2, time-major. `small_t_fwd_tmajor` is the kernel wrapper on
 (tokens over T at axis 1, G = h*w positions): on a CUDA tensor it launches
 the hand-written kernel in `csrc/small_attention.cu` (which replaces the
 Pallas kernel `dynamicrafter_tpu/ops/small_attention.py::_kernel_tmajor`)
-or raises; on a CPU tensor it runs `small_t_fwd_tmajor_plain`.
+or raises; on a CPU tensor it runs `small_t_fwd_tmajor_plain`. The C entry
+point picks the kernel: bf16 with head dim 64 (every temporal attention of
+the shipped configs) runs `small_t_tc_kernel`, both products on the tensor
+cores; fp32, and bf16 with another head dim, run `small_t_kernel`.
 `small_t_attention_tmajor` is its entry point on (B, T, G, H, D).
 
 K5, position-major. `small_t_fwd` is the kernel wrapper on (G, T, H*D):
@@ -14,9 +17,13 @@ a tiny frame, many frames). On a CUDA tensor it launches
 `small_t_posmajor_kernel` of the same source (which replaces the Pallas
 kernel `dynamicrafter_tpu/ops/small_attention.py::_kernel`) or raises; on a
 CPU tensor it runs `small_t_fwd_plain`. `small_t_attention` is its entry
-point on (..., T, H, D). K5 and its plain version round the probabilities
-to the input dtype before the product with v, as the Pallas kernel and its
-XLA reference do (K2's kernel keeps them in fp32).
+point on (..., T, H, D).
+
+Which route rounds p: the plain versions, K5 and K2's tensor-core route
+round the probabilities to the input dtype before the product with v, as
+the Pallas kernels and their XLA references do; K2's fp32 route keeps them
+in fp32 (the input dtype: nothing to round), and so does its bf16 route
+for a head dim other than 64.
 
 Each wrapper counts its kernel launches in `.launches`. When no input needs
 a gradient an entry point calls its kernel wrapper directly. Under a

@@ -32,9 +32,10 @@ FAMILIES = (
     ("K4 di pre-pass", ("flash_bwd_di",)),
     ("K6 flash_fwd_packed", ("flash_fwd_packed_tc_kernel", "flash_fwd_packed_kernel")),
     ("K9 flash_attention_pairs", ("flash_fwd_pairs_tc_kernel", "flash_fwd_pairs_kernel")),
+    ("K10 run_variant", ("flash_variants_tc_kernel", "flash_variants_kernel")),
     ("K1 flash_fwd", ("flash_fwd_tc_kernel", "flash_fwd_fma_kernel")),
     ("K5 small_t_posmajor_kernel", ("small_t_posmajor_kernel",)),
-    ("K2 small_t_kernel", ("small_t_kernel",)),
+    ("K2 small_t_kernel", ("small_t_tc_kernel", "small_t_kernel")),
     ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions", ("conv", "fprop", "xmma", "cudnn", "implicit_gemm")),
     ("GroupNorm + LayerNorm", ("RowwiseMoments", "GroupNorm", "group_norm", "layer_norm",

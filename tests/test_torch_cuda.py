@@ -8,8 +8,9 @@ The file imports no JAX, so it runs on the GPU machine as it is:
 Tolerances: forward outputs relative L2 <= 1e-5 in fp32 (the kernels
 accumulate in fp32, in another order than cuBLAS) and <= 1e-2 in bf16 (the
 inputs' own rounding, the output's, and that of p before the PV product in
-the tensor-core K1/K3, K6 and K9 and in K10, which read about 2.3e-3; <= 5e-3
-for K6, K9 and K10, at scales 0.125, 0.3 and -0.125 for K6 and K9); lse max abs <= 1e-3; the backward's dq, dk, dv
+the tensor-core K1/K3, K2, K6, K9 and K10, which read about 2.3e-3; <= 5e-3
+for K6, K9 and K10, at scales 0.125, 0.3 and -0.125 for K6, K9 and K10, and
+K10's mode exp2 equal to K1 bit for bit); lse max abs <= 1e-3; the backward's dq, dk, dv
 <= 1e-4 in fp32 and <= 2e-2 in bf16 (ds is rounded to bf16 before its
 products, as in the Pallas kernels, and in the tensor-core K4b p before the
 dV product; they read about 2.4e-3); its di pre-pass <= 1e-6 (fp32 sums in
@@ -144,6 +145,89 @@ def test_k2_refuses_long_t(cuda):
     q = torch.zeros(1, 33, 4, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="T=33"):
         tsmall.small_t_fwd_tmajor(q, q, q, 1, 0.125)
+
+
+# K2's bf16 route with head dim 64: the tensor-core kernel. T = 1, 5 and 16
+# take one m16 tile of rows, 17 and 32 two; G ragged against the 4-warp
+# blocks (37) and B, H other than 1
+K2_TC_SHAPES = [(b, t, g, h) for t in (1, 5, 16, 17, 32) for b, g, h in ((2, 37, 3), (1, 160, 5))]
+
+
+def _k2_entry(q, k, v, out, h, scale, device):
+    b, t, g, hd = q.shape
+    tkernels.check(tkernels.library().dct_small_t_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), tkernels.DTYPE_CODES[q.dtype],
+        b, t, g, h, hd // h, scale, tkernels.stream_handle(device)), "dct_small_t_fwd")
+
+
+@pytest.mark.parametrize("b,t,g,h", K2_TC_SHAPES)
+def test_k2_tensor_core_kernel_matches_plain(cuda, b, t, g, h):
+    """bf16 K2 on the tensor cores (p rounded to bf16 as in Pallas) against
+    the fp32 plain version at the existing 1e-2."""
+    q, k, v = _qkv((b, t, g, h * 64), torch.bfloat16, cuda)
+    before = tsmall.small_t_fwd_tmajor.launches
+    out = tsmall.small_t_fwd_tmajor(q, k, v, h, 0.125)
+    ref = tsmall.small_t_fwd_tmajor_plain(q.float(), k.float(), v.float(), h, 0.125)
+    torch.cuda.synchronize()
+    assert tsmall.small_t_fwd_tmajor.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert _rel(out, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("t", [5, 16, 32])
+@pytest.mark.parametrize("scale", [0.3, -0.125, 0.0])
+def test_k2_tensor_core_kernel_takes_any_scale(cuda, scale, t):
+    """The logits are scaled before their max: any scale, negative and zero
+    (uniform attention) included."""
+    q, k, v = _qkv((2, t, 37, 3 * 64), torch.bfloat16, cuda)
+    out = tsmall.small_t_fwd_tmajor(q, k, v, 3, scale)
+    ref = tsmall.small_t_fwd_tmajor_plain(q.float(), k.float(), v.float(), 3, scale)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 1e-2, _rel(out, ref)
+
+
+@pytest.mark.parametrize("b,t,g,h", [(2, 5, 37, 3), (1, 17, 160, 5), (2, 16, 40, 20)])
+def test_k2_tensor_core_kernel_writes_nothing_past_the_output(cuda, b, t, g, h):
+    """The library entry writes o into the head of a larger buffer whose NaN
+    tail stays NaN; the head is the wrapper's output bit for bit."""
+    q, k, v = _qkv((b, t, g, h * 64), torch.bfloat16, cuda)
+    buf = torch.full((q.numel() + 4096,), float("nan"), device=cuda, dtype=torch.bfloat16)
+    _k2_entry(q, k, v, buf, h, 0.125, cuda)
+    torch.cuda.synchronize()
+    assert bool(buf[q.numel():].isnan().all())
+    assert torch.equal(buf[:q.numel()].view_as(q), tsmall.small_t_fwd_tmajor(q, k, v, h, 0.125))
+
+
+@pytest.mark.parametrize("b,t,g,h", [(2, 16, 2560, 5), (1, 17, 160, 5)])
+def test_k2_tensor_core_kernel_is_deterministic(cuda, b, t, g, h):
+    """Each warp owns its groups and sums in a fixed order: three runs agree
+    bit for bit."""
+    q, k, v = _qkv((b, t, g, h * 64), torch.bfloat16, cuda)
+    first = tsmall.small_t_fwd_tmajor(q, k, v, h, 0.125)
+    for _ in range(2):
+        assert torch.equal(first, tsmall.small_t_fwd_tmajor(q, k, v, h, 0.125))
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 64, "small_t_tc_kernel<1>"),
+    (torch.float32, 64, "small_t_kernel<float>"),
+    (torch.bfloat16, 32, "small_t_kernel<__nv_bfloat16>")])
+def test_k2_routes_by_dtype_and_head_dim(cuda, dtype, d, kernel):
+    """bf16 with head dim 64 runs the tensor-core kernel; fp32, and bf16 with
+    another head dim, the first version: the one kernel symbol the profiler
+    records for one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _qkv((2, 16, 37, 2 * d), dtype, cuda)
+    tsmall.small_t_fwd_tmajor(q, k, v, 2, d ** -0.5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = tsmall.small_t_fwd_tmajor(q, k, v, 2, d ** -0.5)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "small_t" in e.name]
+    assert len(names) == 1 and kernel in names[0], names
+    ref = tsmall.small_t_fwd_tmajor_plain(q.float(), k.float(), v.float(), 2, d ** -0.5)
+    assert _rel(out, ref) <= (1e-5 if dtype == torch.float32 else 1e-2)
 
 
 SHAPES = [(2, 300, 300, 2), (4, 2560, 2560, 5), (2, 130, 77, 1)]
@@ -544,6 +628,81 @@ def test_k6_k9_bf16_is_deterministic(cuda, which, n, lq, lk, h):
     q = _qkv((n, lq, h * 64), torch.bfloat16, cuda)[0]
     _, k, v = _qkv((n, lk, h * 64), torch.bfloat16, cuda, seed=1)
     assert torch.equal(fn(q, k, v, h, 0.125), fn(q, k, v, h, 0.125))
+
+
+K10_MODES = ("exp", "exp2", "nosoftmax")
+
+
+def _k10_plain(q, k, v, h, scale, mode):
+    return tvariants.run_variant_plain(q.float(), k.float(), v.float(), h, scale, mode)
+
+
+@pytest.mark.parametrize("n,lq,lk,h", VARIANT_SHAPES)
+@pytest.mark.parametrize("scale", [0.3, -0.125])
+@pytest.mark.parametrize("mode", K10_MODES)
+def test_k10_tensor_core_modes_take_any_scale(cuda, mode, scale, n, lq, lk, h):
+    """bf16 K10 on the tensor cores in each mode against its plain version
+    at 0.3 and -0.125 (the scale's sign moves into Q), at 5e-3."""
+    q = _qkv((n, lq, h * 64), torch.bfloat16, cuda)[0]
+    _, k, v = _qkv((n, lk, h * 64), torch.bfloat16, cuda, seed=1)
+    before = tvariants.run_variant.launches
+    out = tvariants.run_variant(q, k, v, h, scale, mode)
+    ref = _k10_plain(q, k, v, h, scale, mode)
+    torch.cuda.synchronize()
+    assert tvariants.run_variant.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert _rel(out, ref) <= 5e-3, _rel(out, ref)
+
+
+@pytest.mark.parametrize("n,lq,lk,h", VARIANT_SHAPES)
+@pytest.mark.parametrize("scale", [0.125, 0.3, -0.125])
+def test_k10_exp2_is_k1_bit_for_bit(cuda, scale, n, lq, lk, h):
+    """Mode exp2 runs K1's arithmetic on K1's tile: its output equals K1's
+    bit for bit. K1 takes only a positive scale; at a negative one K10 moves
+    the sign into Q, which is K1 on -q (negating bf16 is exact)."""
+    q = _qkv((n, lq, h * 64), torch.bfloat16, cuda)[0]
+    _, k, v = _qkv((n, lk, h * 64), torch.bfloat16, cuda, seed=1)
+    out = tvariants.run_variant(q, k, v, h, scale, "exp2")
+    ref = tflash.flash_fwd(q if scale > 0 else -q, k, v, h, abs(scale))
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("n,lq,lk,h", [(2, 300, 300, 5), (2, 130, 77, 1), (1, 97, 150, 7)])
+@pytest.mark.parametrize("mode", K10_MODES)
+def test_k10_tensor_core_modes_write_nothing_past_the_output(cuda, mode, n, lq, lk, h):
+    """The library entry writes o into the head of a larger buffer whose NaN
+    tail stays NaN; the head is the wrapper's output bit for bit, and three
+    runs agree bit for bit."""
+    q = _qkv((n, lq, h * 64), torch.bfloat16, cuda)[0]
+    _, k, v = _qkv((n, lk, h * 64), torch.bfloat16, cuda, seed=1)
+    buf = torch.full((q.numel() + 4096,), float("nan"), device=cuda, dtype=torch.bfloat16)
+    tkernels.check(tkernels.library().dct_flash_variant(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(),
+        tkernels.DTYPE_CODES[torch.bfloat16], tvariants.MODES[mode], n, lq, lk, h, 0.125,
+        tkernels.stream_handle(cuda)), "dct_flash_variant")
+    first, second = (tvariants.run_variant(q, k, v, h, 0.125, mode) for _ in range(2))
+    torch.cuda.synchronize()
+    assert bool(buf[q.numel():].isnan().all())
+    assert torch.equal(buf[:q.numel()].view_as(q), first) and torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "flash_variants_tc_kernel"),
+                                          (torch.float32, "flash_variants_kernel<float")])
+@pytest.mark.parametrize("mode", K10_MODES)
+def test_k10_routes_by_dtype(cuda, mode, dtype, kernel):
+    """bf16 runs the tensor-core kernel, fp32 the FMA kernel: the one kernel
+    symbol the profiler records for one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q = _qkv((1, 130, 5 * 64), dtype, cuda)[0]
+    _, k, v = _qkv((1, 77, 5 * 64), dtype, cuda, seed=1)
+    tvariants.run_variant(q, k, v, 5, 0.125, mode)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tvariants.run_variant(q, k, v, 5, 0.125, mode)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "flash_variants" in e.name]
+    assert len(names) == 1 and kernel in names[0], names
 
 
 @pytest.mark.parametrize("dtype,kernel", [

@@ -9,7 +9,9 @@ the gradients of the differentiable entries against `jax.grad`; K6
 their Pallas kernels in interpret mode in fp32 and bf16 (bf16 at atol =
 rtol = 2e-2, the inputs' rounding) and in fp32 at scales 0.3 and -0.125,
 K10's plain version against
-`xla_attention` and, for `nosoftmax`, its formula in numpy; the wrappers take the plain path for CPU tensors without building or
+`xla_attention` and, for `nosoftmax`, its formula in numpy, and all three
+modes at a negative scale against their formula; K2's plain version
+against the Pallas kernel in bf16 (p rounded on both sides); the wrappers take the plain path for CPU tensors without building or
 launching anything; the routing rule; a missing nvcc is a clear error;
 the registers and spill bytes read from a `ptxas -v` report.
 
@@ -26,6 +28,9 @@ import jax.numpy as jnp  # noqa: E402
 from dynamicrafter_tpu.ops.attention import dot_product_attention, xla_attention  # noqa: E402
 from dynamicrafter_tpu.ops.flash_attention import _flash_bwd, _flash_fwd  # noqa: E402
 from dynamicrafter_tpu.ops.flash_attention import flash_attention as j_flash  # noqa: E402
+from dynamicrafter_tpu.ops.small_attention import (  # noqa: E402
+    _small_t_fwd_tmajor as j_small_t_fwd,
+)
 from dynamicrafter_tpu.ops.small_attention import (  # noqa: E402
     small_t_attention_tmajor as j_small_t,
 )
@@ -74,6 +79,26 @@ def test_k2_plain_matches_jax_small_t_kernel():
     out = tsmall.small_t_attention_tmajor(*(torch.from_numpy(a) for a in (q, k, v))).numpy()
     assert tsmall.small_t_fwd_tmajor.launches == before
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("t", [8, 16, 32])
+def test_k2_plain_matches_jax_small_t_kernel_in_bf16(t):
+    """bf16: the Pallas `_small_t_fwd_tmajor` in interpret mode and the
+    port's plain version both round the normalised p to bf16 before the
+    product with v and accumulate it in fp32, the function K2's tensor-core
+    kernel computes. G = 7 (padded to the Pallas block inside the JAX
+    wrapper), two heads of 64. Tolerance atol = rtol = 2e-2: both outputs
+    are rounded to bf16 (2^-8 relative), and the fp32 logits, summed in
+    another order, can move a p across a bf16 rounding boundary."""
+    rng = np.random.default_rng(30 + t)
+    q, k, v = (np.array(jnp.asarray(rng.standard_normal((2, t, 7, 2, 64)).astype(np.float32),
+                                    jnp.bfloat16).astype(jnp.float32)) for _ in range(3))
+    ref = np.asarray(j_small_t_fwd(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), 0.125,
+                                   True).astype(jnp.float32)).reshape(2, t, 7, 128)
+    args = [torch.from_numpy(a).to(torch.bfloat16).reshape(2, t, 7, 128) for a in (q, k, v)]
+    out = tsmall.small_t_fwd_tmajor(*args, 2, 0.125)
+    assert out.dtype == torch.bfloat16 and out.shape == (2, t, 7, 128)
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=2e-2, rtol=2e-2)
 
 
 def test_plain_attention_matches_xla_with_mask_and_broadcast():
@@ -238,6 +263,14 @@ def test_profile_families_name_the_flash_forward_kernels():
         assert family(name) == "K1 flash_fwd"
     assert family("void (anonymous namespace)::small_t_kernel<__nv_bfloat16>()") == \
         "K2 small_t_kernel"
+    # K2's tensor-core route: its key `small_t_kernel` does not match it
+    assert family("void (anonymous namespace)::small_t_tc_kernel<1>(__nv_bfloat16 const*)") == \
+        "K2 small_t_kernel"
+    # K10 computes K1's function through K1's loop: its own family, not K1's
+    for name in ("flash_variants_tc_kernel<0>(__nv_bfloat16 const*)",
+                 "flash_variants_tc_kernel<2>(__nv_bfloat16 const*)",
+                 "flash_variants_kernel<float, 1>(float const*)"):
+        assert family("void (anonymous namespace)::" + name) == "K10 run_variant"
     # the backward's kernels, both routes, and the bf16 route's pre-pass
     # K6 and K9 compute K1's function: their own families, not K1's
     for name, fam in (("flash_fwd_packed_tc_kernel(__nv_bfloat16 const*)",
@@ -474,6 +507,39 @@ def test_k10_plain_matches_reference(n, lq, lk, h, mode, dtype):
     assert run_variant.launches == before
     assert out.dtype == tdtype
     assert torch.equal(out, run_variant_plain(*args, h, 0.125, mode))
+    np.testing.assert_allclose(out.float().numpy(), ref, **VARIANT_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["exp", "exp2", "nosoftmax"])
+def test_k10_plain_modes_at_a_negative_scale(mode, dtype):
+    """`run_variant_plain` at scale -0.125 against its formula in numpy:
+    softmax(q k^T * scale) v per head for `exp` and `exp2` (the scale's sign
+    enters before the max, as the Pallas body scales before its max), and
+    clip(q k^T * scale, -1, 1) v for `nosoftmax`; p rounded to the input
+    dtype, fp32 sums. Ragged Lq != Lk, odd H. The tensor-core kernels move
+    a negative scale's sign into Q: this is the function they keep."""
+    from dynamicrafter_tpu_torch.experiments.flash_pairs.bench_flash_variants import (
+        run_variant_plain)
+
+    n, lq, lk, h, scale = 1, 130, 77, 3, -0.125
+    q, k, v = _variant_inputs(n, lq, lk, h, dtype, 24)
+    q, k = q * 0.5, k * 0.5      # exact in bf16; logits on both sides of the clip
+    split = lambda a: a.reshape(*a.shape[:2], h, 64).transpose(0, 2, 1, 3)
+    s = np.einsum("nhqd,nhkd->nhqk", split(q), split(k)) * np.float32(scale)
+    if mode == "nosoftmax":
+        assert (np.abs(s) > 1).any() and (np.abs(s) < 1).any()
+        p = np.clip(s, -1.0, 1.0)
+    else:
+        e = np.exp(s - s.max(-1, keepdims=True))
+        p = e / e.sum(-1, keepdims=True)
+    p = np.asarray(jnp.asarray(p, dtype).astype(jnp.float32))
+    ref = np.einsum("nhqk,nhkd->nhqd", p, split(v)).transpose(0, 2, 1, 3).reshape(q.shape)
+    ref = np.asarray(jnp.asarray(ref, dtype).astype(jnp.float32))
+    tdtype = getattr(torch, dtype)
+    out = run_variant_plain(*(torch.from_numpy(a).to(tdtype) for a in (q, k, v)), h, scale,
+                            mode)
+    assert out.dtype == tdtype and out.shape == q.shape
     np.testing.assert_allclose(out.float().numpy(), ref, **VARIANT_TOL[dtype])
 
 
