@@ -93,10 +93,10 @@ Run from the repository root. Phases, each printing one line:
      `bench_flash_pairs.main`, the three hot shapes at N = 32) and
      `flash_attention(packed=True)` at the same shapes as K6's, with their
      times beside K1's, the plain version's (at L = 2560) and the library
-     call's; K6, K9, K1 and K10's three modes timed in turn in one loop,
-     with their TFLOP/s, share of the bound and factor over the library
-     call, and the softmax's share of the tensor-core loop, 1 - nosoftmax /
-     exp2;
+     call's; K6, K9 and K1 timed in turn in one loop, K1 and K10's three
+     modes in another, with their TFLOP/s, share of the bound and factor
+     over the library call, and the softmax's share of the tensor-core
+     loop, 1 - nosoftmax / exp2;
  20. K7 (`fused_gn_silu_conv`) and K8 (`fused_gn_silu_conv_tiled`) against
      their plain versions in fp32 and bf16, with and without emb, at small
      and ragged shapes and at Co != C; K7 against K8 on the same fp32 input;
@@ -1280,19 +1280,27 @@ def main() -> int:
     for label, n, l, h in bench_flash_variants.CASES:
         q, k, v = bench_flash_variants.case_inputs(n, l, h, dev)
         q4, k4, v4 = (a.view(n, l, h, 64) for a in (q, k, v))
-        # K6 (through its entry point), K9, K1 and K10's three modes timed in
-        # turn in one loop, so that clock drift between separate loops cannot
-        # tell them apart
-        turns = {"K6": lambda: flash_attention(q4, k4, v4, packed=True),
-                 "K9": lambda: flash_attention_pairs(q, k, v, h, 0.125),
-                 "K1": lambda: flash_fwd(q, k, v, h, 0.125),
-                 **{f"K10 {m}": (lambda m=m: run_variant(q, k, v, h, 0.125, m))
-                    for m in ("exp", "exp2", "nosoftmax")}}
-        alt = {name: [] for name in turns}
-        for _ in range(5):
-            for name, fn in turns.items():
-                alt[name].append(cuda_ms(fn, iters=10, warmup=1))
+        # K6 (through its entry point), K9 and K1 timed in turn in one loop,
+        # so that clock drift between separate loops cannot tell them apart;
+        # then K1 and K10's three modes in a loop of their own, so that the
+        # first loop stays as earlier runs timed it (in one loop of six, K1
+        # itself read slower at L = 2560, and K6 and K9 with it)
+        def in_turn(turns):
+            """5 rounds of 10 calls of each, in turn: every name's times."""
+            alt = {name: [] for name in turns}
+            for _ in range(5):
+                for name, fn in turns.items():
+                    alt[name].append(cuda_ms(fn, iters=10, warmup=1))
+            return alt
+
+        alt = in_turn({"K6": lambda: flash_attention(q4, k4, v4, packed=True),
+                       "K9": lambda: flash_attention_pairs(q, k, v, h, 0.125),
+                       "K1": lambda: flash_fwd(q, k, v, h, 0.125)})
+        alt10 = in_turn({"K1": lambda: flash_fwd(q, k, v, h, 0.125),
+                         **{f"K10 {m}": (lambda m=m: run_variant(q, k, v, h, 0.125, m))
+                            for m in ("exp", "exp2", "nosoftmax")}})
         alt_ms = {name: sorted(t)[2] for name, t in alt.items()}
+        alt10_ms = {name: sorted(t)[2] for name, t in alt10.items()}
         lib_ms = sdpa_ms(q, k, v, h, iters=10)
         b = attention_bound(n, l, l, h, 64, bf16)
         shape = f"({n}, {l}, {h}*64)"
@@ -1300,11 +1308,12 @@ def main() -> int:
         by_shape["flash_fwd_packed"][shape] = dict(ms=alt_ms["K6"], **common)
         by_shape["flash_attention_pairs"][shape] = dict(ms=alt_ms["K9"], **common)
         by_shape["run_variant"][shape] = dict(
-            ms=alt_ms["K10 exp"],
-            ms_by_mode={m: alt_ms[f"K10 {m}"] for m in ("exp", "exp2", "nosoftmax")},
+            ms=alt10_ms["K10 exp"],
+            ms_by_mode={m: alt10_ms[f"K10 {m}"] for m in ("exp", "exp2", "nosoftmax")},
+            k1_in_turn_ms=alt10_ms["K1"],
             bench_ms_by_mode={m: bench_ms[(l, h, f"K10 {m}")]
                               for m in ("exp", "exp2", "nosoftmax")},
-            softmax_share=1 - alt_ms["K10 nosoftmax"] / alt_ms["K10 exp2"], **common)
+            softmax_share=1 - alt10_ms["K10 nosoftmax"] / alt10_ms["K10 exp2"], **common)
         if l == 2560:
             plain_ms = cuda_ms(lambda: flash_fwd_plain(q, k, v, h, 0.125))
             plain_ns_ms = cuda_ms(lambda: run_variant_plain(q, k, v, h, 0.125, "nosoftmax"))
@@ -1313,17 +1322,18 @@ def main() -> int:
             f"K9 pairs {bench_ms[(l, h, 'K9 pairs')]:.3f} | K10 exp {modes['exp']:.3f} exp2 "
             f"{modes['exp2']:.3f} nosoftmax {modes['nosoftmax']:.3f} | library {lib_ms:.3f} | "
             f"bound {b['bound_ms']:.3f} ms by {b['bound_by']}")
-        log(f"[19] {label.strip()} bf16 K6, K9, K1, K10 in turn (5 rounds of 10 calls, median; "
-            "min-max): " + ", ".join(f"{name} {alt_ms[name]:.3f} ({min(t):.3f}-{max(t):.3f})"
-                                     for name, t in alt.items()) + " ms")
-        log(f"[19] {label.strip()} bf16 rates: " + ", ".join(
-                f"{name} " + rate(alt_ms[name], n, l, l, h, lib_ms) for name in alt_ms)
-            + " | share of the bound: " + ", ".join(
-                f"{name} {b['bound_ms'] / alt_ms[name]:.1%}" for name in alt_ms)
-            + " | / K1: " + ", ".join(f"{name} {alt_ms[name] / alt_ms['K1']:.3f}"
-                                      for name in alt_ms if name != "K1")
-            + " | softmax share of the tensor-core loop, 1 - nosoftmax / exp2: "
-            + f"{by_shape['run_variant'][shape]['softmax_share']:.1%}")
+        for what, times, ms_of in (("K6, K9, K1", alt, alt_ms), ("K1, K10", alt10, alt10_ms)):
+            log(f"[19] {label.strip()} bf16 {what} in turn (5 rounds of 10 calls, median; "
+                "min-max): " + ", ".join(f"{name} {ms_of[name]:.3f} ({min(t):.3f}-{max(t):.3f})"
+                                         for name, t in times.items()) + " ms")
+            log(f"[19] {label.strip()} bf16 rates: " + ", ".join(
+                    f"{name} " + rate(ms_of[name], n, l, l, h, lib_ms) for name in ms_of)
+                + " | share of the bound: " + ", ".join(
+                    f"{name} {b['bound_ms'] / ms_of[name]:.1%}" for name in ms_of)
+                + " | / K1: " + ", ".join(f"{name} {ms_of[name] / ms_of['K1']:.3f}"
+                                          for name in ms_of if name != "K1"))
+        log(f"[19] {label.strip()} bf16 softmax share of the tensor-core loop, 1 - nosoftmax / "
+            f"exp2: {by_shape['run_variant'][shape]['softmax_share']:.1%}")
         del q, k, v, q4, k4, v4
     variant_launches = counts(*variant_wrappers)
     first = "(32, 2560, 5*64)"

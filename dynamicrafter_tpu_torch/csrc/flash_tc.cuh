@@ -3,7 +3,9 @@
 // `FlashTcTile` (heads a block, warps a head, rows a warp, ring slots);
 // `flash_fwd_tc_pairs` and `launch_flash_tc_pairs` map blocks to head pairs
 // for the bf16 paths of K6 (flash_packed.cu) and K9 (flash_pairs.cu), which
-// share that tile and grid: bring-up timing chose the pair for both.
+// share that tile and grid: bring-up timing chose the pair for both. The
+// bf16 K10 (flash_variants.cu) runs the loop on K1's tile and grid, one head
+// a block, in each of its softmax modes.
 //
 // The function is K1's (flash_attention.cu): softmax(Q K^T * scale) V per
 // head on (N, L, H*64) row-major bf16 operands, fp32 online softmax, KV
