@@ -8,7 +8,8 @@ Run from the repository root. Phases, each printing one line:
   1. the device (torch and nvidia-smi name and power limit); build the CUDA
      kernels from `dynamicrafter_tpu_torch/csrc/` with nvcc; each kernel's
      registers and spill bytes as `ptxas -v` reports them (the bf16 K1/K3,
-     K2, K4a, K4b, K6, K9 and K10 kernels must not spill);
+     K2, K4a, K4b, K6, K9, K10 and K7/K8 kernels and the GroupNorm
+     statistics kernels must not spill);
   2. K1 (spatial flash attention) against its plain version at the 320x512
      shape (32, 2560, 5*64) bf16, ragged L = 300 and Lq 130 / Lk 77 cases,
      and fp32 checks; bf16 runs on the tensor cores, fp32 on FMAs. Phases 2,
@@ -100,12 +101,19 @@ Run from the repository root. Phases, each printing one line:
  20. K7 (`fused_gn_silu_conv`) and K8 (`fused_gn_silu_conv_tiled`) against
      their plain versions in fp32 and bf16, with and without emb, at small
      and ragged shapes and at Co != C; K7 against K8 on the same fp32 input;
+     then, from a generator of the phase's own, the bf16 route (`gn_stats`,
+     then the wgmma + TMA conv) at C = 32 and 96 (a channel chunk past C),
+     Co = 96 and 8, images of 5 x 7, 8 x 14, 10 x 16 and 72 x 128, with and
+     without emb: against plain, NaN sentinels past the output, three runs
+     bit-identical; and `gn_stats` against `gn_stats_plain` in both modes;
  21. K7's and K8's path, `experiments/fused_conv/bench_fused_conv.main`:
-     both kernels, K7's plain version and the library route (group_norm,
-     silu, conv2d on a channels-last tensor) timed at the ResBlock shapes of
-     the 320x512 UNet (N = 32 frames) and level 0 of the 576x1024 UNet
-     (N = 16), bf16 with emb; then each kernel against its plain version at
-     those shapes, and the bound;
+     K7, K8 and the library route (group_norm, silu, conv2d on a
+     channels-last tensor) timed in turn at the ResBlock shapes of the
+     320x512 UNet (N = 32 frames) and level 0 of the 576x1024 UNet (N = 16),
+     bf16 with emb, with `gn_stats` alone in both modes, `torch.var_mean`,
+     `F.conv2d` alone and K7's plain version beside them; then each kernel
+     against its plain version at those shapes, its TFLOP/s, share of the
+     bound and factor over the library route;
  22. one full-width ResBlock of the 320x512 UNet (level 0, 320 -> 320, its
      N(0, 0.02) weights): `in_layers(x)` and `out_layers(h + emb_out)`
      through the module and through K7 and K8 fed the module's parameters;
@@ -128,13 +136,15 @@ Run from the repository root. Phases, each printing one line:
 
 Then a JSON line with, for each kernel, its launches on its main path (K1 and
 K2 phase 5, K3, K4a, K4b and the di pre-pass phase 9, K5 phase 13, K6, K9 and
-K10 phase 19, K7 and K8 phase 21; `launches_by_path` has every path), error
-against the plain version (K6, K9, K10: the worst over phase 18's bf16
-shapes; K7, K8: at the first shape of phase 21), and times: the kernel, the plain
+K10 phase 19, K7, K8 and `gn_stats` phase 21; `launches_by_path` has every
+path), error against the plain version (K6, K9, K10: the worst over phase
+18's bf16 shapes; K7, K8: at the first shape of phase 21; `gn_stats`: phase
+20 at that shape), and times: the kernel, the plain
 version, the bound (the larger of bytes over 3.35 TB/s and operations over
 the peak rate of the input type, from the shapes) and one library call
 (`F.scaled_dot_product_attention` or its backward, `torch.linalg.vecdot`
-for the pre-pass, or for K7 and K8 the group_norm, silu, conv2d route;
+for the pre-pass, for K7 and K8 the group_norm, silu, conv2d route, for
+`gn_stats` `torch.var_mean`;
 timed here and used nowhere in the
 package); the nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 Any failure raises, so the script exits nonzero; without a CUDA device it
@@ -266,7 +276,7 @@ def main() -> int:
     from dynamicrafter_tpu_torch.config import ModelConfig
     from dynamicrafter_tpu_torch.experiments.fused_conv import bench_fused_conv
     from dynamicrafter_tpu_torch.experiments.fused_conv.fused_conv import (
-        fused_gn_silu_conv, fused_gn_silu_conv_plain)
+        fused_gn_silu_conv, fused_gn_silu_conv_plain, gn_stats, gn_stats_plain, pick_tile_tc)
     from dynamicrafter_tpu_torch.experiments.fused_conv.fused_conv_tiled import (
         fused_gn_silu_conv_tiled, fused_gn_silu_conv_tiled_plain)
     from dynamicrafter_tpu_torch.models.blocks import ResBlock, SpatialTransformer
@@ -327,10 +337,13 @@ def main() -> int:
                              ("K4b", "flash_bwd_dkv_tc_kernel", 1),
                              ("K6", "flash_fwd_packed_tc_kernel", 1),
                              ("K9", "flash_fwd_pairs_tc_kernel", 1),
-                             ("K10", "flash_variants_tc_kernel", 3)):
+                             ("K10", "flash_variants_tc_kernel", 3),
+                             ("K7/K8", "fused_conv_tc_kernel", 2),
+                             ("gn_stats", "gn_stats_kernel", 2),
+                             ("gn_stats finish", "gn_stats_finish_kernel", 2)):
         tc = {name: r for name, r in ptxas.items() if key in name}
         check(len(tc) == count and all(r["spill"] == 0 for r in tc.values()),
-              f"the bf16 {what} kernel spills or is missing: {tc}")
+              f"the {what} kernel spills or is missing: {tc}")
     phase_s["1"] = time.perf_counter() - t0
 
     report = {}
@@ -1387,16 +1400,96 @@ def main() -> int:
         for dtype in (fp32, bf16):
             for emb in (False, True):
                 conv_check("20", shape, tile_h, dtype, emb)
+
+    # the bf16 route (gn_stats, then the wgmma conv) at the edges of its
+    # tiling, from a generator of its own so that later phases draw what
+    # they drew before: a 64-channel chunk past C (C = 32, 96), ragged
+    # output-channel tiles (Co = 96, 8), images of 5 x 7, 8 x 14, 10 x 16
+    # and 72 x 128 (tiles that straddle samples in K7); NaN sentinels past
+    # the output (through the C entries), three runs bit-identical
+    g20 = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    def draw20(n, h, w, c, co, emb):
+        d = lambda *shape: torch.randn(shape, device=dev, generator=g20)
+        return [d(n, h, w, c).to(bf16), (d(3, 3, c, co) * (9 * c) ** -0.5).to(bf16),
+                (d(co) * 0.1).to(bf16), d(c) * 0.2 + 1, d(c) * 0.2,
+                d(n, c).to(bf16) if emb else None]
+
+    def conv_into(which, ops, tile_h, buf):
+        """The bf16 route of K7 or K8 as its wrapper runs it, writing into the
+        head of `buf`."""
+        x, k, b, gs, gb, e = ops
+        n, h, w, c = x.shape
+        co, lib = k.shape[-1], kernels.library()
+        e_ptr = None if e is None else e.data_ptr()
+        sc, sh = gn_stats(x, gs, gb, e, two_pass=which == "K8")
+        if which == "K7":
+            th, tw = pick_tile_tc(n, h, w)
+            rc = lib.dct_fused_gn_silu_conv(
+                x.data_ptr(), k.data_ptr(), b.data_ptr(), gs.data_ptr(), gb.data_ptr(), e_ptr,
+                buf.data_ptr(), kernels.DTYPE_CODES[bf16], n, h, w, c, co, 32, 1e-5, th, tw,
+                sc.data_ptr(), sh.data_ptr(), kernels.stream_handle(dev))
+        else:
+            th, tw = pick_tile_tc(n, h, w, tile_h)
+            rc = lib.dct_fused_gn_silu_conv_tiled(
+                x.data_ptr(), sc.data_ptr(), sh.data_ptr(), k.data_ptr(), b.data_ptr(),
+                buf.data_ptr(), kernels.DTYPE_CODES[bf16], n, h, w, c, co, th, tw, e_ptr,
+                kernels.stream_handle(dev))
+        kernels.check(rc, f"{which} into a sentinel buffer")
+
+    for shape, tile_h in [((2, 8, 14, 32, 64), 4), ((2, 8, 14, 96, 96), 2),
+                          ((2, 8, 12, 64, 96), 4), ((3, 5, 7, 32, 8), 5),
+                          ((4, 10, 16, 64, 64), 5), ((2, 72, 128, 64, 64), 8)]:
+        n, h, w, c, co = shape
+        numel = n * h * w * co
+        for emb in (False, True):
+            ops = draw20(*shape, emb)
+            for which, fn, plain, kw in (
+                    ("K7", fused_gn_silu_conv, fused_gn_silu_conv_plain, {}),
+                    ("K8", fused_gn_silu_conv_tiled, fused_gn_silu_conv_tiled_plain,
+                     {"tile_h": tile_h})):
+                outs = [fn(*ops, **kw) for _ in range(3)]
+                buf = torch.full((numel + 4096,), float("nan"), device=dev, dtype=bf16)
+                conv_into(which, ops, tile_h, buf)
+                torch.cuda.synchronize()
+                e = errors(outs[0], plain(*ops, **kw))
+                same = all(torch.equal(outs[0], o) for o in outs[1:])
+                sentinels = bool(buf[numel:].isnan().all())
+                head = torch.equal(buf[:numel].view_as(outs[0]), outs[0])
+                tile = pick_tile_tc(n, h, w, kw.get("tile_h"))
+                log(f"[20] bf16 route {which} {shape} emb {emb} tile {tile}: max_abs {e[0]:.3e} rel_l2 {e[1]:.3e} (tol 1e-2) | 3 runs "
+                    f"bit-identical {same} | sentinels past the output intact {sentinels}, "
+                    f"head equal to the wrapper's {head}")
+                check(e[1] <= 1e-2 and same and sentinels and head,
+                      f"bf16 {which} at {shape} emb {emb}: {e} {same} {sentinels} {head}")
+            del ops, outs, buf
+
+    # gn_stats against gn_stats_plain in both modes, relative L2 <= 1e-5
+    # (fp32 sums in another order)
+    stats_err = {}
+    for n, h, w, c in [(32, 40, 64, 320), (3, 5, 7, 32), (2, 10, 16, 1280)]:
+        x, _, _, gs, gb, e = draw20(n, h, w, c, 8, True)
+        for two_pass in (False, True):
+            sc, sh = gn_stats(x, gs, gb, e, two_pass=two_pass)
+            sc0, sh0 = gn_stats_plain(x, gs, gb, e, two_pass=two_pass)
+            torch.cuda.synchronize()
+            es, eb = errors(sc, sc0), errors(sh, sh0)
+            stats_err[((n, h, w, c), two_pass)] = (max(es[0], eb[0]), max(es[1], eb[1]))
+            log(f"[20] gn_stats ({n}, {h}, {w}, {c}) emb, {'two-pass' if two_pass else 'moments'}"
+                f": scale max_abs {es[0]:.3e} rel_l2 {es[1]:.3e}, bias max_abs {eb[0]:.3e} "
+                f"rel_l2 {eb[1]:.3e} (tol 1e-5)")
+            check(max(es[1], eb[1]) <= 1e-5, f"gn_stats at {(n, h, w, c)}: {es} {eb}")
+        del x, e
     phase_s["20"] = time.perf_counter() - t0
 
     # -- phase 21: K7 and K8 at full width: their bench entry point --------------
     t0 = time.perf_counter()
-    conv_wrappers = (fused_gn_silu_conv, fused_gn_silu_conv_tiled)
+    conv_wrappers = (fused_gn_silu_conv, fused_gn_silu_conv_tiled, gn_stats)
     reset(*conv_wrappers)
     rows = bench_fused_conv.main([])
     conv_launches = counts(*conv_wrappers)
-    conv_ms = {(r["h"], r["c"], r["co"], r["row"]): r["ms"] for r in rows}
-    conv_by_shape = {"fused_gn_silu_conv": {}, "fused_gn_silu_conv_tiled": {}}
+    conv_rows = {(r["h"], r["c"], r["co"], r["row"]): r for r in rows}
+    conv_by_shape = {"fused_gn_silu_conv": {}, "fused_gn_silu_conv_tiled": {}, "gn_stats": {}}
     first_conv = None
     for label, n, h, w, c, co in bench_fused_conv.CASES:
         e7, e8 = conv_check("21", (n, h, w, c, co), bench_fused_conv.TILE_H[h], bf16, True)
@@ -1404,25 +1497,64 @@ def main() -> int:
         # norm's 2 C fp32 parameters beside them); 9 products of C x Co per pixel
         b = bound(2 * (n * h * w * (c + co) + 9 * c * co + co + n * c) + 8 * c,
                   2.0 * n * h * w * c * co * 9, bf16)
+        # gn_stats: x and emb read once, the (N, C) fp32 scale and bias written
+        bs = bound(2 * n * h * w * c + 2 * n * c + 8 * n * c + 8 * c, 0.0, bf16)
         shape = f"({n}, {h}, {w}, {c} -> {co})"
         first_conv = first_conv or shape
-        at = lambda row: conv_ms[(h, c, co, row)]
-        common = dict(plain_ms=at("plain"), library_ms=at("library"), **b)
-        conv_by_shape["fused_gn_silu_conv"][shape] = dict(
-            ms=at("K7 fused"), max_abs_err=e7[0], rel_l2=e7[1], **common)
-        conv_by_shape["fused_gn_silu_conv_tiled"][shape] = dict(
-            ms=at("K8 tiled"), max_abs_err=e8[0], rel_l2=e8[1],
-            tile_h=bench_fused_conv.TILE_H[h], **common)
-        log(f"[21] {label.strip()} bf16: K7 {at('K7 fused'):.3f} ms | K8 {at('K8 tiled'):.3f} | "
-            f"plain {at('plain'):.3f} | library (group_norm, silu, conv2d) {at('library'):.3f} "
-            f"| bound {b['bound_ms']:.3f} ms by {b['bound_by']}")
-    for name in conv_by_shape:
+        at = lambda row: conv_rows[(h, c, co, row)]["ms"]
+        common = dict(plain_ms=at("plain"), library_ms=at("library"),
+                      conv2d_ms=at("conv2d"), **b)
+        stats_dev = lambda row: conv_rows[(h, c, co, row)]["device_ms"]
+        for name, row, err, stats, extra in (
+                ("fused_gn_silu_conv", "K7 fused", e7, "gn_stats", {}),
+                ("fused_gn_silu_conv_tiled", "K8 tiled", e8, "gn_stats two-pass",
+                 dict(tile_h=bench_fused_conv.TILE_H[h]))):
+            conv_by_shape[name][shape] = dict(
+                ms=at(row), max_abs_err=err[0], rel_l2=err[1], stats_ms=stats_dev(stats),
+                tflops=2.0 * n * h * w * c * co * 9 / at(row) / 1e9,
+                bound_share=b["bound_ms"] / at(row), over_library=at(row) / at("library"),
+                **extra, **common)
+        sx = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(n, h, w, c, device=dev, generator=sx).to(bf16)
+        gs1, gb1 = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+        emb1 = torch.randn(n, c, device=dev, generator=sx).to(bf16)
+        stats_plain_ms = cuda_ms(lambda: gn_stats_plain(x, gs1, gb1, emb1))
+        del x, emb1
+        conv_by_shape["gn_stats"][shape] = dict(
+            ms=at("gn_stats"), ms_two_pass=at("gn_stats two-pass"),
+            device_ms=stats_dev("gn_stats"), device_ms_two_pass=stats_dev("gn_stats two-pass"),
+            plain_ms=stats_plain_ms, library_ms=at("var_mean"),
+            bound_share=bs["bound_ms"] / stats_dev("gn_stats"), **bs)
+        k7, k8 = (conv_by_shape[k][shape] for k in ("fused_gn_silu_conv",
+                                                      "fused_gn_silu_conv_tiled"))
+        log(f"[21] {label.strip()} bf16 (in turn, median of {bench_fused_conv.ROUNDS}): K7 "
+            f"{k7['ms']:.3f} ms ({k7['tflops']:.1f} TFLOP/s, {k7['bound_share']:.1%} of the "
+            f"bound, {k7['over_library']:.2f}x the library; gn_stats {k7['stats_ms']:.4f}) | K8 "
+            f"{k8['ms']:.3f} ({k8['tflops']:.1f} TFLOP/s, {k8['bound_share']:.1%}, "
+            f"{k8['over_library']:.2f}x; gn_stats two-pass {k8['stats_ms']:.4f}; statistics: "
+            "device time) | K7 / K8 "
+            f"{k7['ms'] / k8['ms']:.3f} | library (group_norm, silu, conv2d) {at('library'):.3f}"
+            f", conv2d alone {at('conv2d'):.3f} | plain {at('plain'):.3f} | gn_stats back to "
+            f"back {at('gn_stats'):.4f} / two-pass {at('gn_stats two-pass'):.4f}, plain "
+            f"{stats_plain_ms:.3f}, var_mean {at('var_mean'):.4f}, bound {bs['bound_ms']:.4f} "
+            f"(bytes) | bound {b['bound_ms']:.3f} ms by {b['bound_by']}")
+    for name in ("fused_gn_silu_conv", "fused_gn_silu_conv_tiled"):
         at = conv_by_shape[name][first_conv]
         report[name] = dict(max_abs_err=at["max_abs_err"], ms=at["ms"], plain_ms=at["plain_ms"],
                             bound_ms=at["bound_ms"], bound_by=at["bound_by"],
-                            library_ms=at["library_ms"], by_shape=conv_by_shape[name])
+                            library_ms=at["library_ms"], bound_share=at["bound_share"],
+                            tflops=at["tflops"], stats_ms=at["stats_ms"],
+                            by_shape=conv_by_shape[name])
+    at = conv_by_shape["gn_stats"][first_conv]
+    report["gn_stats"] = dict(
+        max_abs_err=max(stats_err[((32, 40, 64, 320), tp)][0] for tp in (False, True)),
+        ms=at["ms"], ms_two_pass=at["ms_two_pass"], device_ms=at["device_ms"],
+        device_ms_two_pass=at["device_ms_two_pass"], plain_ms=at["plain_ms"],
+        bound_ms=at["bound_ms"], bound_by=at["bound_by"], library_ms=at["library_ms"],
+        library_call="torch.var_mean over the groups of x", by_shape=conv_by_shape["gn_stats"])
     log(f"[21] launches by bench_fused_conv.main: K7 {conv_launches[0]}, K8 {conv_launches[1]} "
-        f"(five shapes x 11 calls each)")
+        f"(five shapes x {bench_fused_conv.ROUNDS} rounds x 11 calls each), gn_stats "
+        f"{conv_launches[2]} (K7's and K8's, and its own rows)")
     torch.cuda.empty_cache()
     phase_s["21"] = time.perf_counter() - t0
 
@@ -1737,7 +1869,9 @@ def main() -> int:
                                conv_launches[0], {"bench_fused_conv": conv_launches[0]}),
         "fused_gn_silu_conv_tiled": (src + "fused_conv.cu",
                                      "experiments/fused_conv/fused_conv_tiled.py:28",
-                                     conv_launches[1], {"bench_fused_conv": conv_launches[1]})}
+                                     conv_launches[1], {"bench_fused_conv": conv_launches[1]}),
+        "gn_stats": (src + "fused_conv.cu", "experiments/fused_conv/fused_conv.py:54",
+                     conv_launches[2], {"bench_fused_conv": conv_launches[2]})}
     for name, (_, _, n, _) in sources.items():
         check(n > 0, f"{name} was launched no time on its main path")
     print(json.dumps({"kernels": [

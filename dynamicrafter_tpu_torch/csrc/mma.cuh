@@ -1,8 +1,10 @@
 // Tensor-core and asynchronous-copy building blocks for Hopper (sm_90a),
 // shared by the bf16 paths of flash_attention.cu (K1, K3),
-// flash_attention_bwd.cu (K4a, K4b) and fused_conv.cu (K7, K8): cp.async
-// into shared memory, ldmatrix, and the m16n8k16 bf16 mma.sync with fp32
-// accumulators.
+// flash_attention_bwd.cu (K4a, K4b), flash_tc.cuh (K6, K9, K10) and
+// small_attention.cu (K2): cp.async into shared memory, ldmatrix, and the
+// m16n8k16 bf16 mma.sync with fp32 accumulators. fused_conv.cu (K7, K8)
+// takes cp.async for its fp32 route and ldmatrix for the A fragments of
+// its wgmma (hopper.cuh).
 #pragma once
 
 #include "common.cuh"

@@ -2,17 +2,26 @@
 
     python -m dynamicrafter_tpu_torch.experiments.fused_conv.bench_fused_conv
 
-times `fused_gn_silu_conv` (K7), `fused_gn_silu_conv_tiled` (K8), K7's plain
-version and the library route (`F.conv2d(F.silu(F.group_norm(x + emb)))` on a
-channels-last tensor: cuDNN and PyTorch's own kernels, timed here and used
-nowhere in the package) with CUDA events, in bf16 with emb, and prints
-milliseconds and TFLOP/s per row. The UNet runs none of the fused kernels:
-these entry points are their path, as in the JAX repository. It needs a CUDA
-device and raises without one.
+Times, with CUDA events in bf16 with emb, `fused_gn_silu_conv` (K7: `gn_stats`
+and the wgmma conv), `fused_gn_silu_conv_tiled` (K8: `gn_stats` in two-pass
+mode and the same conv, x + emb rounded inside it) and the library route
+(`F.conv2d(F.silu(F.group_norm(x + emb)))` on a channels-last tensor: cuDNN
+and PyTorch's own kernels) in turn: ROUNDS rounds of ITERS calls of each,
+the median of each row, so that the clock's drift between rounds falls on
+all three alike. Then, each in a loop of its own, `gn_stats` alone (moments
+and two-pass) beside one `torch.var_mean` over the same groups, `F.conv2d`
+alone on the activation the library route feeds it, and K7's plain version;
+`gn_stats` also by the profiler's device time (`kernel_ms`), since back to
+back its calls can be paced by the host. Prints milliseconds per row and,
+for the kernels, TFLOP/s, the share of the
+bound (`conv_bound`) and the factor over the library route. The library
+calls are timed here and used nowhere in the package; the UNet runs none of
+the fused kernels: these entry points are their path, as in the JAX
+repository. It needs a CUDA device and raises without one.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,7 +30,7 @@ from torch import Tensor
 from dynamicrafter_tpu_torch.experiments.flash_pairs.bench_flash_variants import (
     cuda_device, cuda_ms, get_parser)
 from dynamicrafter_tpu_torch.experiments.fused_conv.fused_conv import (
-    fused_gn_silu_conv, fused_gn_silu_conv_plain)
+    fused_gn_silu_conv, fused_gn_silu_conv_plain, gn_stats)
 from dynamicrafter_tpu_torch.experiments.fused_conv.fused_conv_tiled import (
     fused_gn_silu_conv_tiled)
 
@@ -36,6 +45,23 @@ CASES = [
     ("1024 ds1 72x128 320->320 ", 16, 72, 128, 320, 320),
 ]
 TILE_H = {72: 8, 40: 8, 20: 10, 10: 10}   # K8's row tile per image height (a divisor)
+ROUNDS = 5                                # rounds of the in-turn timing
+PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12   # one H100 SXM at 700 W
+
+
+def conv_bound(n: int, h: int, w: int, c: int, co: int) -> Tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time one call could take on
+    an H100 in bf16: x, the kernel, bias and emb read once and the output
+    written once (the norm's 2 C fp32 parameters beside them), or the nine
+    products of C x Co per pixel at the peak rate, whichever is larger."""
+    by_bytes = 1e3 * (2 * (n * h * w * (c + co) + 9 * c * co + co + n * c) + 8 * c) / PEAK_BYTES
+    by_ops = 1e3 * 2.0 * n * h * w * c * co * 9 / PEAK_BF16_FLOPS
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def stats_bound(n: int, h: int, w: int, c: int) -> float:
+    """ms to read x and emb once and write the (N, C) fp32 scale and bias."""
+    return 1e3 * (2 * n * h * w * c + 2 * n * c + 8 * n * c + 8 * c) / PEAK_BYTES
 
 
 def case_inputs(n: int, h: int, w: int, c: int, co: int, device: torch.device,
@@ -50,20 +76,46 @@ def case_inputs(n: int, h: int, w: int, c: int, co: int, device: torch.device,
 
 
 def library_route(x: Tensor, kernel: Tensor, bias: Tensor, gn_scale: Tensor, gn_bias: Tensor,
-                  emb: Tensor, groups: int = 32, eps: float = 1e-5):
+                  emb: Tensor, groups: int = 32, eps: float = 1e-5, conv_only: bool = False):
     """The same function through PyTorch's own operators, as the UNet's
     ResBlock runs it: NCHW views of channels-last tensors, everything in
     x's dtype. Returns a closure over the prepared operands (the OIHW
-    channels-last weight is prepared once, as a module holds it)."""
+    channels-last weight is prepared once, as a module holds it); with
+    `conv_only` the closure runs only its `F.conv2d`, on the activation the
+    route computes once here."""
     x_nchw, e = x.permute(0, 3, 1, 2), emb[:, :, None, None]
     w_oihw = kernel.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     gs, gb = gn_scale.to(x.dtype), gn_bias.to(x.dtype)
+    act = lambda: F.silu(F.group_norm(x_nchw + e, groups, gs, gb, eps))
+    if conv_only:
+        a = act()
+        return lambda: F.conv2d(a, w_oihw, bias, padding=1)
+    return lambda: F.conv2d(act(), w_oihw, bias, padding=1)
 
-    def run() -> Tensor:
-        h = F.group_norm(x_nchw + e, groups, gs, gb, eps)
-        return F.conv2d(F.silu(h), w_oihw, bias, padding=1)
 
-    return run
+def kernel_ms(fn, iters: int = 10) -> float:
+    """Device milliseconds per call of the kernels `fn` launches, from
+    `torch.profiler`: the host's time between launches left out (a
+    `gn_stats` call launches 0.02-0.09 ms of work, near the host's own time
+    for a wrapper call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / iters / 1e3
+
+
+def in_turn(rows: Dict[str, object], rounds: int = ROUNDS) -> Dict[str, List[float]]:
+    """`rounds` rounds of timing every row once (cuda_ms), in turn."""
+    times = {name: [] for name in rows}
+    for _ in range(rounds):
+        for name, fn in rows.items():
+            times[name].append(cuda_ms(fn))
+    return times
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
@@ -73,20 +125,41 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     results = []
     for label, n, h, w, c, co in CASES:
         ops = case_inputs(n, h, w, c, co, device)
+        x, _, _, gs, gb, emb = ops
         flops = 2.0 * n * h * w * c * co * 9
-        rows = {
-            "K7 fused": lambda: fused_gn_silu_conv(*ops),
-            "K8 tiled": lambda: fused_gn_silu_conv_tiled(*ops, tile_h=TILE_H[h]),
-            "plain": lambda: fused_gn_silu_conv_plain(*ops),
-            "library": library_route(*ops),
-        }
-        for name, fn in rows.items():
-            ms = cuda_ms(fn)
-            print(f"{label} {name:9s}: {ms:8.3f} ms  {flops / ms / 1e9:6.1f} TFLOP/s",
-                  flush=True)
-            results.append(dict(case=label.strip(), n=n, h=h, w=w, c=c, co=co, row=name,
-                                ms=ms, tflops=flops / ms / 1e9))
-        del ops
+        bound_ms, bound_by = conv_bound(n, h, w, c, co)
+        times = in_turn({"K7 fused": lambda: fused_gn_silu_conv(*ops),
+                         "K8 tiled": lambda: fused_gn_silu_conv_tiled(*ops, tile_h=TILE_H[h]),
+                         "library": library_route(*ops)})
+        ms = {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+        grouped = x.view(n, h * w, 32, c // 32)
+        for name, fn in (
+                ("gn_stats", lambda: gn_stats(x, gs, gb, emb)),
+                ("gn_stats two-pass", lambda: gn_stats(x, gs, gb, emb, two_pass=True)),
+                ("var_mean", lambda: torch.var_mean(grouped, dim=(1, 3), correction=0)),
+                ("conv2d", library_route(*ops, conv_only=True)),
+                ("plain", lambda: fused_gn_silu_conv_plain(*ops))):
+            ms[name] = cuda_ms(fn)
+        for name, t in ms.items():
+            line = f"{label} {name:17s}: {t:8.3f} ms"
+            row = dict(case=label.strip(), n=n, h=h, w=w, c=c, co=co, row=name, ms=t)
+            if name in times:
+                line += f" (median of {ROUNDS} in turn; {min(times[name]):.3f}-{max(times[name]):.3f})"
+            if name in ("K7 fused", "K8 tiled", "library", "conv2d", "plain"):
+                row.update(tflops=flops / t / 1e9, bound_share=bound_ms / t,
+                           over_library=t / ms["library"])
+                line += (f"  {row['tflops']:6.1f} TFLOP/s, {row['bound_share']:6.1%} of the "
+                         f"{bound_ms:.3f} ms bound ({bound_by}), {row['over_library']:.2f}x "
+                         "the library route")
+            elif name.startswith("gn_stats"):
+                two_pass = name.endswith("two-pass")
+                device = kernel_ms(lambda: gn_stats(x, gs, gb, emb, two_pass=two_pass))
+                row.update(device_ms=device, bound_share=stats_bound(n, h, w, c) / device)
+                line += (f" (device {device:.4f} ms, {row['bound_share']:6.1%} of the "
+                         f"{stats_bound(n, h, w, c):.4f} ms bound, bytes)")
+            print(line, flush=True)
+            results.append(row)
+        del ops, x, grouped
     return results
 
 

@@ -1,21 +1,26 @@
-"""K8: row-tiled fused normalize -> SiLU -> 3x3 same conv + bias, from a
-GroupNorm statistics pre-pass.
+"""K8: row-tiled fused normalize -> SiLU -> 3x3 same conv + bias, from
+GroupNorm statistics taken first.
 
 `fused_gn_silu_conv_tiled` has the signature and operand layouts of
 `experiments/fused_conv/fused_conv_tiled.py::fused_gn_silu_conv_tiled` of
 the JAX repository (without `interpret`); feed it from the port's NCHW
-modules as `fused_conv.py` describes. The statistics pre-pass `gn_prepass`
-is plain PyTorch, as it is plain XLA there: two-pass variance
-mean((x - mean)^2) in fp32 from the unrounded sum x + emb, giving a scale
-and a bias per (n, c); the kernel is fed x + emb ROUNDED to the input type
-(K7 never rounds that sum: in bf16 the two differ by that rounding). On a
-CUDA tensor the entry launches `fused_conv_tiled_kernel` of
-`csrc/fused_conv.cu`, which replaces the Pallas `_kernel` of that file, or
-raises; on a CPU tensor it runs `fused_gn_silu_conv_tiled_plain`.
+modules as `fused_conv.py` describes. The statistics are the JAX pre-pass's:
+two-pass variance mean((x - mean)^2) in fp32 from the unrounded sum x +
+emb, a scale and a bias per (n, c) (`gn_prepass` here, plain PyTorch); the
+conv is fed x + emb ROUNDED to the input type (K7 never rounds that sum: in
+bf16 the two differ by that rounding). On a CPU tensor the entry runs
+`fused_gn_silu_conv_tiled_plain`. On a CUDA tensor, bf16: `gn_stats`
+(two-pass, its own kernel) and then `fused_conv_tc_kernel` of
+`csrc/fused_conv.cu` (wgmma + TMA), which rounds x + emb inside, so x + emb
+is never written to memory; fp32: `gn_prepass` and
+`fused_conv_tiled_kernel<float>` on x + emb. Either replaces the Pallas
+`_kernel` of that file; a refused launch raises.
 
-`tile_h` rows of the image (with a one-row halo) make a block's tile and
-must divide H, as in the JAX entry; its `(tile_h * (W + 2)) % 8` rule
-served the TPU's slices and is gone.
+`tile_h` must divide H, as in the JAX entry (its `(tile_h * (W + 2)) % 8`
+rule served the TPU's slices and is gone). fp32 tiles rows of tile_h with a
+one-row halo; bf16 takes tiles of th x tw <= 128 pixels with th dividing
+tile_h where that costs no more blocks than K7's tile, else K7's tile
+(`pick_tile_tc` says which).
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ import torch
 from torch import Tensor
 
 from dynamicrafter_tpu_torch.experiments.fused_conv.fused_conv import (
-    MAX_TILE_PIXELS, check_conv_operands, conv3x3_plain, pick_tile)
+    MAX_TILE_PIXELS, check_conv_operands, conv3x3_plain, gn_stats, gn_stats_plain, pick_tile,
+    pick_tile_tc, tensor_core_route)
 from dynamicrafter_tpu_torch.ops import kernels
 
 
@@ -33,19 +39,10 @@ def gn_prepass(x: Tensor, gn_scale: Tensor, gn_bias: Tensor, emb: Optional[Tenso
                groups: int, eps: float) -> Tuple[Tensor, Tensor, Tensor]:
     """(x + emb rounded to x.dtype, scale (N, C) fp32, bias (N, C) fp32):
     groupnorm(x + emb) == (x + emb) * scale + bias per sample and channel."""
-    n, h, w, c = x.shape
-    cpg = c // groups
-    x32 = x.float()
-    if emb is not None:
-        x32 = x32 + emb.float()[:, None, None, :]
-    grp = x32.reshape(n, h * w, groups, cpg)
-    mean = grp.mean(dim=(1, 3))
-    var = (grp - mean[:, None, :, None]).square().mean(dim=(1, 3))
-    inv = torch.rsqrt(var + eps)
-    scale = gn_scale.float()[None] * inv.repeat_interleave(cpg, dim=1)
-    shift = gn_bias.float()[None] - mean.repeat_interleave(cpg, dim=1) * scale
+    scale, shift = gn_stats_plain(x, gn_scale, gn_bias, emb, groups=groups, eps=eps,
+                                  two_pass=True)
     xe = x if emb is None else (x + emb[:, None, None, :]).to(x.dtype)
-    return xe, scale.contiguous(), shift.contiguous()
+    return xe, scale, shift
 
 
 def _check_tile_h(h: int, tile_h: int) -> None:
@@ -81,14 +78,20 @@ def fused_gn_silu_conv_tiled(x: Tensor, kernel: Tensor, bias: Tensor, gn_scale: 
     n, h, w, c = x.shape
     co = kernel.shape[-1]
     _check_tile_h(h, tile_h)
-    xe, scale, shift = gn_prepass(x, gn_scale, gn_bias, emb, groups, eps)
-    th, tw = pick_tile(h, w, tile_h)
+    if tensor_core_route(x.dtype):
+        scale, shift = gn_stats(x, gn_scale, gn_bias, emb, groups=groups, eps=eps,
+                                two_pass=True)
+        xin, e = x, emb
+        th, tw = pick_tile_tc(n, h, w, tile_h)
+    else:
+        xin, scale, shift = gn_prepass(x, gn_scale, gn_bias, emb, groups, eps)
+        (th, tw), e = pick_tile(h, w, tile_h), None
     out = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         code = kernels.library().dct_fused_gn_silu_conv_tiled(
-            xe.data_ptr(), scale.data_ptr(), shift.data_ptr(), kernel.data_ptr(),
+            xin.data_ptr(), scale.data_ptr(), shift.data_ptr(), kernel.data_ptr(),
             bias.data_ptr(), out.data_ptr(), kernels.DTYPE_CODES[x.dtype], n, h, w, c, co,
-            th, tw, kernels.stream_handle(x.device))
+            th, tw, None if e is None else e.data_ptr(), kernels.stream_handle(x.device))
     kernels.check(code, "fused_gn_silu_conv_tiled launch")
     fused_gn_silu_conv_tiled.launches += 1
     return out

@@ -129,12 +129,15 @@ def library() -> ctypes.CDLL:
         lib.dct_small_t_fwd_posmajor.restype = i32
         lib.dct_fused_gn_silu_conv.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
                                                i32, i32, i32, i32, i32, i32, f32, i32,
-                                               i32, ptr]
+                                               i32, ptr, ptr, ptr]
         lib.dct_fused_gn_silu_conv.restype = i32
         lib.dct_fused_gn_silu_conv_tiled.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32,
                                                      i32, i32, i32, i32, i32, i32, i32,
-                                                     ptr]
+                                                     ptr, ptr]
         lib.dct_fused_gn_silu_conv_tiled.restype = i32
+        lib.dct_gn_stats.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                     i32, f32, i32, i32, ptr]
+        lib.dct_gn_stats.restype = i32
         lib.dct_error_string.argtypes = [i32]
         lib.dct_error_string.restype = ctypes.c_char_p
         _lib = lib

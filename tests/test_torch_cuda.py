@@ -18,8 +18,10 @@ another order); weight gradients through a whole
 transformer in bf16 <= 2e-2. TF32 is off for the plain versions' fp32
 matmuls. K7 and K8 (fused GroupNorm -> SiLU -> 3x3 conv): <= 1e-5 in fp32
 and <= 1e-2 in bf16 (each output is rounded once, 2^-9 relative, and bf16
-products accumulate on the tensor cores in another order; read 1e-4 to 3e-4),
-and K7 against K8 on one fp32 input <= 1e-5.
+products accumulate on the tensor cores, wgmma, in another order; read 1e-4
+to 3e-4), and K7 against K8 on one fp32 input <= 1e-5; the bf16 route's
+GroupNorm statistics (`gn_stats`) <= 1e-5 on scale and bias (fp32 sums in
+another order).
 """
 import pytest
 
@@ -813,19 +815,27 @@ def test_fused_conv_kernels_write_nothing_past_the_output(cuda, dtype, n, h, w, 
     ref = tconv.fused_gn_silu_conv_plain(x, kernel, bias, gs, gb, e)
     for which in ("K7", "K8"):
         buf = torch.full((numel + 4096,), 7.0, device=cuda, dtype=dtype)
-        if which == "K7":
+        e_ptr = e.data_ptr()
+        if dtype == torch.bfloat16:   # the wrappers' route: gn_stats, then the wgmma conv
+            scale, shift = tconv.gn_stats(x, gs, gb, e, two_pass=which == "K8")
+            xin = x
+            th, tw = tconv.pick_tile_tc(n, h, w, None if which == "K7" else tile_h)
+        elif which == "K8":
+            xin, scale, shift = tconv_tiled.gn_prepass(x, gs, gb, e, 32, 1e-5)
+            (th, tw), e_ptr = tconv.pick_tile(h, w, tile_h), None
+        else:
+            scale = shift = None
             th, tw = tconv.pick_tile(h, w)
+        sp, bp = (None, None) if scale is None else (scale.data_ptr(), shift.data_ptr())
+        if which == "K7":
             rc = lib.dct_fused_gn_silu_conv(
                 x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), gs.data_ptr(), gb.data_ptr(),
-                e.data_ptr(), buf.data_ptr(), code, n, h, w, c, co, 32, 1e-5, th, tw,
+                e.data_ptr(), buf.data_ptr(), code, n, h, w, c, co, 32, 1e-5, th, tw, sp, bp,
                 tkernels.stream_handle(cuda))
         else:
-            xe, scale, shift = tconv_tiled.gn_prepass(x, gs, gb, e, 32, 1e-5)
-            th, tw = tconv.pick_tile(h, w, tile_h)
             rc = lib.dct_fused_gn_silu_conv_tiled(
-                xe.data_ptr(), scale.data_ptr(), shift.data_ptr(), kernel.data_ptr(),
-                bias.data_ptr(), buf.data_ptr(), code, n, h, w, c, co, th, tw,
-                tkernels.stream_handle(cuda))
+                xin.data_ptr(), sp, bp, kernel.data_ptr(), bias.data_ptr(), buf.data_ptr(), code,
+                n, h, w, c, co, th, tw, e_ptr, tkernels.stream_handle(cuda))
         tkernels.check(rc, which)
         torch.cuda.synchronize()
         assert bool((buf[numel:] == 7.0).all()), which
@@ -847,3 +857,121 @@ def test_fused_conv_refuses_what_the_kernels_do_not_take(cuda):
         tconv.fused_gn_silu_conv(x.transpose(1, 2), kernel, bias, gs, gb, e)
     assert tconv.supported((32, 40, 64, 320), 320) and tconv.supported((16, 576, 1024, 128), 128)
     assert not tconv.supported((1, 8, 8, 48), 64) and not tconv.supported((1, 8, 8, 64), 3)
+
+
+# -- K7 and K8 in bf16: gn_stats, then the wgmma + TMA conv ---------------------
+
+# (N, H, W, C, Co, tile_h): a 64-channel chunk past C (32, 96), ragged output
+# tiles (Co 96, 8), images of 5 x 7, 8 x 14, 10 x 16 (K7's tiles straddle
+# samples) and 72 x 128
+TC_CONV_SHAPES = [(2, 8, 14, 32, 64, 4), (2, 8, 14, 96, 96, 2), (2, 8, 12, 64, 96, 4),
+                  (3, 5, 7, 32, 8, 5), (4, 10, 16, 64, 64, 5), (2, 72, 128, 64, 64, 8)]
+
+
+@pytest.mark.parametrize("emb", [False, True])
+@pytest.mark.parametrize("n,h,w,c,co,tile_h", TC_CONV_SHAPES)
+@pytest.mark.parametrize("which", ["K7", "K8"])
+def test_fused_conv_tensor_core_route_matches_plain(cuda, which, n, h, w, c, co, tile_h, emb):
+    fn, plain, kw = _conv_entries(tile_h)[which]
+    ops = _conv_operands(n, h, w, c, co, torch.bfloat16, cuda, emb)
+    before = (fn.launches, tconv.gn_stats.launches)
+    out = fn(*ops, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, tconv.gn_stats.launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.bfloat16 and out.shape == (n, h, w, co)
+    assert _rel(out, plain(*ops, **kw)) <= 1e-2
+
+
+@pytest.mark.parametrize("n,h,w,c,co,tile_h", TC_CONV_SHAPES)
+@pytest.mark.parametrize("which", ["K7", "K8"])
+def test_fused_conv_tensor_core_route_is_deterministic(cuda, which, n, h, w, c, co, tile_h):
+    """Statistics in a fixed order of sums and each block owning its output
+    tile: three runs agree bit for bit."""
+    fn, _, kw = _conv_entries(tile_h)[which]
+    ops = _conv_operands(n, h, w, c, co, torch.bfloat16, cuda, True)
+    first = fn(*ops, **kw)
+    for _ in range(2):
+        assert torch.equal(first, fn(*ops, **kw))
+
+
+@pytest.mark.parametrize("emb", [False, True])
+@pytest.mark.parametrize("two_pass", [False, True])
+@pytest.mark.parametrize("n,h,w,c", [(32, 40, 64, 320), (3, 5, 7, 32), (2, 10, 16, 1280),
+                                     (1, 1, 3, 64)])
+def test_gn_stats_kernel_matches_plain(cuda, n, h, w, c, two_pass, emb):
+    """Relative L2 <= 1e-5 on scale and bias (fp32 sums in another order)."""
+    x, _, _, gs, gb, e = _conv_operands(n, h, w, c, 8, torch.bfloat16, cuda, emb)
+    before = tconv.gn_stats.launches
+    scale, shift = tconv.gn_stats(x, gs, gb, e, two_pass=two_pass)
+    ref = tconv.gn_stats_plain(x, gs, gb, e, two_pass=two_pass)
+    torch.cuda.synchronize()
+    assert tconv.gn_stats.launches == before + 1
+    assert scale.shape == shift.shape == (n, c) and scale.dtype == torch.float32
+    assert _rel(scale, ref[0]) <= 1e-5 and _rel(shift, ref[1]) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,kernels", [
+    (torch.bfloat16, ("gn_stats_kernel", "gn_stats_finish_kernel", "fused_conv_tc_kernel")),
+    (torch.float32, ("fused_gn_silu_conv_kernel<float>",))])
+def test_k7_routes_by_dtype(cuda, dtype, kernels):
+    """bf16 K7 runs the statistics kernels and the wgmma conv, fp32 the first
+    kernel: the kernel symbols the profiler records for one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ops = _conv_operands(2, 8, 12, 64, 64, dtype, cuda, True)
+    tconv.fused_gn_silu_conv(*ops)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tconv.fused_gn_silu_conv(*ops)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.name.startswith("void (anonymous namespace)::")]
+    assert len(names) == len(kernels), names
+    for name, kernel in zip(names, kernels):
+        assert kernel in name, names
+
+
+@pytest.mark.parametrize("dtype,kernels", [
+    (torch.bfloat16, ("gn_stats_kernel<__nv_bfloat16, true>", "gn_stats_finish_kernel<true>",
+                      "fused_conv_tc_kernel<true>")),
+    (torch.float32, ("fused_conv_tiled_kernel<float>",))])
+def test_k8_routes_by_dtype(cuda, dtype, kernels):
+    from torch.profiler import ProfilerActivity, profile
+
+    ops = _conv_operands(2, 8, 12, 64, 64, dtype, cuda, dtype == torch.bfloat16)
+    tconv_tiled.fused_gn_silu_conv_tiled(*ops, tile_h=4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tconv_tiled.fused_gn_silu_conv_tiled(*ops, tile_h=4)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.name.startswith("void (anonymous namespace)::")]
+    assert len(names) == len(kernels), names
+    for name, kernel in zip(names, kernels):
+        assert kernel in name, names
+
+
+def test_fused_conv_tensor_core_route_refuses_what_it_does_not_take(cuda):
+    x, kernel, bias, gs, gb, e = _conv_operands(2, 8, 8, 64, 64, torch.bfloat16, cuda, True)
+    # a contiguous view 2 bytes off the 16-byte alignment
+    shifted = torch.empty(x.numel() + 8, device=cuda, dtype=x.dtype)[1:1 + x.numel()].view_as(x)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="16-byte"):
+        tconv.fused_gn_silu_conv(shifted, kernel, bias, gs, gb, e)
+    with pytest.raises(ValueError, match="16-byte"):
+        tconv.gn_stats(shifted, gs, gb, e)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tconv.gn_stats(x.float(), gs, gb, e.float())
+    with pytest.raises(ValueError, match="16-byte"):   # Co not a multiple of 8
+        tconv_tiled.fused_gn_silu_conv_tiled(x, kernel[..., :60].contiguous(),
+                                             bias[:60].contiguous(), gs, gb, e, tile_h=4)
+    lib, code = tkernels.library(), tkernels.DTYPE_CODES[torch.bfloat16]
+    out = torch.empty(2, 8, 8, 64, device=cuda, dtype=torch.bfloat16)
+    scale, shift = tconv.gn_stats(x, gs, gb, e)
+    for th, tw, stats in ((16, 16, True), (0, 16, True), (8, 8, False)):   # > 128, empty, none
+        rc = lib.dct_fused_gn_silu_conv(
+            x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), gs.data_ptr(), gb.data_ptr(),
+            e.data_ptr(), out.data_ptr(), code, 2, 8, 8, 64, 64, 32, 1e-5, th, tw,
+            scale.data_ptr() if stats else None, shift.data_ptr() if stats else None,
+            tkernels.stream_handle(cuda))
+        assert rc != 0, (th, tw, stats)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tkernels.check(rc, "refused")

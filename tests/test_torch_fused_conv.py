@@ -236,3 +236,119 @@ def test_wrappers_count_no_launch_on_the_cpu():
     ttiled.fused_gn_silu_conv_tiled(*ops, tile_h=5)
     assert (tconv.fused_gn_silu_conv.launches,
             ttiled.fused_gn_silu_conv_tiled.launches) == before
+
+
+# -- the bf16 route's pieces that the CPU reaches: statistics, tiles, route ----
+
+def _moments_reference(x, gs, gb, emb, groups=32, eps=1e-5):
+    """K7's statistics written out as the Pallas kernel states them."""
+    n, h, w, c = x.shape
+    v = x.float() + (0 if emb is None else emb.float()[:, None, None, :])
+    grp = v.reshape(n, h * w, groups, c // groups)
+    n_el = float(h * w * (c // groups))
+    g1 = grp.sum(dim=(1, 3)) / n_el
+    g2 = (grp * grp).sum(dim=(1, 3)) / n_el
+    inv = torch.rsqrt(g2 - g1 * g1 + eps)
+    scale = gs.float()[None] * inv.repeat_interleave(c // groups, dim=1)
+    return scale, gb.float()[None] - g1.repeat_interleave(c // groups, dim=1) * scale
+
+
+def _two_pass_reference(x, gs, gb, emb, groups=32, eps=1e-5):
+    """K8's pre-pass written out as the JAX entry states it."""
+    n, h, w, c = x.shape
+    v = x.float() + (0 if emb is None else emb.float()[:, None, None, :])
+    grp = v.reshape(n, h * w, groups, c // groups)
+    mean = grp.mean(dim=(1, 3))
+    var = (grp - mean[:, None, :, None]).square().mean(dim=(1, 3))
+    scale = gs.float()[None] * torch.rsqrt(var + eps).repeat_interleave(c // groups, dim=1)
+    return scale, gb.float()[None] - mean.repeat_interleave(c // groups, dim=1) * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("emb", [False, True])
+@pytest.mark.parametrize("two_pass", [False, True])
+def test_gn_stats_plain_is_each_kernels_statistics_bit_for_bit(two_pass, emb, dtype):
+    x, _, _, gs, gb, e = to_torch(draw(2, 8, 12, 64, 64, emb, seed=7), dtype)
+    scale, shift = tconv.gn_stats_plain(x, gs, gb, e, two_pass=two_pass)
+    ref = (_two_pass_reference if two_pass else _moments_reference)(x, gs, gb, e)
+    assert scale.dtype == shift.dtype == torch.float32 and scale.shape == (2, 64)
+    assert torch.equal(scale, ref[0]) and torch.equal(shift, ref[1])
+    if two_pass:
+        _, s8, b8 = ttiled.gn_prepass(x, gs, gb, e, 32, 1e-5)
+        assert torch.equal(scale, s8) and torch.equal(shift, b8)
+    # the CPU entry is the plain version and counts no launch
+    before = tconv.gn_stats.launches
+    s2, b2 = tconv.gn_stats(x, gs, gb, e, two_pass=two_pass)
+    assert torch.equal(s2, scale) and torch.equal(b2, shift)
+    assert tconv.gn_stats.launches == before
+
+
+def _conv_from_stats(x, k, b, emb, scale, shift, round_emb):
+    v = x.float() + (0 if emb is None else emb.float()[:, None, None, :])
+    if round_emb:
+        v = v.to(x.dtype).float()
+    act = v * scale[:, None, None] + shift[:, None, None]
+    return tconv.conv3x3_plain((act * torch.sigmoid(act)).to(x.dtype), k, b)
+
+
+@pytest.mark.parametrize("emb", [False, True])
+@pytest.mark.parametrize("shape", [(2, 8, 12, 64, 64), (1, 8, 6, 32, 32)])
+def test_gn_stats_plain_matches_the_pallas_statistics(shape, emb):
+    """The statistics of either mode, fed to the rest of the arithmetic,
+    give the Pallas kernels' outputs (interpret mode, fp32)."""
+    ops = draw(*shape, emb, seed=8)
+    x, k, b, gs, gb, e = to_torch(ops)
+    j7 = np.asarray(jconv.fused_gn_silu_conv(*to_jax(ops), interpret=True))
+    j8 = np.asarray(jtiled.fused_gn_silu_conv_tiled(*to_jax(ops), tile_h=shape[1],
+                                                    interpret=True))
+    for two_pass, ref in ((False, j7), (True, j8)):
+        scale, shift = tconv.gn_stats_plain(x, gs, gb, e, two_pass=two_pass)
+        out = _conv_from_stats(x, k, b, e, scale, shift, two_pass).numpy()
+        np.testing.assert_allclose(out, ref, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n,h,w,tile_h", [
+    (32, 40, 64, None), (32, 20, 32, None), (32, 10, 16, None), (16, 72, 128, None),
+    (32, 40, 64, 8), (32, 20, 32, 10), (32, 10, 16, 10), (16, 72, 128, 8),
+    (1, 5, 7, None), (3, 5, 7, 5), (2, 8, 14, 4), (2, 8, 14, 2), (1, 1, 1, None),
+    (2, 33, 200, None), (1, 128, 3, 128), (16, 576, 1024, None)])
+def test_pick_tile_tc(n, h, w, tile_h):
+    """At most 128 pixels (two warpgroups of 64 rows), a halo that fits the
+    shared memory, and no other tile covers the N*H x W image in fewer
+    blocks; with tile_h, rows dividing tile_h unless such tiles need more
+    blocks than the free choice."""
+    th, tw = tconv.pick_tile_tc(n, h, w, tile_h)
+    assert 1 <= th and 1 <= tw <= w and th * tw <= tconv.MAX_TILE_PIXELS
+    assert (th + 2) * (tw + 2) <= tconv.MAX_HALO_PIXELS
+    rows = n * h
+    blocks = lambda a, b: -(-rows // a) * -(-w // b)
+    least = lambda ths: min(blocks(a, b) for a in ths for b in range(1, min(w, 128 // a) + 1)
+                            if (a + 2) * (b + 2) <= tconv.MAX_HALO_PIXELS)
+    free = least(range(1, min(rows, tconv.MAX_TILE_PIXELS) + 1))
+    assert blocks(th, tw) == free
+    if tile_h is not None:
+        banded = least([d for d in range(1, tile_h + 1) if tile_h % d == 0])
+        if banded == free:
+            assert tile_h % th == 0 and h % th == 0
+    if (n, h, w) in ((32, 40, 64), (32, 20, 32), (32, 10, 16), (16, 72, 128)):
+        # every 320x512 / 576x1024 ResBlock shape takes 8 x 16, in K7 and
+        # (tile_h 8 or 10) in K8; at 10 x 16 (ds4, 160 pixels a sample) the
+        # 32 samples stacked are 40 whole tiles, nothing of M wasted
+        assert (th, tw) == (8, 16)
+        assert rows * w == blocks(th, tw) * 128
+
+
+def test_tensor_core_route_is_a_function_of_the_dtype():
+    assert tconv.tensor_core_route(torch.bfloat16)
+    assert not tconv.tensor_core_route(torch.float32)
+    assert not tconv.tensor_core_route(torch.float16)
+
+
+@pytest.mark.parametrize("n,hw,sms", [(32, 2560, 132), (32, 160, 132), (16, 9216, 132),
+                                      (1, 35, 132), (2, 1, 132), (1, 100000, 132),
+                                      (65535, 4, 132)])
+def test_stats_splits_cover_the_pixels_with_no_empty_run(n, hw, sms):
+    splits = tconv.stats_splits(n, hw, sms)
+    run = -(-hw // splits)
+    assert splits >= 1 and (splits - 1) * run < hw <= splits * run
+    assert splits == 1 or run >= 32 or splits * n <= 4 * sms + n
