@@ -40,8 +40,10 @@
 // 128 output pixels (pick_tile_tc: 8 x 16 at every ResBlock shape) and 160
 // output channels (every UNet width, 320 k, is whole blocks; other Co are
 // masked); 64-channel chunks; a ring of 96 KB (4 slots of one tap's 64 x
-// 160 weights). experiments/fused_conv/probe_tc_variants.py times the
-// kernel beside edited copies of it (NVIDIA H100 80GB HBM3, 700 W, the
+// 160 weights). The bring-up probe (`git show 664e858:dynamicrafter_tpu_
+// torch/experiments/fused_conv/probe_tc_variants.py`, removed after it
+// ran) timed the kernel beside edited copies of it (NVIDIA H100 80GB HBM3,
+// 700 W, the
 // conv alone, (32, 40, 64, 320 -> 320)): a 144 KB ring 1.011x its time (the
 // loads are not what it waits for); silu through an IEEE reciprocal 1.367x
 // (__expf and the approximate divide kept); silu through tanh.approx 0.932x

@@ -162,8 +162,8 @@ struct WgmmaRS<160> {
 };
 
 // -- host: tensor maps --------------------------------------------------------------
-// cuTensorMapEncodeTiled from the driver (the library is linked without
-// -lcuda), or nullptr where the driver lacks it.
+// cuTensorMapEncodeTiled, looked up in libcuda at run time (the library is
+// linked without -lcuda), or nullptr where libcuda lacks it.
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -190,7 +190,7 @@ inline EncodeTiledFn encode_tiled_fn() {
 // bytes between steps of dims 1 and 2 (multiples of 16), `box` the
 // elements one load copies (each <= 256; box[0] * 2 bytes a multiple of
 // 16, at most 128 under the 128-byte swizzle). Out-of-range elements read
-// as zero. cudaErrorInvalidValue if the driver refuses it.
+// as zero. cudaErrorInvalidValue if the encoding is refused.
 inline cudaError_t make_map_3d_bf16(CUtensorMap* map, const void* base, const uint64_t dims[3],
                                     const uint64_t strides[2], const uint32_t box[3],
                                     bool swizzle128) {

@@ -11,8 +11,8 @@ the median of each row, so that the clock's drift between rounds falls on
 all three alike. Then, each in a loop of its own, `gn_stats` alone (moments
 and two-pass) beside one `torch.var_mean` over the same groups, `F.conv2d`
 alone on the activation the library route feeds it, and K7's plain version;
-`gn_stats` also by the profiler's device time (`kernel_ms`), since back to
-back its calls can be paced by the host. Prints milliseconds per row and,
+`gn_stats` also as replays of a CUDA graph (`kernel_ms`), since back to
+back its wrapper calls are paced by the host. Prints milliseconds per row and,
 for the kernels, TFLOP/s, the share of the
 bound (`conv_bound`) and the factor over the library route. The library
 calls are timed here and used nowhere in the package; the UNet runs none of
@@ -93,20 +93,17 @@ def library_route(x: Tensor, kernel: Tensor, bias: Tensor, gn_scale: Tensor, gn_
     return lambda: F.conv2d(act(), w_oihw, bias, padding=1)
 
 
-def kernel_ms(fn, iters: int = 10) -> float:
-    """Device milliseconds per call of the kernels `fn` launches, from
-    `torch.profiler`: the host's time between launches left out (a
-    `gn_stats` call launches 0.02-0.09 ms of work, near the host's own time
-    for a wrapper call)."""
-    from torch.profiler import ProfilerActivity, profile
-
+def kernel_ms(fn) -> float:
+    """Device milliseconds per call of the kernels `fn` launches, timed as
+    replays of a CUDA graph of one call: the host's time per wrapper call is
+    left out (a `gn_stats` call launches 0.01-0.09 ms of work, less than
+    the host takes for a wrapper call)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / iters / 1e3
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay)
 
 
 def in_turn(rows: Dict[str, object], rounds: int = ROUNDS) -> Dict[str, List[float]]:
@@ -153,9 +150,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
                          "the library route")
             elif name.startswith("gn_stats"):
                 two_pass = name.endswith("two-pass")
-                device = kernel_ms(lambda: gn_stats(x, gs, gb, emb, two_pass=two_pass))
-                row.update(device_ms=device, bound_share=stats_bound(n, h, w, c) / device)
-                line += (f" (device {device:.4f} ms, {row['bound_share']:6.1%} of the "
+                dev_ms = kernel_ms(lambda: gn_stats(x, gs, gb, emb, two_pass=two_pass))
+                row.update(device_ms=dev_ms, bound_share=stats_bound(n, h, w, c) / dev_ms)
+                line += (f" (device {dev_ms:.4f} ms, {row['bound_share']:6.1%} of the "
                          f"{stats_bound(n, h, w, c):.4f} ms bound, bytes)")
             print(line, flush=True)
             results.append(row)

@@ -45,7 +45,6 @@ MODULES = [
     "dynamicrafter_tpu_torch.experiments.fused_conv.fused_conv",
     "dynamicrafter_tpu_torch.experiments.fused_conv.fused_conv_tiled",
     "dynamicrafter_tpu_torch.experiments.fused_conv.bench_fused_conv",
-    "dynamicrafter_tpu_torch.experiments.fused_conv.probe_tc_variants",
     "dynamicrafter_tpu_torch.models.encoders",
     "dynamicrafter_tpu_torch.pipeline",
     "dynamicrafter_tpu_torch.sds",
