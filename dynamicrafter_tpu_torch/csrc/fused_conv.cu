@@ -53,10 +53,10 @@
 // activation pass between the chunks' products and the products' own rate
 // hold it back, about equally. Tried in bring-up and not kept: the pass
 // overlapped with the products (two activation tiles, a part of the pass
-// after each tap's products; it spilled and was slower), and three warps of
-// their own filling two activation tiles a chunk ahead (a few per cent, for
-// a third role); setmaxnreg (producer at 40 registers, consumers at 232)
-// made a 288-thread block trap at launch.
+// after each tap's products; slower, with and without spills), and three
+// warps of their own filling two activation tiles a chunk ahead (a few per
+// cent, for a third role); setmaxnreg (producer at 40 registers, consumers
+// at 232) made a 288-thread block trap at launch.
 
 #include "hopper.cuh"
 #include "mma.cuh"
