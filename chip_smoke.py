@@ -57,13 +57,23 @@ Run from the repository root. Phases, each printing one line:
  10. K5 (position-major small-sequence attention) against its plain version
      at the 256x256 middle-block shape (256, 16, 20*64) bf16 and fp32 and
      at ragged shapes (G not a multiple of the row tile, T = 8 and 32, other
-     head counts); K5 against plain attention at several G;
+     head counts), with its share of the bound and its factor over the
+     library call, timed as CUDA-graph replays (the bf16 kernel takes less
+     time than the host takes for a wrapper call; the back-to-back wrapper
+     calls' time is printed beside it) beside K2's kernel on the same memory
+     viewed as (G, T, 1, H*64) (the same output bit for bit); then, from a generator of the phase's own, the bf16 route (tensor
+     cores) at T = 1, 5, 16, 17 and 32 and G = 1, 3, 257 and 4096 and at head
+     dim 32 (the SIMT route), at scales 0.125 and -0.125, with NaN sentinels
+     past the output, three runs bit-identical and the kernel that
+     `torch.profiler` records (in a fresh process); K5 against plain
+     attention at several G;
  11. K1 at the 576x1024 shapes (L = 9216 x 5 heads, L = 2304 x 10 heads)
      at N = 16, every row against its plain version (taken two rows of N at
      a time: the plain logits are N*H*L^2), and a ragged L = 2301;
  12. one full-width UNet forward of configs/inference_256_v1.0.yaml on the
      batched-CFG input of 8 clips (16, 16, 32, 32, 8), bf16, kernels against
-     plain, with the launches of one UNet call;
+     plain, with the launches of one UNet call; then `profile_unet` on that
+     config in a process of its own, K5's and K2's device time by family;
  13. the 256x256 slice end to end through `inference.main`: 8 prompts in one
      batch (--bs 8), DDIM-50, eta 1, CFG 7.5 batched, fs 3;
  14. the 576x1024 slice end to end through `inference.main`: one prompt,
@@ -132,7 +142,13 @@ Run from the repository root. Phases, each printing one line:
      synthetic frames): finite loss and gradient, peak memory, launches per
      micro-step, one profiled by kernel family; then that UNet cut to 2
      frames, forward and backward through the kernels and through the plain
-     versions, gradients compared.
+     versions, gradients compared;
+ 26. the sampler-quality scripts on the 320x512 model (random N(0, 0.02)
+     weights, bf16, 2-pass CFG): `dpm_certify.main` with the default
+     candidates dpm@30, ddim@50, ddim@30 and dpm@120, which must reproduce
+     the dpm@120 reference (relative L2 0), and `deepcache_certify.main` at
+     N = 1 (equal to the exact sampler: infinite PSNR, SSIM 1) to 5; each
+     row with its seconds beside the card's name and power limit.
 
 Then a JSON line with, for each kernel, its launches on its main path (K1 and
 K2 phase 5, K3, K4a, K4b and the di pre-pass phase 9, K5 phase 13, K6, K9 and
@@ -155,6 +171,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -201,6 +218,43 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """Device milliseconds per call of the kernels `fn` launches, as replays
+    of a CUDA graph of one call: the host's time per wrapper call is left
+    out. Relaxed capture, since a wrapper sets kernel attributes."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    return cuda_ms(graph.replay, iters=iters)
+
+
+def fresh_process_kernel_names(cases) -> dict:
+    """The `small_t` kernels `torch.profiler` records for one bf16
+    `small_t_fwd` call at each (G, T, H, D) of `cases`, profiled in a fresh
+    process: in this one, after the training phases, a profile of a single
+    short launch recorded no kernel at all (a fresh process records it, as
+    the card tests do)."""
+    code = (
+        "import json, sys, torch\n"
+        "from dynamicrafter_tpu_torch import profile_unet\n"
+        "from dynamicrafter_tpu_torch.ops.small_attention import small_t_fwd\n"
+        "out = {}\n"
+        "for g, t, h, d in json.loads(sys.argv[1]):\n"
+        "    q = torch.randn(g, t, h * d, device='cuda').to(torch.bfloat16)\n"
+        "    small_t_fwd(q, q, q, h, 0.125)\n"
+        "    _, names, _, _ = profile_unet.profile_families(\n"
+        "        lambda: small_t_fwd(q, q, q, h, 0.125), 1)\n"
+        "    out[str((g, t, h, d))] = sorted(n for n in names if 'small_t' in n)\n"
+        "print(json.dumps(out))\n")
+    done = subprocess.run([sys.executable, "-c", code, json.dumps(cases)], capture_output=True,
+                          text=True, timeout=600, check=True, cwd=REPO)
+    return json.loads(done.stdout.strip().splitlines()[-1])
 
 
 def errors(out, ref):
@@ -271,7 +325,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke test "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from dynamicrafter_tpu_torch import generate_guidance, inference, profile_unet
+    from dynamicrafter_tpu_torch import (
+        deepcache_certify, dpm_certify, generate_guidance, inference, profile_unet)
     from dynamicrafter_tpu_torch.app import Image2Video
     from dynamicrafter_tpu_torch.config import ModelConfig
     from dynamicrafter_tpu_torch.experiments.fused_conv import bench_fused_conv
@@ -333,6 +388,7 @@ def main() -> int:
         + "; ".join(f"{name} {r['regs']} regs {r['spill']} B" for name, r in ptxas.items()))
     for what, key, count in (("K1/K3", "flash_fwd_tc_kernel", 2),
                              ("K2", "small_t_tc_kernel", 2),
+                             ("K5", "small_t_posmajor_tc_kernel", 2),
                              ("K4a", "flash_bwd_dq_tc_kernel", 1),
                              ("K4b", "flash_bwd_dkv_tc_kernel", 1),
                              ("K6", "flash_fwd_packed_tc_kernel", 1),
@@ -817,9 +873,9 @@ def main() -> int:
     # -- phase 10: K5 -------------------------------------------------------
     t0 = time.perf_counter()
     for g, tk, h, d, dtype, tol in [
-            (256, 16, 20, 64, torch.bfloat16, 2e-2), (256, 16, 20, 64, torch.float32, 1e-4),
-            (37, 8, 3, 64, torch.bfloat16, 2e-2), (37, 8, 3, 64, torch.float32, 1e-4),
-            (19, 32, 7, 64, torch.bfloat16, 2e-2), (19, 32, 7, 32, torch.float32, 1e-4)]:
+            (256, 16, 20, 64, torch.bfloat16, 1e-2), (256, 16, 20, 64, torch.float32, 1e-4),
+            (37, 8, 3, 64, torch.bfloat16, 1e-2), (37, 8, 3, 64, torch.float32, 1e-4),
+            (19, 32, 7, 64, torch.bfloat16, 1e-2), (19, 32, 7, 32, torch.float32, 1e-4)]:
         q, k, v = (torch.randn(g, tk, h * d, device=dev, generator=gen).to(dtype)
                    for _ in range(3))
         scale = d ** -0.5
@@ -833,11 +889,65 @@ def main() -> int:
             f"rel_l2 {rel:.3e} (tol {tol:g}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         check(rel <= tol, f"K5 rel L2 {rel} > {tol} at {(g, tk, h, d, dtype)}")
         if (g, tk, dtype) == (256, 16, torch.bfloat16):
+            lib_ms = sdpa_ms(q, k, v, h, iters=50)
+            b5 = attention_bound(g, tk, tk, h, d, dtype)
+            # K2's kernel on the same memory viewed as (G, T, 1, H*D): the
+            # warp loop K5's kernel shares, under K2's address map
+            as_k2 = lambda: small_t_fwd_tmajor(
+                *(x.view(g, tk, 1, h * d) for x in (q, k, v)), h, scale)
+            k2_ms = cuda_ms(as_k2, iters=50)
+            same = torch.equal(as_k2().view_as(out), out)
+            # the tensor-core kernel takes less time than the host takes for a
+            # wrapper call: its time is that of CUDA-graph replays, and the
+            # back-to-back wrapper calls' time is kept beside it
+            dev_ms = graph_ms(lambda: small_t_fwd(q, k, v, h, scale))
+            k2_dev_ms = graph_ms(as_k2)
             report["small_t_fwd"] = dict(
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                **attention_bound(g, tk, tk, h, d, dtype),
-                library_ms=sdpa_ms(q, k, v, h, iters=50))
+                max_abs_err=max_abs, ms=dev_ms, plain_ms=plain_ms, **b5, library_ms=lib_ms,
+                bound_share=b5["bound_ms"] / dev_ms, wrapper_ms=ms)
+            log(f"[10] K5 at (256, 16, 20*64) bf16 (tensor cores), as CUDA-graph replays: "
+                f"{dev_ms:.4f} ms, {b5['bound_ms'] / dev_ms:.1%} of the {b5['bound_ms']:.4f} ms "
+                f"bound ({b5['bound_by']}; the 42 MB fit the 50 MB L2), {lib_ms / dev_ms:.2f}x "
+                f"faster than the library's {lib_ms:.4f} ms; back-to-back wrapper calls "
+                f"{ms:.4f} ms | K2's kernel on the same memory as (256, 16, 1, 20*64): replays "
+                f"{k2_dev_ms:.4f} ms, wrapper calls {k2_ms:.4f} ms, output bit-identical {same}")
+            check(same, "K5's tensor-core kernel differs from K2's on the same memory")
         del q, k, v, out, ref
+    # the bf16 route at T = 1, 5, 16, 17 and 32 (one m16 tile of rows, then
+    # two), G = 1, 3, 257 and 4096, and at head dim 32 (the SIMT route), at
+    # scales 0.125 and -0.125: against plain, NaN sentinels past the output,
+    # three runs bit-identical, and the kernel `torch.profiler` records as
+    # the witness of the route. The inputs come from a generator of this
+    # phase's own, so later phases draw what they drew before these checks.
+    local_gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    k5_cases = [(1, 1, 3, 64), (3, 5, 3, 64), (257, 16, 5, 64), (4096, 17, 2, 64),
+                (257, 32, 3, 64), (3, 16, 3, 32), (257, 16, 5, 32)]
+    k5_names = fresh_process_kernel_names(k5_cases)
+    for g, tk, h, d in k5_cases:
+        q, k, v = (torch.randn(g, tk, h * d, device=dev, generator=local_gen).to(bf16)
+                   for _ in range(3))
+        rels = {sc: errors(small_t_fwd(q, k, v, h, sc),
+                           small_t_fwd_plain(q.float(), k.float(), v.float(), h, sc))[1]
+                for sc in (0.125, -0.125)}
+        check(max(rels.values()) <= 1e-2, f"K5 bf16 rel L2 {rels} > 1e-2 at {(g, tk, h, d)}")
+        buf = torch.full((q.numel() + 4096,), float("nan"), device=dev, dtype=bf16)
+        kernels.check(kernels.library().dct_small_t_fwd_posmajor(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), kernels.DTYPE_CODES[bf16],
+            g, tk, h, d, 0.125, kernels.stream_handle(dev)), "dct_small_t_fwd_posmajor")
+        first, second = (small_t_fwd(q, k, v, h, 0.125) for _ in range(2))
+        names = k5_names[str((g, tk, h, d))]
+        torch.cuda.synchronize()
+        intact = bool(buf[q.numel():].isnan().all())
+        same = torch.equal(buf[:q.numel()].view_as(q), first) and torch.equal(first, second)
+        want = (f"small_t_posmajor_tc_kernel<{1 if tk <= 16 else 2}>" if d == 64
+                else "small_t_posmajor_kernel<__nv_bfloat16>")
+        log(f"[10] K5 ({g}, {tk}, {h}*{d}) bf16 {'tensor cores' if d == 64 else 'SIMT'}: "
+            f"rel_l2 {rels[0.125]:.3e} at scale 0.125, {rels[-0.125]:.3e} at -0.125 (tol 1e-2), "
+            f"NaN sentinels intact {intact}, three runs bit-identical {same}, kernel {names}")
+        check(intact, f"K5 wrote past its output at {(g, tk, h, d)}")
+        check(same, f"K5 bf16 runs differ at {(g, tk, h, d)}")
+        check(len(names) == 1 and want in names[0], f"K5 at {(g, tk, h, d)} ran {names}")
+        del q, k, v, buf, first, second
     # why the route has no row threshold (the JAX rule wants 256 rows): K5
     # against plain attention on (rows, 16, 20, 64) bf16, from --bs 2 up
     for g in (32, 64, 256, 1024, 4096):
@@ -913,6 +1023,20 @@ def main() -> int:
         f"{per_call_256[2]} (the middle block's 4 x 4 frame: attn1, and attn2's image "
         f"cross-attention, whose 16 image tokens per frame give k and v the shape of q) | "
         f"{ms:.1f} ms with kernels, {plain_ms:.1f} ms plain")
+    # profile_unet's kernel families of one such call, in a process of its
+    # own (see fresh_process_kernel_names)
+    prof = subprocess.run([sys.executable, "-m", "dynamicrafter_tpu_torch.profile_unet",
+                           "--config", CONFIG_256, "--batch", "16", "--height", "256",
+                           "--width", "256"], capture_output=True, text=True, timeout=600,
+                          check=True, cwd=REPO).stdout
+    fam_256 = {m.group(1).strip(): float(m.group(2))
+               for m in re.finditer(r"^  (\S.*?)\s+([\d.]+) ms\s+[\d.]+ %$", prof, re.M)}
+    log(f"[12] profile_unet, one call of that UNet: "
+        + re.search(r"[\d.]+ ms per call unprofiled.*? device time [\d.]+ ms per call",
+                    prof).group(0)
+        + f"; K5 family {fam_256.get('K5 small_t_fwd', 0.0):.2f} ms, K2 family "
+        f"{fam_256.get('K2 small_t_kernel', 0.0):.2f} ms")
+    check(fam_256.get("K5 small_t_fwd", 0.0) > 0, "the profile of a 256 UNet call has no K5 kernel")
     check(bool(torch.isfinite(out).all()) and out.shape == (16, 16, 32, 32, 4), "256 UNet output")
     check(rel <= 2e-2, f"256 UNet kernels vs plain rel L2 {rel} > 2e-2")
     check(per_call_256 == (0, 34, 2), f"launches per 256 UNet call {per_call_256} != (0, 34, 2)")
@@ -1818,6 +1942,57 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_s["25"] = time.perf_counter() - t0
 
+    # -- phase 26: the sampler-quality scripts at 320x512 --------------------
+    t0 = time.perf_counter()
+    reset(*infer_wrappers)
+    # the default candidates, and dpm at the reference's count, which must
+    # reproduce the reference
+    dpm_rows = dpm_certify.main(["--resolutions", "512", "--cfg_passes", "2", "--candidates",
+                                 "dpm:120,dpm:30,ddim:50,ddim:30", "--ref_steps", "120"])
+    n_dpm_certify = counts(*infer_wrappers)
+    torch.cuda.empty_cache()
+    reset(*infer_wrappers)
+    dc_rows = deepcache_certify.main(["--resolutions", "512", "--cfg_passes", "2",
+                                      "--intervals", "1,2,3,4,5", "--steps", "50"])
+    n_dc_certify = counts(*infer_wrappers)
+    torch.cuda.empty_cache()
+    for row in dpm_rows:
+        log(f"[26] dpm_certify 512 {row['cfg_passes']}-pass, ref dpm@120, {row['weights']} "
+            f"weights: {row['sampler']}@{row['steps']} rel_l2 {row['rel_l2_vs_ref']} latent PSNR "
+            f"{row['latent_psnr_db']} dB pixel PSNR {row['pixel_psnr_db']} dB | "
+            f"{row['seconds']} s on {smi}")
+    for row in dc_rows:
+        log(f"[26] deepcache_certify 512 {row['cfg_passes']}-pass, {row['weights']} weights: "
+            f"N={row['interval_N']} at {row['steps']} steps latent PSNR {row['latent_psnr_db']} "
+            f"dB pixel PSNR {row['pixel_psnr_db']} dB SSIM {row['pixel_ssim']} | "
+            f"{row['seconds']} s on {smi}")
+    log(f"[26] launches K1 {n_dpm_certify[0]} K2 {n_dpm_certify[1]} (dpm_certify), "
+        f"K1 {n_dc_certify[0]} K2 {n_dc_certify[1]} (deepcache_certify)")
+    check(dpm_rows[0]["rel_l2_vs_ref"] == 0.0 and dpm_rows[0]["latent_psnr_db"] is None,
+          f"dpm@120 does not reproduce the reference: {dpm_rows[0]}")
+    check(all(np.isfinite(r["rel_l2_vs_ref"]) and r["rel_l2_vs_ref"] > 0
+              and np.isfinite(r["latent_psnr_db"]) and np.isfinite(r["pixel_psnr_db"])
+              for r in dpm_rows[1:]), f"dpm_certify rows {dpm_rows}")
+    check(dc_rows[0]["interval_N"] == 1 and dc_rows[0]["latent_psnr_db"] == float("inf")
+          and dc_rows[0]["pixel_psnr_db"] == float("inf") and dc_rows[0]["pixel_ssim"] == 1.0,
+          f"DeepCache N = 1 differs from the exact sampler: {dc_rows[0]}")
+    check(all(np.isfinite(r["latent_psnr_db"]) and np.isfinite(r["pixel_psnr_db"])
+              and np.isfinite(r["pixel_ssim"]) for r in dc_rows[1:]),
+          f"deepcache_certify rows {dc_rows}")
+    # one UNet call a step, both CFG passes in its batch: K1 5 and K2 34 a
+    # full call, K1 5 and K2 12 a DeepCache shallow one; the exact baselines
+    # at 50 and 48 steps, then N = 1..5 (N = 3 and 4 at 48 steps)
+    dpm_calls = 120 + 120 + 30 + 50 + 30
+    dc_steps = {n: 50 if 50 % n == 0 else 48 for n in range(1, 6)}
+    full = 50 + 48 + sum(st // n for n, st in dc_steps.items())
+    shallow = sum(st - st // n for n, st in dc_steps.items())
+    check(n_dpm_certify[:2] == (5 * dpm_calls, 34 * dpm_calls),
+          f"dpm_certify launches {n_dpm_certify} != {dpm_calls} UNet calls")
+    check(n_dc_certify[:2] == (5 * (full + shallow), 34 * full + 12 * shallow),
+          f"deepcache_certify launches {n_dc_certify} != {full} full and {shallow} shallow "
+          f"UNet calls")
+    phase_s["26"] = time.perf_counter() - t0
+
     log("[wall] " + " ".join(f"phase {k} {v:.1f}s" for k, v in phase_s.items())
         + f" | total {time.perf_counter() - t_start:.1f}s")
 
@@ -1831,7 +2006,9 @@ def main() -> int:
                        "inference_1024": launches_1024[0], "inference_512_dpm30": n_dpm[0],
                        "inference_512_unipc20": n_unipc[0],
                        "inference_512_deepcache5": n_dc[0], "sds_512": n_sds[0],
-                       "app_512": n_app["i2v"][0] + n_app["loop"][0]}),
+                       "app_512": n_app["i2v"][0] + n_app["loop"][0],
+                       "dpm_certify_512": n_dpm_certify[0],
+                       "deepcache_certify_512": n_dc_certify[0]}),
         "small_t_fwd_tmajor": (src + "small_attention.cu", tpu + "small_attention.py:134",
                                launches[1],
                                {"inference_512": launches[1], "train_512": train_launches[3],
@@ -1841,7 +2018,9 @@ def main() -> int:
                                 "inference_512_dpm30": n_dpm[1],
                                 "inference_512_unipc20": n_unipc[1],
                                 "inference_512_deepcache5": n_dc[1], "sds_512": n_sds[1],
-                                "app_512": n_app["i2v"][1] + n_app["loop"][1]}),
+                                "app_512": n_app["i2v"][1] + n_app["loop"][1],
+                                "dpm_certify_512": n_dpm_certify[1],
+                                "deepcache_certify_512": n_dc_certify[1]}),
         "flash_fwd_lse": (src + "flash_attention.cu", tpu + "flash_attention.py:32",
                           train_launches[0], {"train_512": train_launches[0],
                                               "train_1024_per_micro_step": per_step_1024[0]}),

@@ -2,8 +2,10 @@
 // (sm_90a). Both compute, for one head of one group of T tokens, softmax
 // over T of the T x T logits q k^T * scale (fp32), times v; they differ in
 // the memory layout they read in place, and so in how a block gathers its
-// rows. K5 and K2's SIMT route share the per-row arithmetic (`attend_row`);
-// K2's bf16 route runs both products on the tensor cores.
+// rows. bf16 with head dim 64 runs both products on the tensor cores in
+// both (one warp loop, `small_t_tc_groups`); fp32, and bf16 with another
+// head dim, take the SIMT kernels, which share the per-row arithmetic
+// (`attend_row`).
 //
 // K2, time-major (B, T, G, H*D): the UNet's temporal transformers.
 // K5, position-major (G, T, H*D): spatial self-attention over a tiny frame
@@ -248,11 +250,17 @@ struct SmallTcTile {
   static constexpr int kMinBlocks = kMTiles == 1 ? 4 : 2;
 };
 
+// The warp loop of the tensor-core kernels: each warp takes groups first,
+// first + step, ... of `groups` = B * G * heads. Group gi = (b * G + g) *
+// heads + h has its T rows at ((b * T + t) * G + g) * heads * 64 + h * 64,
+// t = 0 .. T - 1: K2's time-major layout; with G = 1 (a literal in K5's
+// kernel, so the divisions by G fold away) b is K5's position-major row.
 template <int kMTiles>
-__global__ void __launch_bounds__(kTcWarps * 32, SmallTcTile<kMTiles>::kMinBlocks)
-small_t_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int tlen, int g,
-                  int heads, int groups, float scale) {
+__device__ __forceinline__ void small_t_tc_groups(const bf16* __restrict__ q,
+                                                  const bf16* __restrict__ k,
+                                                  const bf16* __restrict__ v,
+                                                  bf16* __restrict__ o, int tlen, int g,
+                                                  int heads, int groups, float scale) {
   using Tile = SmallTcTile<kMTiles>;
   constexpr int kRows = Tile::kRows, kTE = Tile::kTensorElems;
   constexpr int kChunks = kRows * 8 / 32;   // 16-byte chunks a lane moves per tensor
@@ -428,12 +436,30 @@ small_t_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   dct::cp_async_wait<0>();   // only empty groups remain; leave none behind
 }
 
+// K2: time-major (B, T, G, H*64)
 template <int kMTiles>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int b, int tlen,
-                      int g, int heads, float scale, cudaStream_t stream) {
+__global__ void __launch_bounds__(kTcWarps * 32, SmallTcTile<kMTiles>::kMinBlocks)
+small_t_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o, int tlen, int g,
+                  int heads, int groups, float scale) {
+  small_t_tc_groups<kMTiles>(q, k, v, o, tlen, g, heads, groups, scale);
+}
+
+// K5: position-major (G, T, H*64), K2's kernel at G = 1 under a name of its
+// own (see K5's comment further down)
+template <int kMTiles>
+__global__ void __launch_bounds__(kTcWarps * 32, SmallTcTile<kMTiles>::kMinBlocks)
+small_t_posmajor_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ o, int tlen,
+                           int heads, int groups, float scale) {
+  small_t_tc_groups<kMTiles>(q, k, v, o, tlen, 1, heads, groups, scale);
+}
+
+// The persistent grid of a tensor-core kernel over `groups` groups: every
+// block resident at once, none idle. Sets the kernel's shared memory first.
+template <int kMTiles, typename Kernel>
+cudaError_t tc_grid(Kernel kernel, long long groups, int* blocks) {
   using Tile = SmallTcTile<kMTiles>;
-  const auto kernel = small_t_tc_kernel<kMTiles>;
-  const long long groups = (long long)b * g * heads;
   if (groups < 1 || groups > INT_MAX) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Tile::kSmemBytes);
@@ -441,7 +467,6 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  // the persistent grid: every block resident at once, none idle
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
@@ -452,10 +477,36 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long wanted = (groups + kTcWarps - 1) / kTcWarps;
-  const int blocks = (int)(wanted < (long long)sms * per_sm ? wanted : (long long)sms * per_sm);
-  kernel<<<blocks, kTcWarps * 32, Tile::kSmemBytes, stream>>>(
+  *blocks = (int)(wanted < (long long)sms * per_sm ? wanted : (long long)sms * per_sm);
+  return cudaSuccess;
+}
+
+template <int kMTiles>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int b, int tlen,
+                      int g, int heads, float scale, cudaStream_t stream) {
+  const long long groups = (long long)b * g * heads;
+  int blocks = 0;
+  const cudaError_t err = tc_grid<kMTiles>(small_t_tc_kernel<kMTiles>, groups, &blocks);
+  if (err != cudaSuccess) return err;
+  small_t_tc_kernel<kMTiles><<<blocks, kTcWarps * 32, SmallTcTile<kMTiles>::kSmemBytes,
+                               stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), tlen, g, heads, (int)groups, scale);
+  return cudaGetLastError();
+}
+
+template <int kMTiles>
+cudaError_t launch_posmajor_tc(const void* q, const void* k, const void* v, void* o, int g,
+                               int tlen, int heads, float scale, cudaStream_t stream) {
+  const long long groups = (long long)g * heads;
+  int blocks = 0;
+  const cudaError_t err =
+      tc_grid<kMTiles>(small_t_posmajor_tc_kernel<kMTiles>, groups, &blocks);
+  if (err != cudaSuccess) return err;
+  small_t_posmajor_tc_kernel<kMTiles><<<blocks, kTcWarps * 32,
+                                        SmallTcTile<kMTiles>::kSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), tlen, heads, (int)groups, scale);
   return cudaGetLastError();
 }
 
@@ -472,14 +523,33 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
 // What bounds it: 4*G*T*H*D elements moved for 4*G*H*T^2*D FLOP, 2*T/itemsize
 // = 16 FLOP per byte at T = 16 in bf16: bytes. At the shape the 256 x 256
 // model gives it with 8 clips under batched CFG (G = 256, T = 16, H = 20,
-// D = 64, bf16) that is 42 MB, about 12.5 us at 3.35 TB/s.
+// D = 64, bf16) that is 42 MB, about 12.5 us at 3.35 TB/s. The input type
+// and the head width choose the kernel (`dct_small_t_fwd_posmajor`):
 //
-// Design: one block per (tile of GT rows g, head), GT*T threads, one thread
-// per query token. A tile's GT*T tokens are consecutive rows of the
-// (G*T, H*D) matrix, so the block copies rows g0*T .. of its head's D-wide
-// column slice into shared memory with 16-byte loads (one head's row is 128
-// contiguous bytes in bf16), runs `attend_row`, and copies the result back
-// the same way. The last tile is ragged when GT does not divide G.
+// bf16 with D = 64 (both of the model's K5 attentions):
+//   `small_t_posmajor_tc_kernel<kMTiles>`, K2's tensor-core warp loop
+//   (`small_t_tc_groups`, above) with G = 1: a (g, head) group is T rows of
+//   128 contiguous bytes, row t at (g*T + t)*H*64 + h*64, which is K2's
+//   address map with its B the G here. One warp a group, both products on
+//   mma.sync, p normalised and rounded to bf16, a two-slot cp.async ring
+//   per warp, a persistent grid; the group count G*H needs only fit an int,
+//   so H has no grid limit. It is a kernel of its own, not a call of K2's,
+//   so that a profile tells the two apart; its output equals K2's kernel on
+//   the same memory viewed as (G, T, 1, H*64) bit for bit. Card time
+//   (chip_smoke.py phase 10, NVIDIA H100 80GB HBM3 at 700 W): 0.0139-0.0143
+//   ms at (256, 16, 20*64) as CUDA-graph replays, 87-90 % of the bound (its
+//   42 MB stay in the 50 MB L2 between calls), against 0.0710-0.0716 ms for
+//   the SIMT kernel in the same call; a wrapper call takes the host longer
+//   than that (0.02-0.05 ms back to back). 0.245 ms at G = 4096 back to
+//   back, 82 % of the bound.
+//
+// fp32, and bf16 with another D: `small_t_posmajor_kernel<T>`, the first
+//   version. One block per (tile of GT rows g, head), GT*T threads, one
+//   thread per query token. A tile's GT*T tokens are consecutive rows of the
+//   (G*T, H*D) matrix, so the block copies rows g0*T .. of its head's D-wide
+//   column slice into shared memory with 16-byte loads, runs `attend_row`,
+//   and copies the result back the same way. The last tile is ragged when
+//   GT does not divide G; the head is the grid's y, at most 65535.
 template <typename T>
 __global__ void __launch_bounds__(kThreadsTarget)
 small_t_posmajor_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -568,10 +638,18 @@ extern "C" int dct_small_t_fwd(const void* q, const void* k, const void* v, void
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K5. bf16 with D = 64 runs the tensor-core kernel (one m16 tile of rows
+// for T <= 16, two for T <= 32); fp32, and bf16 with another D, the SIMT
+// kernel.
 extern "C" int dct_small_t_fwd_posmajor(const void* q, const void* k, const void* v,
                                         void* o, int dtype, int g, int tlen, int heads,
                                         int d, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == dct::kBFloat16 && d == kTcD) {
+    if (tlen < 1 || tlen > kMaxT) return static_cast<int>(cudaErrorInvalidValue);
+    return tlen <= 16 ? launch_posmajor_tc<1>(q, k, v, o, g, tlen, heads, scale, s)
+                      : launch_posmajor_tc<2>(q, k, v, o, g, tlen, heads, scale, s);
+  }
   if (dtype == dct::kBFloat16)
     return launch_posmajor<__nv_bfloat16>(q, k, v, o, g, tlen, heads, d, scale, s);
   if (dtype == dct::kFloat32)

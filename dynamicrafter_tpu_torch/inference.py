@@ -89,7 +89,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     [per-batch stage seconds], "peaks": [per-batch peak bytes allocated in
     each stage, on a CUDA device], "build_peak": peak bytes while the
     pipeline was built and filled, "videos": [per-batch (B, n_samples, T, H,
-    W, 3) float frames]} for callers that drive it in-process."""
+    W, 3) float frames], "latents": [per-batch (B, n_samples, T, h, w, z)
+    sampled latents]} for callers that drive it in-process."""
     args = get_parser().parse_args(argv)
     if args.deepcache > 1 and args.ddim_steps % args.deepcache != 0:
         raise SystemExit(f"--deepcache {args.deepcache} must divide "
@@ -122,7 +123,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         prompts = [""] * len(prompts)
 
     start = time.perf_counter()
-    paths, timings, peaks, outputs = [], [], [], []
+    paths, timings, peaks, outputs, latents = [], [], [], [], []
     for i0 in range(0, len(prompts), args.bs):
         sl = slice(i0, min(i0 + args.bs, len(prompts)))
         clock, peak = {}, {}
@@ -147,12 +148,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         timings.append(clock)
         peaks.append(peak)
         outputs.append(vids)
+        latents.append(out.latents)
         print(f"[{sl.stop}/{len(prompts)}] " + " ".join(
             f"{k} {v:.2f}s" + (f" (peak {peak[k] / 2**30:.2f} GiB)" if k in peak else "")
             for k, v in clock.items()))
     print(f"done in {time.perf_counter() - start:.1f}s -> {args.savedir}")
     return {"paths": paths, "timings": timings, "peaks": peaks, "build_peak": build_peak,
-            "videos": outputs}
+            "videos": outputs, "latents": latents}
 
 
 if __name__ == "__main__":

@@ -13,17 +13,23 @@ cores; fp32, and bf16 with another head dim, run `small_t_kernel`.
 
 K5, position-major. `small_t_fwd` is the kernel wrapper on (G, T, H*D):
 each of G rows attends over its own T tokens (spatial self-attention over
-a tiny frame, many frames). On a CUDA tensor it launches
-`small_t_posmajor_kernel` of the same source (which replaces the Pallas
-kernel `dynamicrafter_tpu/ops/small_attention.py::_kernel`) or raises; on a
-CPU tensor it runs `small_t_fwd_plain`. `small_t_attention` is its entry
-point on (..., T, H, D).
+a tiny frame, many frames). On a CUDA tensor it launches a kernel of the
+same source (which replaces the Pallas kernel
+`dynamicrafter_tpu/ops/small_attention.py::_kernel`) or raises; on a CPU
+tensor it runs `small_t_fwd_plain`. bf16 with head dim 64 (the 256x256
+model's middle block) runs `small_t_posmajor_tc_kernel`, K2's tensor-core
+warp loop on this layout; fp32, and bf16 with another head dim, run the
+SIMT `small_t_posmajor_kernel`, whose grid takes at most 65535 heads.
+At the 256x256 model's shape (256, 16, 20*64) bf16 the tensor-core kernel
+takes 0.014 ms of device time, the SIMT kernel 0.071 (chip_smoke.py phase
+10, NVIDIA H100 80GB HBM3, 700 W). `small_t_attention` is its entry point
+on (..., T, H, D).
 
-Which route rounds p: the plain versions, K5 and K2's tensor-core route
-round the probabilities to the input dtype before the product with v, as
-the Pallas kernels and their XLA references do; K2's fp32 route keeps them
-in fp32 (the input dtype: nothing to round), and so does its bf16 route
-for a head dim other than 64.
+Which route rounds p: the plain versions and the kernels round the
+probabilities to the input dtype before the product with v, as the Pallas
+kernels and their XLA references do, but for one: K2's SIMT kernel keeps p
+in fp32 (for fp32 inputs that is their dtype; for bf16 with a head dim
+other than 64 it is one rounding fewer).
 
 Each wrapper counts its kernel launches in `.launches`. When no input needs
 a gradient an entry point calls its kernel wrapper directly. Under a
@@ -122,7 +128,10 @@ def small_t_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("small_t_fwd: q, k, v must share one (G, T, H*D) shape")
     g, t, hd = q.shape
     d = _head_dim("small_t_fwd", t, hd, heads, q.element_size())
-    if g < 1 or heads > 65535:
+    # the tensor-core route's persistent grid counts G*heads groups in an
+    # int; the SIMT kernel's grid has the head as its y
+    tc = q.dtype == torch.bfloat16 and d == 64
+    if g < 1 or g * heads > 2**31 - 1 or (not tc and heads > 65535):
         raise ValueError(f"small_t_fwd: G={g}, heads={heads} outside the launch grid")
     out = torch.empty_like(q)
     lib = kernels.library()

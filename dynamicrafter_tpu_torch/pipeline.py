@@ -61,6 +61,8 @@ class PipelineOutput:
     videos: np.ndarray   # (B, n_samples, T, H, W, 3) float32 in [-1, 1]
     # decoded DDIM intermediates (n_logs + 1, B, T, H, W, 3), with log_every_t
     denoise_rows: Optional[np.ndarray] = None
+    # the sampled latents (B, n_samples, T, h, w, z) float32, before decoding
+    latents: Optional[np.ndarray] = None
 
 
 def _text_config(config: ModelConfig) -> CLIPTextConfig:
@@ -465,4 +467,4 @@ class DynamiCrafterPipeline:
         if log_every_t is not None:
             rows = np.stack([self.decode_latents(x).cpu().numpy() for x in inter])
         stage_end("decode", t0)
-        return PipelineOutput(videos=frames, denoise_rows=rows)
+        return PipelineOutput(videos=frames, denoise_rows=rows, latents=z_all.cpu().numpy())

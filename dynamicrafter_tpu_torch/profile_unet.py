@@ -34,7 +34,7 @@ FAMILIES = (
     ("K9 flash_attention_pairs", ("flash_fwd_pairs_tc_kernel", "flash_fwd_pairs_kernel")),
     ("K10 run_variant", ("flash_variants_tc_kernel", "flash_variants_kernel")),
     ("K1 flash_fwd", ("flash_fwd_tc_kernel", "flash_fwd_fma_kernel")),
-    ("K5 small_t_posmajor_kernel", ("small_t_posmajor_kernel",)),
+    ("K5 small_t_fwd", ("small_t_posmajor_tc_kernel", "small_t_posmajor_kernel")),
     ("K2 small_t_kernel", ("small_t_tc_kernel", "small_t_kernel")),
     ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions", ("conv", "fprop", "xmma", "cudnn", "implicit_gemm")),

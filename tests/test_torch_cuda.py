@@ -8,7 +8,7 @@ The file imports no JAX, so it runs on the GPU machine as it is:
 Tolerances: forward outputs relative L2 <= 1e-5 in fp32 (the kernels
 accumulate in fp32, in another order than cuBLAS) and <= 1e-2 in bf16 (the
 inputs' own rounding, the output's, and that of p before the PV product in
-the tensor-core K1/K3, K2, K6, K9 and K10, which read about 2.3e-3; <= 5e-3
+the tensor-core K1/K3, K2, K5, K6, K9 and K10, which read about 2.3e-3; <= 5e-3
 for K6, K9 and K10, at scales 0.125, 0.3 and -0.125 for K6, K9 and K10, and
 K10's mode exp2 equal to K1 bit for bit); lse max abs <= 1e-3; the backward's dq, dk, dv
 <= 1e-4 in fp32 and <= 2e-2 in bf16 (ds is rounded to bf16 before its
@@ -124,6 +124,118 @@ def test_k5_refuses_what_the_kernel_does_not_take(cuda):
         tsmall.small_t_fwd(q.transpose(0, 1), q.transpose(0, 1), q.transpose(0, 1), 1, 0.125)
     with pytest.raises(TypeError, match="dtype"):
         tsmall.small_t_fwd(q.half(), q.half(), q.half(), 1, 0.125)
+
+
+# K5's bf16 route with head dim 64: the tensor-core kernel (K2's warp loop on
+# the position-major layout). T = 1, 5 and 16 take one m16 tile of rows, 17
+# and 32 two; G = 1, 3 (fewer groups than a block's warps), 257 (ragged) and
+# 4096 (more groups than the persistent grid's warps)
+K5_TC_SHAPES = [(g, t, h) for t in (1, 5, 16, 17, 32) for g, h in ((3, 3), (257, 2))] + [
+    (1, 16, 1), (1, 32, 20), (4096, 16, 2), (4096, 17, 1)]
+
+
+def _k5_entry(q, k, v, out, h, scale, device):
+    g, t, hd = q.shape
+    tkernels.check(tkernels.library().dct_small_t_fwd_posmajor(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), tkernels.DTYPE_CODES[q.dtype],
+        g, t, h, hd // h, scale, tkernels.stream_handle(device)), "dct_small_t_fwd_posmajor")
+
+
+@pytest.mark.parametrize("g,t,h", K5_TC_SHAPES)
+def test_k5_tensor_core_kernel_matches_plain(cuda, g, t, h):
+    """bf16 K5 on the tensor cores (p rounded to bf16 as in Pallas) against
+    the fp32 plain version at 1e-2."""
+    q, k, v = _qkv((g, t, h * 64), torch.bfloat16, cuda)
+    before = tsmall.small_t_fwd.launches
+    out = tsmall.small_t_fwd(q, k, v, h, 0.125)
+    ref = tsmall.small_t_fwd_plain(q.float(), k.float(), v.float(), h, 0.125)
+    torch.cuda.synchronize()
+    assert tsmall.small_t_fwd.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert _rel(out, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("t", [5, 16, 32])
+@pytest.mark.parametrize("scale", [0.3, -0.125, 0.0])
+def test_k5_tensor_core_kernel_takes_any_scale(cuda, scale, t):
+    """Any scale, negative and zero (uniform attention) included."""
+    q, k, v = _qkv((37, t, 3 * 64), torch.bfloat16, cuda)
+    out = tsmall.small_t_fwd(q, k, v, 3, scale)
+    ref = tsmall.small_t_fwd_plain(q.float(), k.float(), v.float(), 3, scale)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 1e-2, _rel(out, ref)
+
+
+@pytest.mark.parametrize("g,t,h", [(3, 5, 3), (257, 17, 2), (256, 16, 20), (1, 1, 1)])
+def test_k5_tensor_core_kernel_writes_nothing_past_the_output(cuda, g, t, h):
+    """The library entry writes o into the head of a larger buffer whose NaN
+    tail stays NaN; the head is the wrapper's output bit for bit."""
+    q, k, v = _qkv((g, t, h * 64), torch.bfloat16, cuda)
+    buf = torch.full((q.numel() + 4096,), float("nan"), device=cuda, dtype=torch.bfloat16)
+    _k5_entry(q, k, v, buf, h, 0.125, cuda)
+    torch.cuda.synchronize()
+    assert bool(buf[q.numel():].isnan().all())
+    assert torch.equal(buf[:q.numel()].view_as(q), tsmall.small_t_fwd(q, k, v, h, 0.125))
+
+
+@pytest.mark.parametrize("g,t,h", [(256, 16, 20), (4096, 17, 2)])
+def test_k5_tensor_core_kernel_is_deterministic(cuda, g, t, h):
+    """Each warp owns its groups and sums in a fixed order: three runs agree
+    bit for bit."""
+    q, k, v = _qkv((g, t, h * 64), torch.bfloat16, cuda)
+    first = tsmall.small_t_fwd(q, k, v, h, 0.125)
+    for _ in range(2):
+        assert torch.equal(first, tsmall.small_t_fwd(q, k, v, h, 0.125))
+
+
+@pytest.mark.parametrize("g,t,h", [(256, 16, 20), (257, 32, 3), (3, 1, 2)])
+def test_k5_tensor_core_kernel_is_k2s_loop_on_the_same_memory(cuda, g, t, h):
+    """(G, T, H*64) is K2's (B, T, G, H*64) layout with B = G and G = 1, and
+    K5's kernel runs K2's warp loop: the same output bit for bit."""
+    q, k, v = _qkv((g, t, h * 64), torch.bfloat16, cuda)
+    out = tsmall.small_t_fwd(q, k, v, h, -0.3)
+    as_k2 = tsmall.small_t_fwd_tmajor(*(x.view(g, t, 1, h * 64) for x in (q, k, v)), h, -0.3)
+    assert torch.equal(out, as_k2.view_as(out))
+
+
+@pytest.mark.parametrize("dtype,d,t,kernel", [
+    (torch.bfloat16, 64, 16, "small_t_posmajor_tc_kernel<1>"),
+    (torch.bfloat16, 64, 17, "small_t_posmajor_tc_kernel<2>"),
+    (torch.float32, 64, 16, "small_t_posmajor_kernel<float>"),
+    (torch.bfloat16, 32, 16, "small_t_posmajor_kernel<__nv_bfloat16>")])
+def test_k5_routes_by_dtype_and_head_dim(cuda, dtype, d, t, kernel):
+    """bf16 with head dim 64 runs the tensor-core kernel; fp32, and bf16 with
+    another head dim, the SIMT kernel: the one kernel symbol the profiler
+    records for one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _qkv((37, t, 2 * d), dtype, cuda)
+    tsmall.small_t_fwd(q, k, v, 2, d ** -0.5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = tsmall.small_t_fwd(q, k, v, 2, d ** -0.5)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "small_t" in e.name]
+    assert len(names) == 1 and kernel in names[0], names
+    ref = tsmall.small_t_fwd_plain(q.float(), k.float(), v.float(), 2, d ** -0.5)
+    assert _rel(out, ref) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def test_k5_head_count_limit_is_the_simt_kernels(cuda):
+    """The tensor-core route's persistent grid counts G*heads groups and takes
+    65536 heads; the SIMT kernel's grid has the head as its y and refuses
+    them."""
+    h = 65536
+    q, k, v = _qkv((1, 2, h * 64), torch.bfloat16, cuda)
+    out = tsmall.small_t_fwd(q, k, v, h, 0.125)
+    ref = tsmall.small_t_fwd_plain(q.float(), k.float(), v.float(), h, 0.125)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 1e-2
+    with pytest.raises(ValueError, match="outside the launch grid"):
+        tsmall.small_t_fwd(q.float(), k.float(), v.float(), h, 0.125)
+    q = torch.zeros(1, 2, h * 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="outside the launch grid"):
+        tsmall.small_t_fwd(q, q, q, h, 0.125)
 
 
 @pytest.mark.parametrize("n,l,h", [(2, 9216, 5), (2, 2304, 10)])

@@ -60,6 +60,9 @@ MODULES = [
     "dynamicrafter_tpu_torch.training.checkpoints",
     "dynamicrafter_tpu_torch.training.logging",
     "dynamicrafter_tpu_torch.train",
+    "dynamicrafter_tpu_torch.export_checkpoint",
+    "dynamicrafter_tpu_torch.deepcache_certify",
+    "dynamicrafter_tpu_torch.dpm_certify",
     "dynamicrafter_tpu_torch.data",
     "dynamicrafter_tpu_torch.data.webvid",
 ]

@@ -290,6 +290,22 @@ def test_profile_families_name_the_flash_forward_kernels():
         assert family("void (anonymous namespace)::" + name) == fam
 
 
+def test_profile_families_tell_k5_from_k2():
+    """K5's tensor-core kernel runs K2's warp loop under a name of its own, so
+    that a profile counts it as K5 and not as K2."""
+    from dynamicrafter_tpu_torch.profile_unet import family
+
+    for name in ("small_t_posmajor_tc_kernel<1>(__nv_bfloat16 const*)",
+                 "small_t_posmajor_tc_kernel<2>(__nv_bfloat16 const*)",
+                 "small_t_posmajor_kernel<float>(float const*)",
+                 "small_t_posmajor_kernel<__nv_bfloat16>(__nv_bfloat16 const*)"):
+        assert family("void (anonymous namespace)::" + name) == "K5 small_t_fwd"
+    for name in ("small_t_tc_kernel<1>(__nv_bfloat16 const*)",
+                 "small_t_tc_kernel<2>(__nv_bfloat16 const*)",
+                 "small_t_kernel<float>(float const*)"):
+        assert family("void (anonymous namespace)::" + name) == "K2 small_t_kernel"
+
+
 @pytest.mark.parametrize("lq,lk", LENGTHS)
 def test_k4_plain_matches_jax_bwd(lq, lk):
     """dq, dk, dv from the same o and lse (JAX's), ragged and Lq != Lk."""
