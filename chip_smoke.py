@@ -149,13 +149,33 @@ Run from the repository root. Phases, each printing one line:
      the dpm@120 reference (relative L2 0), and `deepcache_certify.main` at
      N = 1 (equal to the exact sampler: infinite PSNR, SSIM 1) to 5; each
      row with its seconds beside the card's name and power limit.
+ 27. discovery and `parity_check` at 320x512: the CLI from an empty HOME and
+     working directory must print one "blocked on:" line and exit 2 (unless
+     `discover` finds weights there); then `parity_check.check` on the
+     random-weight bf16 pipeline at DDIM-5: `--x_t_npy` (1, 4, 16, 40, 64)
+     gives the frames of `pipe.sample(x_T=<transposed>)` bit for bit, and the
+     frames scored against themselves (as `.npy` and as PNGs) give PSNR inf;
+ 28. `distributed_inference.main` at 320x512 over 3 prompts, DDIM-5, --bs 1:
+     two shards in turn, then the one-process `inference.main` with
+     --profile_dir: disjoint shards whose frames equal the one-process run's,
+     and the first batch's trace naming K1's and K2's kernels;
+ 29. `train.main` on configs/training_512_interp.yaml (interp_mode, batch 2 x
+     16 at 320x512) for 12 micro-steps with --loader processes (spawned
+     workers; /dev/shm's size printed) and --profile_steps 2: finite losses,
+     launches 12 x phase 8's, the trace naming K3, K4a, K4b and K2's kernels,
+     the median s/micro-step beside phase 9's;
+ 30. `train_probe` at 320x512, policies config and none, batch 2 and 4 (one
+     process per batch): ms/step and peak per row, launches exact for the
+     rows that ran; an out-of-memory row is a result, but config at batch 2
+     must run.
 
 Then a JSON line with, for each kernel, its launches on its main path (K1 and
 K2 phase 5, K3, K4a, K4b and the di pre-pass phase 9, K5 phase 13, K6, K9 and
 K10 phase 19, K7, K8 and `gn_stats` phase 21; `launches_by_path` has every
 path), error against the plain version (K6, K9, K10: the worst over phase
 18's bf16 shapes; K7, K8: at the first shape of phase 21; `gn_stats`: phase
-20 at that shape), and times: the kernel, the plain
+20 at that shape; `launches_by_path` adds the paths of phases 27-30), and
+times: the kernel, the plain
 version, the bound (the larger of bytes over 3.35 TB/s and operations over
 the peak rate of the input type, from the shapes) and one library call
 (`F.scaled_dot_product_attention` or its backward, `torch.linalg.vecdot`
@@ -181,6 +201,7 @@ import time
 CONFIG = "configs/inference_512_v1.0.yaml"
 TRAIN_CONFIG = "configs/training_512_v1.0.yaml"
 TRAIN_CONFIG_1024 = "configs/training_1024_v1.0.yaml"
+TRAIN_CONFIG_INTERP = "configs/training_512_interp.yaml"
 CONFIG_256 = "configs/inference_256_v1.0.yaml"
 CONFIG_1024 = "configs/inference_1024_v1.0.yaml"
 PROMPTS = "prompts/512"
@@ -193,6 +214,10 @@ DEEPCACHE = 5
 TRAIN_STEPS = 4
 STEPS_SDS = 20
 STEPS_APP = 10
+STEPS_PARITY = 5
+TRAIN_STEPS_INTERP = 12
+PROBE_BATCHES = (2, 4)
+PROBE_ITERS = 4
 # published peaks of one H100 SXM at 700 W: HBM bytes/s, FLOP/s by input type
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -326,7 +351,8 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from dynamicrafter_tpu_torch import (
-        deepcache_certify, dpm_certify, generate_guidance, inference, profile_unet)
+        deepcache_certify, distributed_inference, dpm_certify, generate_guidance, inference,
+        parity_check, profile_unet)
     from dynamicrafter_tpu_torch.app import Image2Video
     from dynamicrafter_tpu_torch.config import ModelConfig
     from dynamicrafter_tpu_torch.experiments.fused_conv import bench_fused_conv
@@ -336,7 +362,7 @@ def main() -> int:
         fused_gn_silu_conv_tiled, fused_gn_silu_conv_tiled_plain)
     from dynamicrafter_tpu_torch.models.blocks import ResBlock, SpatialTransformer
     from dynamicrafter_tpu_torch.sds import SDSDraws, SDSGuidancePipeline, SDSSettings
-    from dynamicrafter_tpu_torch.utils.video import decode_png
+    from dynamicrafter_tpu_torch.utils.video import decode_png, load_image, save_image, to_uint8
     from dynamicrafter_tpu_torch.models.unet3d import UNetConfig, UNetModel
     from dynamicrafter_tpu_torch.ops import attention, kernels
     from dynamicrafter_tpu_torch import train
@@ -867,6 +893,7 @@ def main() -> int:
           f"launches {train_launches}, di {train_di} != {TRAIN_STEPS} x {per_step}, "
           f"{di_per_step}")
     phase_s["9"] = time.perf_counter() - t0
+    median_9 = float(np.median(secs))
     del result, trainer, hist, secs
     torch.cuda.empty_cache()
 
@@ -1993,6 +2020,226 @@ def main() -> int:
           f"UNet calls")
     phase_s["26"] = time.perf_counter() - t0
 
+    # -- phase 27: discovery and parity_check at 320x512 ----------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        # the CLI from an empty HOME and working directory, no overrides
+        empty = os.path.join(tmp, "empty")
+        os.makedirs(empty)
+        env = {k: v for k, v in os.environ.items() if not k.startswith("DYNAMICRAFTER_")
+               and k not in ("HF_HOME", "HUGGINGFACE_HUB_CACHE")}
+        env.update(HOME=empty, PYTHONPATH=REPO)
+        found = json.loads(subprocess.run(
+            [sys.executable, "-c", "import json; from dynamicrafter_tpu_torch.utils.discovery "
+             "import discover; print(json.dumps(discover('512')[0]))"], cwd=empty, env=env,
+            capture_output=True, text=True, timeout=300, check=True).stdout.splitlines()[-1])
+        image = os.path.join(REPO, PROMPTS, "example.png")
+        pc_flags = ["--config", os.path.join(REPO, CONFIG), "--image", image, "--prompt",
+                    "a fox running through the snow", "--height", "320", "--width", "512",
+                    "--video_length", "16", "--ddim_steps", str(STEPS_PARITY), "--ddim_eta",
+                    "1.0", "--cfg_scale", "7.5", "--frame_stride", "24", "--timestep_spacing",
+                    "uniform_trailing", "--guidance_rescale", "0.7", "--device", "cuda"]
+        if None in found.values():
+            blocked = subprocess.run(
+                [sys.executable, "-m", "dynamicrafter_tpu_torch.parity_check", *pc_flags],
+                cwd=empty, env=env, capture_output=True, text=True, timeout=300)
+            lines = blocked.stdout.splitlines()
+            log(f"[27] parity_check with nothing mounted: exit {blocked.returncode}, "
+                f"{len(lines)} line: {lines[0][:160] if lines else ''}...")
+            check(blocked.returncode == 2 and len(lines) == 1
+                  and lines[0].startswith("blocked on: "),
+                  f"parity_check without weights: exit {blocked.returncode}, stdout "
+                  f"{blocked.stdout[-2000:]!r}, stderr {blocked.stderr[-2000:]!r}")
+        else:
+            log(f"[27] discover('512') found {found}: the blocked line is not exercised")
+        # in process, through the seam, on random weights
+        pipe = DynamiCrafterPipeline(ModelConfig.from_yaml(CONFIG), dev, torch.bfloat16)
+        pipe.init_random(seed=SEED)
+        x_t = np.random.default_rng(SEED + 27).standard_normal((1, 4, 16, 40, 64))
+        np.save(os.path.join(tmp, "xT.npy"), x_t.astype(np.float32))
+        parse = parity_check.get_parser().parse_args
+        reset(*infer_wrappers)
+        first = parity_check.check(parse([*pc_flags, "--x_t_npy", os.path.join(tmp, "xT.npy"),
+                                          "--out", os.path.join(tmp, "first.npy")]), pipe)
+        n_parity = counts(*infer_wrappers)
+        video = np.stack([load_image(image, (320, 512))] * 16)[None]
+        direct = pipe.sample(["a fox running through the snow"], video, steps=STEPS_PARITY,
+                             eta=1.0, cfg_scale=7.5, timestep_spacing="uniform_trailing",
+                             guidance_rescale=0.7, fs=[24],
+                             x_T=x_t.astype(np.float32).transpose(0, 2, 3, 4, 1))
+        same = np.array_equal(first["frames"], to_uint8(direct.videos[0, 0]))
+        png_dir = os.path.join(tmp, "png")
+        for i, frame in enumerate(first["frames"]):
+            save_image(frame, os.path.join(png_dir, f"{i:03d}.png"))
+        scores = {}
+        for fmt, ref in (("npy", os.path.join(tmp, "first.npy")), ("png", png_dir)):
+            again = parity_check.check(parse([*pc_flags, "--x_t_npy", os.path.join(tmp, "xT.npy"),
+                                              "--reference_dir", ref, "--out",
+                                              os.path.join(tmp, "again.npy")]), pipe)
+            scores[fmt] = (again["psnr"], again["frames_compared"])
+        del pipe, direct
+    torch.cuda.empty_cache()
+    expect = (STEPS_PARITY * per_call[0], STEPS_PARITY * per_call[1], 0)
+    log(f"[27] parity_check.check on the 320x512 model (random N(0, 0.02) bf16 weights), DDIM-"
+        f"{STEPS_PARITY} eta 1, CFG 7.5: --x_t_npy (1, 4, 16, 40, 64) frames equal to "
+        f"pipe.sample(x_T=<transposed>) bit for bit {same} | PSNR against its own frames: .npy "
+        f"{scores['npy'][0]} dB, PNG directory {scores['png'][0]} dB over {scores['png'][1]} "
+        f"frames | launches K1 {n_parity[0]} K2 {n_parity[1]} (expected {expect[:2]})")
+    check(same, "parity_check --x_t_npy frames differ from pipe.sample(x_T=)")
+    check(scores == {"npy": (float("inf"), 16), "png": (float("inf"), 16)},
+          f"parity_check against its own frames: {scores}")
+    check(n_parity == expect, f"parity_check launches {n_parity} != {expect}")
+    phase_s["27"] = time.perf_counter() - t0
+
+    # -- phase 28: distributed inference at 320x512 ---------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        dist_flags = ["--config", CONFIG, "--prompt_dir", prompt_dir(os.path.join(tmp, "p3"), 3),
+                      "--random_init", "--bf16", "--height", "320", "--width", "512",
+                      "--frame_stride", "24", "--timestep_spacing", "uniform_trailing",
+                      "--guidance_rescale", "0.7", "--perframe_ae",
+                      "--unconditional_guidance_scale", "7.5", "--text_input", "--video_length",
+                      "16", "--ddim_steps", str(STEPS_PARITY), "--ddim_eta", "1.0", "--bs", "1",
+                      "--seed", str(SEED), "--device", "cuda"]
+        n_shards, shard_files = [], []
+        for i in range(2):
+            reset(*infer_wrappers)
+            res = distributed_inference.main([*dist_flags, "--savedir",
+                                              os.path.join(tmp, f"shard{i}"),
+                                              "--num_processes", "2", "--process_id", str(i)])
+            n_shards.append(counts(*infer_wrappers))
+            shard_files.append({os.path.basename(p): np.load(p) for p in res["paths"]})
+        reset(*infer_wrappers)
+        res = inference.main([*dist_flags, "--savedir", os.path.join(tmp, "whole"),
+                              "--profile_dir", os.path.join(tmp, "prof")])
+        n_whole = counts(*infer_wrappers)
+        whole = {os.path.basename(p): np.load(p) for p in res["paths"]}
+        with open(os.path.join(tmp, "prof", "trace.json")) as f:
+            trace = f.read()
+        trace_mb = len(trace) / 1e6
+        traced = {k: k in trace for k in ("flash_fwd_tc_kernel", "small_t_tc_kernel")}
+        del trace, res
+    names = [sorted(s) for s in shard_files]
+    diff = max(int(np.abs(f.astype(np.int16) - whole[n].astype(np.int16)).max())
+               for s in shard_files for n, f in s.items())
+    per_prompt = (STEPS_PARITY * per_call[0], STEPS_PARITY * per_call[1], 0)
+    log(f"[28] distributed_inference 320x512, 3 prompts, DDIM-{STEPS_PARITY}, --bs 1: shard 0 "
+        f"{names[0]}, shard 1 {names[1]} | largest frame difference against the one-process "
+        f"run {diff} (uint8) | one-process --profile_dir trace {trace_mb:.1f} MB names "
+        + " ".join(f"{k} {v}" for k, v in traced.items())
+        + f" | launches shards {n_shards[0][:2]} {n_shards[1][:2]}, one process {n_whole[:2]}")
+    check(not set(names[0]) & set(names[1]) and sorted(names[0] + names[1]) == sorted(whole)
+          and len(whole) == 3, f"shards {names} against the one-process run {sorted(whole)}")
+    check(diff == 0, f"shards differ from the one-process run by {diff}")
+    check(all(traced.values()), f"the first batch's trace lacks a kernel: {traced}")
+    check(n_shards == [tuple(2 * c for c in per_prompt), per_prompt]
+          and n_whole == tuple(3 * c for c in per_prompt),
+          f"launches shards {n_shards}, one process {n_whole}, per prompt {per_prompt}")
+    phase_s["28"] = time.perf_counter() - t0
+
+    # -- phase 29: interp training through train.main: processes, profile ------
+    t0 = time.perf_counter()
+    shm = subprocess.run(["df", "-h", "/dev/shm"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()[-1]
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory(dir=REPO) as logdir:
+        reset(*train_wrappers, flash_bwd_di)
+        result = train.main([
+            "--base", TRAIN_CONFIG_INTERP, "--train", "--synthetic_data", "--bf16",
+            "--max_steps", str(TRAIN_STEPS_INTERP), "--loader", "processes", "--profile_steps",
+            "2", "--log_every", "1", "--device", "cuda", "--seed", str(SEED), "--logdir",
+            logdir, "--name", "training_512_interp"])
+        torch.cuda.synchronize()
+        interp_launches = counts(*train_wrappers)
+        interp_di = flash_bwd_di.launches
+        interp_peak = torch.cuda.max_memory_allocated(dev)
+        with open(result["trace"]) as f:
+            trace = f.read()
+        trace_mb = len(trace) / 1e6
+        traced = {k: k in trace for k in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+                                          "flash_bwd_dkv_tc_kernel", "small_t_tc_kernel")}
+        del trace
+        hist, secs, pids = result["metrics"], result["step_seconds"], result["worker_pids"]
+        interp_on = result["trainer"].cfg.interp_mode and not result["trainer"].cfg.rand_cond_frame
+        del result
+    torch.cuda.empty_cache()
+    finite = all(np.isfinite(v) for m in hist for v in m.values())
+    unprofiled = secs[1:10]
+    log(f"[29] train.main {TRAIN_CONFIG_INTERP} --synthetic_data --bf16 --loader processes "
+        f"--profile_steps 2, {TRAIN_STEPS_INTERP} micro-steps: interp_mode and not "
+        f"rand_cond_frame {interp_on} | loss " + " ".join(f"{m['loss']:.5f}" for m in hist)
+        + " | grad_norm " + " ".join(f"{m['grad_norm']:.4e}" for m in hist)
+        + " | s/micro-step " + " ".join(f"{s:.3f}" for s in secs)
+        + f" (median of micro-steps 2-10 {np.median(unprofiled):.3f}, phase 9's "
+        f"training_512_v1.0 median {median_9:.3f}) on {smi} | peak allocated "
+        f"{interp_peak / 2**30:.2f} GiB | {len(pids)} loader workers, PIDs {list(pids)} (this "
+        f"process {os.getpid()}); /dev/shm: {shm} | trace of micro-steps 10-11 {trace_mb:.1f} MB "
+        "names " + " ".join(f"{k} {v}" for k, v in traced.items())
+        + f" | launches K3 {interp_launches[0]} K4a {interp_launches[1]} K4b "
+        f"{interp_launches[2]} K2 {interp_launches[3]} K1 {interp_launches[4]} di pre-pass "
+        f"{interp_di}")
+    check(interp_on, "the interp config did not set interp_mode / rand_cond_frame")
+    check(len(hist) == TRAIN_STEPS_INTERP and finite
+          and all(m["grad_norm"] > 0 for m in hist), "interp losses / grad norms not finite")
+    check(all(traced.values()), f"the training trace lacks a kernel: {traced}")
+    check(len(pids) == TrainingConfig.from_yaml(TRAIN_CONFIG_INTERP).num_workers
+          and os.getpid() not in pids and len(set(pids)) == len(pids),
+          f"loader workers {pids}")
+    check(interp_launches == tuple(TRAIN_STEPS_INTERP * c for c in per_step)
+          and interp_di == TRAIN_STEPS_INTERP * di_per_step,
+          f"launches {interp_launches}, di {interp_di} != {TRAIN_STEPS_INTERP} x {per_step}, "
+          f"{di_per_step}")
+    phase_s["29"] = time.perf_counter() - t0
+
+    # -- phase 30: train_probe at 320x512, both checkpointing policies --------
+    t0 = time.perf_counter()
+    probe_code = (
+        "import json, sys\n"
+        "from dynamicrafter_tpu_torch import train_probe\n"
+        "from dynamicrafter_tpu_torch.ops.flash_attention import (\n"
+        "    flash_bwd_di, flash_bwd_dkv, flash_bwd_dq, flash_fwd, flash_fwd_lse)\n"
+        "from dynamicrafter_tpu_torch.ops.small_attention import small_t_fwd_tmajor\n"
+        "ws = (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, small_t_fwd_tmajor, flash_fwd,\n"
+        "      flash_bwd_di)\n"
+        "batch, iters = sys.argv[1:]\n"
+        "for policy in ('config', 'none'):\n"
+        "    for w in ws:\n"
+        "        w.launches = 0\n"
+        "    r = train_probe.main(['--res', '512', '--batch', batch, '--policies', policy,\n"
+        "                          '--iters', iters])\n"
+        "    print('ROW ' + json.dumps(dict(policy=policy, ms=r['ms_per_step'][policy],\n"
+        "        peak_gib=r['peak_gib'][policy], launches=[w.launches for w in ws])),\n"
+        "          flush=True)\n")
+    probe_rows, n_probe = {}, [0] * 6
+    # a step's launches (K3, K4a, K4b, K2, K1, di): K2 again in the recompute
+    probe_per_step = {"config": (*per_step, di_per_step),
+                      "none": (*per_step[:3], per_step[3] // 2, per_step[4], di_per_step)}
+    for b in PROBE_BATCHES:
+        done = subprocess.run([sys.executable, "-c", probe_code, str(b), str(PROBE_ITERS)],
+                              capture_output=True, text=True, timeout=900, cwd=REPO)
+        for line in done.stdout.splitlines():
+            if line.startswith("ROW "):
+                row = json.loads(line[4:])
+                probe_rows[(b, row["policy"])] = row
+            elif "FAILED" in line:
+                log(f"[30] batch {b}: {line}")
+        if done.returncode != 0:
+            log(f"[30] train_probe batch {b} exited {done.returncode}: {done.stderr[-1500:]}")
+        check(b != 2 or done.returncode == 0, f"train_probe at batch 2: {done.stderr[-3000:]}")
+    for (b, policy), row in probe_rows.items():
+        ok = row["ms"] is not None
+        want = [(1 + PROBE_ITERS) * c for c in probe_per_step[policy]]
+        log(f"[30] train_probe --res 512 --batch {b} --policies {policy}: "
+            + (f"{row['ms']:.2f} ms/step, peak {row['peak_gib']:.3f} GiB" if ok else "FAILED (OOM)")
+            + f" on {smi} | launches K3 K4a K4b K2 K1 di {row['launches']}"
+            + (f" (expected {want})" if ok else ""))
+        if ok:
+            check(row["launches"] == want, f"probe launches {row['launches']} != {want}")
+            n_probe = [a + c for a, c in zip(n_probe, row["launches"])]
+    check(probe_rows.get((2, "config"), {}).get("ms") is not None,
+          "train_probe failed at batch 2 with the config policy")
+    phase_s["30"] = time.perf_counter() - t0
+
     log("[wall] " + " ".join(f"phase {k} {v:.1f}s" for k, v in phase_s.items())
         + f" | total {time.perf_counter() - t_start:.1f}s")
 
@@ -2008,7 +2255,9 @@ def main() -> int:
                        "inference_512_deepcache5": n_dc[0], "sds_512": n_sds[0],
                        "app_512": n_app["i2v"][0] + n_app["loop"][0],
                        "dpm_certify_512": n_dpm_certify[0],
-                       "deepcache_certify_512": n_dc_certify[0]}),
+                       "deepcache_certify_512": n_dc_certify[0],
+                       "parity_check_512": n_parity[0],
+                       "distributed_512": n_shards[0][0] + n_shards[1][0] + n_whole[0]}),
         "small_t_fwd_tmajor": (src + "small_attention.cu", tpu + "small_attention.py:134",
                                launches[1],
                                {"inference_512": launches[1], "train_512": train_launches[3],
@@ -2020,19 +2269,31 @@ def main() -> int:
                                 "inference_512_deepcache5": n_dc[1], "sds_512": n_sds[1],
                                 "app_512": n_app["i2v"][1] + n_app["loop"][1],
                                 "dpm_certify_512": n_dpm_certify[1],
-                                "deepcache_certify_512": n_dc_certify[1]}),
+                                "deepcache_certify_512": n_dc_certify[1],
+                                "parity_check_512": n_parity[1],
+                                "distributed_512": n_shards[0][1] + n_shards[1][1] + n_whole[1],
+                                "train_512_interp": interp_launches[3],
+                                "train_probe_512": n_probe[3]}),
         "flash_fwd_lse": (src + "flash_attention.cu", tpu + "flash_attention.py:32",
                           train_launches[0], {"train_512": train_launches[0],
-                                              "train_1024_per_micro_step": per_step_1024[0]}),
+                                              "train_1024_per_micro_step": per_step_1024[0],
+                                              "train_512_interp": interp_launches[0],
+                                              "train_probe_512": n_probe[0]}),
         "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:304",
                          train_launches[1], {"train_512": train_launches[1],
-                                             "train_1024_per_micro_step": per_step_1024[1]}),
+                                             "train_1024_per_micro_step": per_step_1024[1],
+                                             "train_512_interp": interp_launches[1],
+                                             "train_probe_512": n_probe[1]}),
         "flash_bwd_dkv": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:339",
                           train_launches[2], {"train_512": train_launches[2],
-                                              "train_1024_per_micro_step": per_step_1024[2]}),
+                                              "train_1024_per_micro_step": per_step_1024[2],
+                                              "train_512_interp": interp_launches[2],
+                                              "train_probe_512": n_probe[2]}),
         "flash_bwd_di": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:329",
                          train_di, {"train_512": train_di,
-                                    "train_1024_per_micro_step": per_step_1024[5]}),
+                                    "train_1024_per_micro_step": per_step_1024[5],
+                                    "train_512_interp": interp_di,
+                                    "train_probe_512": n_probe[5]}),
         "small_t_fwd": (src + "small_attention.cu", tpu + "small_attention.py:32",
                         launches_256[2], {"inference_256_bs8": launches_256[2],
                                           "inference_1024": launches_1024[2]}),
@@ -2058,7 +2319,8 @@ def main() -> int:
              launches_by_path=by_path, **report[name])
         for name, (source, rep, n, by_path) in sources.items()]}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 

@@ -44,6 +44,21 @@ def _resize_center_crop(frames: np.ndarray, size: Tuple[int, int]) -> np.ndarray
     return out[:, top:top + th, left:left + tw]
 
 
+def collate(samples: Sequence[Dict], fs_key: str = "frame_stride",
+            tokenizer=None) -> Dict[str, np.ndarray]:
+    """Sample dicts -> the batch dict: stacked video and fs (float32 fps or
+    int32 frame stride), captions, and tokens when a tokenizer is given."""
+    fs_dtype = (np.float32 if fs_key == "fps" else np.int32)
+    batch = {
+        "video": np.stack([s["video"] for s in samples]),
+        "fs": np.stack([np.asarray(s[fs_key], fs_dtype) for s in samples]),
+        "captions": [s["caption"] for s in samples],
+    }
+    if tokenizer is not None:
+        batch["tokens"] = tokenizer([s["caption"] for s in samples])
+    return batch
+
+
 class WebVidDataset:
     """Map-style dataset over a WebVid CSV + mp4 tree."""
 
@@ -90,6 +105,16 @@ class WebVidDataset:
 
     def __len__(self) -> int:
         return len(self.metadata)
+
+    def __getstate__(self):
+        # a worker process draws from an RNG of its own
+        state = dict(self.__dict__)
+        del state["_tls"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._tls = threading.local()
 
     def _video_path(self, row: Dict[str, str]) -> str:
         rel = os.path.join(row.get("page_dir", ""), f"{row['videoid']}.mp4")
@@ -270,16 +295,7 @@ class DataLoader:
                 f"or a bigger dataset split.")
 
     def _collate(self, samples: Sequence[Dict]) -> Dict[str, np.ndarray]:
-        fs_dtype = (np.float32 if self.fs_key == "fps" else np.int32)
-        batch = {
-            "video": np.stack([s["video"] for s in samples]),
-            "fs": np.stack([np.asarray(s[self.fs_key], fs_dtype)
-                            for s in samples]),
-            "captions": [s["caption"] for s in samples],
-        }
-        if self.tokenizer is not None:
-            batch["tokens"] = self.tokenizer([s["caption"] for s in samples])
-        return batch
+        return collate(samples, self.fs_key, self.tokenizer)
 
     def _epoch_indices(self, epoch: int) -> List[int]:
         idxs = list(range(len(self.dataset)))
@@ -366,3 +382,55 @@ class DataLoader:
                 for futs in pending:
                     for f in futs:
                         f.cancel()
+
+
+class _IndexBatches:
+    """The loader's index batches as a re-iterable `batch_sampler`."""
+
+    def __init__(self, loader: DataLoader):
+        self.loader = loader
+
+    def __iter__(self) -> Iterator[List[int]]:
+        return self.loader._index_batches()
+
+
+class ProcessDataLoader(DataLoader):
+    """`DataLoader` with the samples read and collated in worker processes
+    (`--loader processes`; the JAX package's Grain loader, reference
+    main/utils_data.py:44-136's torch DataLoader with worker processes).
+
+    The same epoch-shuffled, sharded, remainder-dropping index batches go to
+    `torch.utils.data.DataLoader` as its `batch_sampler`, with `collate`
+    run in the workers, and come back in order: for the same seed and shard
+    the batches equal `DataLoader`'s bit for bit. Workers are spawned, not
+    forked (the trainer's process has CUDA and threads running), so the
+    dataset and tokenizer must pickle; they use numpy only. A batch comes
+    back as numpy arrays pickled through the worker's pipe, not as tensors
+    in /dev/shm, so a small /dev/shm (as in containers) does not limit it.
+    About max(prefetch, num_workers) batches are in flight. The PIDs of the
+    running workers are in `worker_pids` once iteration has started. A
+    map-style dataset only: an `IterableVideoDataset` raises TypeError (the
+    thread loader serves those).
+    """
+
+    worker_pids: Tuple[int, ...] = ()
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        import functools
+
+        from torch.utils.data import DataLoader as TorchDataLoader
+
+        if isinstance(self.dataset, IterableVideoDataset):
+            raise TypeError("the process loader takes a map-style dataset; an "
+                            "IterableVideoDataset runs on the thread loader")
+        loader = TorchDataLoader(
+            self.dataset, batch_sampler=_IndexBatches(self),
+            collate_fn=functools.partial(collate, fs_key=self.fs_key, tokenizer=self.tokenizer),
+            num_workers=self.num_workers, multiprocessing_context="spawn",
+            prefetch_factor=-(-self.prefetch // self.num_workers))
+        it = iter(loader)
+        self.worker_pids = tuple(w.pid for w in getattr(it, "_workers", ()))
+        try:
+            yield from it
+        finally:
+            it._shutdown_workers()

@@ -18,13 +18,15 @@ also an mp4 at --savefps (needs OpenCV). With --interp the prompt dir holds
 two images per prompt (first and last frame); --loop conditions on the one
 image at both ends and drops the last generated frame. CFG passes run one
 UNet call each under --sequential_cfg, which is the default at --width >=
-1024 (the JAX CLI's rule).
+1024 (the JAX CLI's rule). `--profile_dir` writes a `torch.profiler` Chrome
+trace of the first batch there. `main(prompt_shard=(i, n))` runs the i-th of
+n slices of the prompt list (`distributed_inference` passes it).
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -81,20 +83,38 @@ def get_parser() -> argparse.ArgumentParser:
                    help="npy always; mp4 in addition (needs OpenCV)")
     p.add_argument("--vocab_path", type=str, default=None,
                    help="path to bpe_simple_vocab_16e6.txt.gz")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of the first batch here")
     return p
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Run inference over a prompt dir. Returns {"paths": [...], "timings":
-    [per-batch stage seconds], "peaks": [per-batch peak bytes allocated in
-    each stage, on a CUDA device], "build_peak": peak bytes while the
-    pipeline was built and filled, "videos": [per-batch (B, n_samples, T, H,
-    W, 3) float frames], "latents": [per-batch (B, n_samples, T, h, w, z)
-    sampled latents]} for callers that drive it in-process."""
-    args = get_parser().parse_args(argv)
+def shard_bounds(n: int, shard_id: int, num_shards: int) -> Tuple[int, int]:
+    """[lo, hi) of the prompts of shard `shard_id` of `num_shards`: ceil(n /
+    num_shards) a shard, the last ones shorter or empty (reference
+    inference.py:350-356)."""
+    per = -(-n // num_shards)
+    lo = min(n, shard_id * per)
+    return lo, min(n, lo + per)
+
+
+def main(argv: Union[None, Sequence[str], argparse.Namespace] = None,
+         prompt_shard: Tuple[int, int] = (0, 1)) -> dict:
+    """Run inference over a prompt dir, or over slice `prompt_shard` =
+    (shard_id, num_shards) of it; `argv` may be a parsed namespace. Returns
+    {"paths": [...], "timings": [per-batch stage seconds], "peaks":
+    [per-batch peak bytes allocated in each stage, on a CUDA device],
+    "build_peak": peak bytes while the pipeline was built and filled,
+    "videos": [per-batch (B, n_samples, T, H, W, 3) float frames],
+    "latents": [per-batch (B, n_samples, T, h, w, z) sampled latents]} for
+    callers that drive it in-process."""
+    args = argv if isinstance(argv, argparse.Namespace) else get_parser().parse_args(argv)
+    shard_id, num_shards = prompt_shard
+    if not 0 <= shard_id < num_shards:
+        raise ValueError(f"prompt_shard {prompt_shard}: want 0 <= shard_id < num_shards")
     if args.deepcache > 1 and args.ddim_steps % args.deepcache != 0:
         raise SystemExit(f"--deepcache {args.deepcache} must divide "
                          f"--ddim_steps {args.ddim_steps}")
+    from dynamicrafter_tpu_torch import profile_unet
     from dynamicrafter_tpu_torch.config import ModelConfig
     from dynamicrafter_tpu_torch.pipeline import DynamiCrafterPipeline
     from dynamicrafter_tpu_torch.utils.video import load_prompt_dir, save_results
@@ -119,6 +139,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     names, videos, prompts = load_prompt_dir(
         args.prompt_dir, video_size=(args.height, args.width),
         video_frames=args.video_length, interp=args.interp)
+    lo, hi = shard_bounds(len(prompts), shard_id, num_shards)
+    names, videos, prompts = names[lo:hi], videos[lo:hi], prompts[lo:hi]
     if not args.text_input:
         prompts = [""] * len(prompts)
 
@@ -127,6 +149,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     for i0 in range(0, len(prompts), args.bs):
         sl = slice(i0, min(i0 + args.bs, len(prompts)))
         clock, peak = {}, {}
+        prof = profile_unet.start_trace(device) if args.profile_dir and i0 == 0 else None
         out = pipe.sample(
             prompts[sl], videos[sl], steps=args.ddim_steps,
             cfg_scale=args.unconditional_guidance_scale, eta=args.ddim_eta,
@@ -145,6 +168,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             vids = vids[:, :, :-1]   # the last frame repeats the first
         paths += save_results(vids, names[sl], args.savedir,
                               save_format=args.save_format, fps=args.savefps)
+        if prof is not None:
+            print(f"profiler trace -> {profile_unet.stop_trace(prof, device, args.profile_dir)}")
         timings.append(clock)
         peaks.append(peak)
         outputs.append(vids)

@@ -12,12 +12,14 @@ the UNet call: 2 x prompts under batched CFG, the prompts alone under
 sequential CFG. With `--shallow` the profiled call is the DeepCache shallow
 forward (`cache=` the deep feature of one full call on the same input): the
 call that N - 1 of every N sampler steps make under `--deepcache N`. Needs a
-CUDA device.
+CUDA device. `start_trace` / `stop_trace` are the Chrome-trace sessions
+of `inference --profile_dir` and `train --profile_steps`.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import os
 import subprocess
 import time
 from typing import Callable, Optional, Sequence
@@ -80,6 +82,29 @@ def profile_families(run: Callable[[], object], iters: int):
         by_kernel[evt.name] += us / 1e3 / iters
         n_kernels += 1
     return by_family, by_kernel, window_ms, n_kernels
+
+
+def start_trace(device: torch.device) -> torch.profiler.profile:
+    """A started `torch.profiler` session over the host and, on a CUDA
+    device, the card."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def stop_trace(prof: torch.profiler.profile, device: torch.device, out_dir: str) -> str:
+    """Stop `prof` after the device has finished; write its Chrome trace
+    `<out_dir>/trace.json` and return that path."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

@@ -10,8 +10,16 @@ interval and monitor. Run e.g.:
       --config configs/training_512_v1.0.yaml --name run0 --logdir ./logs \\
       --synthetic_data --bf16 --device cuda
 
-Writes `<logdir>/<name>/train.log`, `metrics.csv` and `checkpoints/`, and
-with --sample_every sampled clips under `samples/`.
+Writes `<logdir>/<name>/train.log`, `metrics.csv` (and TensorBoard scalars
+where a writer imports) and `checkpoints/`, with --sample_every sampled
+clips under `samples/`, and with --profile_steps N a `torch.profiler` Chrome
+trace of micro-steps [10, 10 + N) as `profile/trace.json`.
+`--loader processes` (JAX spelling `grain`) reads and collates the samples
+in spawned worker processes, giving the thread loader's batches in the same
+order. `--checkpoint none` turns off the per-layer gradient checkpointing
+that `config` keeps wherever the UNet config sets `use_checkpoint`; the JAX
+CLI's other policies (`--remat_policy dots`, `dots_flash`) are XLA
+checkpoint policies with no PyTorch counterpart.
 Without a pretrained checkpoint every weight is drawn from N(0, 0.02)
 (`--seed`). SIGUSR1 writes a checkpoint at the end of the current
 micro-step (reference trainer.py:129-143).
@@ -56,6 +64,18 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true",
                    help="bf16 frozen towers and bf16 autocast; trainable weights stay fp32")
     p.add_argument("--synthetic_data", action="store_true")
+    p.add_argument("--loader", choices=["threads", "processes", "grain"], default="threads",
+                   help="threads: decode in threads of this process; processes: in spawned "
+                        "worker processes, the same batches in the same order (grain: the "
+                        "JAX CLI's name for it)")
+    p.add_argument("--checkpoint", choices=["config", "none"], default="config",
+                   help="gradient checkpointing: config = per UNet layer where the config "
+                        "sets use_checkpoint, keeping the flash outputs; none = off. The JAX "
+                        "CLI's --remat_policy dots / dots_flash are XLA policies with no "
+                        "PyTorch counterpart")
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="trace micro-steps [10, 10 + N) with torch.profiler into "
+                        "<logdir>/<name>/profile")
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--sample_every", type=int, default=0,
                    help="sample clips from the training batch every N micro-steps "
@@ -95,9 +115,12 @@ def _to_device(batch: dict, device: torch.device) -> dict:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Train; returns {"trainer", "workdir", "metrics" (one dict of floats
     per micro-step), "step_seconds" (host wall time of each micro-step,
-    synchronised on the device)} for callers that drive it in-process."""
+    synchronised on the device), "checkpoints" (the CheckpointManager),
+    "trace" (the profiler trace's path or None), "worker_pids" (the process
+    loader's workers)} for callers that drive it in-process."""
     args = get_parser().parse_args(argv)
-    from dynamicrafter_tpu_torch.data.webvid import DataLoader
+    from dynamicrafter_tpu_torch import profile_unet
+    from dynamicrafter_tpu_torch.data.webvid import DataLoader, ProcessDataLoader
     from dynamicrafter_tpu_torch.config import TrainingConfig
     from dynamicrafter_tpu_torch.pipeline import DynamiCrafterPipeline
     from dynamicrafter_tpu_torch.training.checkpoints import CheckpointManager
@@ -110,6 +133,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         raise RuntimeError("--device cuda but CUDA is not available")
     tc = TrainingConfig.from_yaml(args.config)
     mc = tc.model
+    if args.checkpoint == "none":
+        mc.unet["use_checkpoint"] = False
     workdir = os.path.join(args.logdir, args.name)
     log = setup_logger(workdir)
     if args.debug:
@@ -130,7 +155,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         learn_logvar=mc.params.get("learn_logvar", False),
         logvar_init=mc.params.get("logvar_init", 0.0), bf16=args.bf16)
     log.info(f"device={device} lr={lr} bs={bs} accum={cfg.accumulate_grad_batches} "
-             f"max_steps={max_steps} bf16={args.bf16}")
+             f"max_steps={max_steps} bf16={args.bf16} loader={args.loader} "
+             f"checkpointing={bool(mc.unet.get('use_checkpoint', False))} "
+             f"interp_mode={cfg.interp_mode} rand_cond_frame={cfg.rand_cond_frame}")
 
     train_resampler = bool(mc.params.get("image_proj_model_trainable", True))
     pipe = DynamiCrafterPipeline.for_training(
@@ -167,13 +194,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     # the batch key feeding the UNet's fps embedding (ddpm3d.py:1118-1121)
     fs_key = "fps" if mc.fps_condition_type == "fps" else "frame_stride"
     t_len = pipe.unet_config.temporal_length or 16
-    loader = DataLoader(_build_dataset(tc.train_data, args, t_len, log), batch_size=bs,
+    loader_cls = DataLoader if args.loader == "threads" else ProcessDataLoader
+    loader = loader_cls(_build_dataset(tc.train_data, args, t_len, log), batch_size=bs,
                         tokenizer=tokenizer, seed=args.seed, num_workers=tc.num_workers,
                         fs_key=fs_key)
     val_iter = None
     if args.val_every:
         val_data = _build_dataset(tc.validation_data or tc.train_data, args, t_len, log)
-        val_iter = iter(DataLoader(val_data, batch_size=bs, tokenizer=tokenizer,
+        val_iter = iter(loader_cls(val_data, batch_size=bs, tokenizer=tokenizer,
                                    shuffle=False, seed=args.seed + 1,
                                    num_workers=tc.num_workers, fs_key=fs_key))
 
@@ -188,9 +216,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     signal.signal(signal.SIGUSR1, lambda *_: want_ckpt.update(now=True))
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
     history, step_seconds, last_val = [], [], {}
+    prof, trace = None, None
+    profile_dir = os.path.join(workdir, "profile")
     for batch in loader:
         if trainer.step >= max_steps:
             break
+        if args.profile_steps and trainer.step == 10:
+            sync()
+            prof = profile_unet.start_trace(device)
         t0 = time.perf_counter()
         m = trainer.train_step(_to_device(batch, device))
         vals = {k: float(v) for k, v in m.items()}
@@ -198,6 +231,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         step_seconds.append(time.perf_counter() - t0)
         history.append(vals)
         step = trainer.step
+        if prof is not None and step >= 10 + args.profile_steps:
+            trace, prof = profile_unet.stop_trace(prof, device, profile_dir), None
+            log.info(f"profiler trace of micro-steps [10, {step}) -> {trace}")
         if val_iter is not None and step % args.val_every == 0:
             last_val = {k: float(v) for k, v in
                         trainer.eval_step(_to_device(next(val_iter), device)).items()}
@@ -217,11 +253,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             mngr.save(step, trainer.state_dict(), metrics=last_val)
             want_ckpt["now"] = False
             log.info(f"checkpoint at step {step}")
+    if prof is not None:
+        trace = profile_unet.stop_trace(prof, device, profile_dir)
+        log.info(f"profiler trace of micro-steps [10, {trainer.step}) -> {trace}")
+    metrics_log.close()
     if mngr.latest_step() != trainer.step:
         mngr.save(trainer.step, trainer.state_dict(), metrics=last_val)
     log.info(f"done at step {trainer.step}")
     return {"trainer": trainer, "workdir": workdir, "metrics": history,
-            "step_seconds": step_seconds, "checkpoints": mngr}
+            "step_seconds": step_seconds, "checkpoints": mngr, "trace": trace,
+            "worker_pids": getattr(loader, "worker_pids", ())}
 
 
 if __name__ == "__main__":

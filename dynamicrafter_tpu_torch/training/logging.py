@@ -45,17 +45,34 @@ def device_memory_stats() -> Dict[str, float]:
     return {"peak_host_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6}
 
 
+def _summary_writer(logdir: str):
+    """A TensorBoard event writer on `logdir` from tensorboardX, else from
+    torch.utils.tensorboard; None when neither imports."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            return None
+    return SummaryWriter(logdir)
+
+
 class MetricLogger:
     """Appends one row per `log` call to `<logdir>/metrics.csv`; a metric
-    that appears later widens the header and the file is rewritten."""
+    that appears later widens the header and the file is rewritten. With
+    `use_tensorboard`, where a TensorBoard writer imports, each metric of the
+    row but step and wall_s is also a scalar in an event file in `logdir`
+    (the JAX package's MetricLogger does both)."""
 
-    def __init__(self, logdir: str):
+    def __init__(self, logdir: str, use_tensorboard: bool = True):
         os.makedirs(logdir, exist_ok=True)
         self.path = os.path.join(logdir, "metrics.csv")
         self._fields = []
         if os.path.exists(self.path):
             with open(self.path) as f:
                 self._fields = list(csv.DictReader(f).fieldnames or [])
+        self._tb = _summary_writer(logdir) if use_tensorboard else None
         self._t0 = time.time()
 
     def log(self, step: int, metrics: Dict[str, float]) -> None:
@@ -76,6 +93,16 @@ class MetricLogger:
                 csv.DictWriter(f, fieldnames=self._fields).writeheader()
         with open(self.path, "a", newline="") as f:
             csv.DictWriter(f, fieldnames=self._fields, restval="").writerow(row)
+        if self._tb is not None:
+            for k, v in row.items():
+                if k not in ("step", "wall_s"):
+                    self._tb.add_scalar(k, v, step)
+            self._tb.flush()
+
+    def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
 
 
 class SampleLogger:

@@ -21,6 +21,11 @@ import numpy as np
 
 CONTEXT_LENGTH = 77
 VOCAB_SIZE = 49408
+# where a downloaded merge table is looked for (`utils/discovery.py`)
+_DEFAULT_VOCAB_CANDIDATES = (
+    os.path.join(os.path.dirname(__file__), "assets", "bpe_simple_vocab_16e6.txt.gz"),
+    os.path.expanduser("~/.cache/dynamicrafter_tpu/bpe_simple_vocab_16e6.txt.gz"),
+)
 
 
 def _clean_text(text: str) -> str:

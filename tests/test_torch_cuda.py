@@ -23,6 +23,8 @@ to 3e-4), and K7 against K8 on one fp32 input <= 1e-5; the bf16 route's
 GroupNorm statistics (`gn_stats`) <= 1e-5 on scale and bias (fp32 sums in
 another order).
 """
+import os
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1087,3 +1089,86 @@ def test_fused_conv_tensor_core_route_refuses_what_it_does_not_take(cuda):
         assert rc != 0, (th, tw, stats)
         with pytest.raises(RuntimeError, match="CUDA error"):
             tkernels.check(rc, "refused")
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_checkpoint_none_matches_config_on_the_bf16_unet(cuda):
+    """`--checkpoint none` against `config` on the full-width 320x512 UNet,
+    bf16 N(0, 0.02) weights, cut to 2 frames, dropout off: the loss is equal
+    and the gradients agree within 5e-2 (the recompute runs the same kernels;
+    the backward's sums may land in another order)."""
+    import dataclasses
+
+    from dynamicrafter_tpu_torch.config import ModelConfig
+    from dynamicrafter_tpu_torch.models.unet3d import UNetConfig, UNetModel
+    from dynamicrafter_tpu_torch.utils.weights import init_normal_
+
+    cfg = UNetConfig.from_dict(ModelConfig.from_yaml(
+        os.path.join(REPO, "configs", "inference_512_v1.0.yaml")).unet)
+    assert cfg.use_checkpoint
+    with torch.device("meta"):
+        unet = UNetModel(cfg)
+    unet = keep_norms_fp32(unet.to_empty(device=cuda).to(torch.bfloat16)).eval()
+    init_normal_(unet, torch.Generator(device=cuda).manual_seed(0), 0.02)
+    params = [p for p in unet.parameters() if p.requires_grad]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rand = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    x, target = rand(1, 2, 40, 64, 8), rand(1, 2, 40, 64, 4)
+    ctx_t, ctx_i = rand(1, 77, 1024) * 0.1, rand(1, 2, 16, 1024) * 0.1
+    ts = torch.full((1,), 500, dtype=torch.long, device=cuda)
+    fs = torch.full((1,), 24, dtype=torch.long, device=cuda)
+
+    def loss_and_grad(use_checkpoint):
+        unet.config = dataclasses.replace(cfg, use_checkpoint=use_checkpoint)
+        before = tflash.flash_fwd_lse.launches
+        pred = unet(x, ts, context_text=ctx_t, context_img=ctx_i, fs=fs)
+        loss = (pred.float() - target.float()).square().mean()
+        grads = torch.autograd.grad(loss, params)
+        assert tflash.flash_fwd_lse.launches - before == 5   # (o, lse) kept, no recompute
+        return loss.detach(), torch.cat([gr.float().flatten() for gr in grads])
+
+    loss_c, g_c = loss_and_grad(True)
+    loss_n, g_n = loss_and_grad(False)
+    assert torch.isfinite(loss_c) and torch.equal(loss_c, loss_n)
+    assert _rel(g_n, g_c) <= 5e-2 and g_c.norm() > 0
+
+
+_SMALL_UNET = """\
+model:
+  params:
+    unet_config:
+      params:
+        model_channels: 64
+        channel_mult: [1, 2]
+        num_res_blocks: 1
+        attention_resolutions: [1]
+data:
+  params:
+    batch_size: 1
+    num_workers: 2
+lightning:
+  trainer:
+    accumulate_grad_batches: 1
+"""
+
+
+def test_train_profile_steps_trace_names_the_flash_kernels(cuda, tmp_path):
+    """`train --profile_steps 1` on the 320x512 recipe with a small UNet
+    (level 0: L = 2560, one head of 64, bf16 autocast) and the process
+    loader: the trace of micro-step 10 names K3, K4a, K4b and K2's
+    tensor-core kernels."""
+    from dynamicrafter_tpu_torch import train
+
+    (tmp_path / "small.yaml").write_text(_SMALL_UNET)
+    res = train.main(["--config", os.path.join(REPO, "configs", "training_512_v1.0.yaml"),
+                      str(tmp_path / "small.yaml"), "--synthetic_data", "--bf16",
+                      "--max_steps", "11", "--profile_steps", "1", "--loader", "processes",
+                      "--logdir", str(tmp_path), "--name", "p", "--device", "cuda"])
+    with open(res["trace"]) as f:
+        trace = f.read()
+    for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel",
+                   "small_t_tc_kernel"):
+        assert kernel in trace, kernel
+    assert len(res["worker_pids"]) == 2 and os.getpid() not in res["worker_pids"]

@@ -63,6 +63,10 @@ MODULES = [
     "dynamicrafter_tpu_torch.export_checkpoint",
     "dynamicrafter_tpu_torch.deepcache_certify",
     "dynamicrafter_tpu_torch.dpm_certify",
+    "dynamicrafter_tpu_torch.parity_check",
+    "dynamicrafter_tpu_torch.distributed_inference",
+    "dynamicrafter_tpu_torch.train_probe",
+    "dynamicrafter_tpu_torch.utils.discovery",
     "dynamicrafter_tpu_torch.data",
     "dynamicrafter_tpu_torch.data.webvid",
 ]
