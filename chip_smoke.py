@@ -147,7 +147,7 @@ Run from the repository root. Phases, each printing one line:
      weights, bf16, 2-pass CFG): `dpm_certify.main` with the default
      candidates dpm@30, ddim@50, ddim@30 and dpm@120, which must reproduce
      the dpm@120 reference (relative L2 0), and `deepcache_certify.main` at
-     N = 1 (equal to the exact sampler: infinite PSNR, SSIM 1) to 5; each
+     N = 1 (equal to the exact sampler: infinite PSNR, SSIM 1), 2 and 5; each
      row with its seconds beside the card's name and power limit.
  27. discovery and `parity_check` at 320x512: the CLI from an empty HOME and
      working directory must print one "blocked on:" line and exit 2 (unless
@@ -168,13 +168,24 @@ Run from the repository root. Phases, each printing one line:
      process per batch): ms/step and peak per row, launches exact for the
      rows that ran; an out-of-memory row is a result, but config at batch 2
      must run.
+ 31. the dp axis at world size 1 over nccl (a FileStore in a temporary
+     directory; RANK=0 WORLD_SIZE=1 LOCAL_RANK=0): (a) the training_512_v1.0
+     step through `AccumulatingAdamW(mesh=)` (ZeRO-2) against the plain
+     optimizer, 4 micro-steps at accumulation 2 with EMA from the same
+     weights, batches and draws: relative L2 of the parameters, EMA and both
+     moments (at most 1e-5), grad_norm, ms per micro-step, peak memory and
+     the collective calls of each micro-step; (b) `train.main --dp 1`, 3
+     micro-steps on synthetic clips, its checkpoint read back by
+     `export_checkpoint`; (c) `inference.main --dp 1` at DDIM-5 against the
+     same clip with no process group, frames equal bit for bit; then the
+     process group is destroyed.
 
 Then a JSON line with, for each kernel, its launches on its main path (K1 and
 K2 phase 5, K3, K4a, K4b and the di pre-pass phase 9, K5 phase 13, K6, K9 and
 K10 phase 19, K7, K8 and `gn_stats` phase 21; `launches_by_path` has every
 path), error against the plain version (K6, K9, K10: the worst over phase
 18's bf16 shapes; K7, K8: at the first shape of phase 21; `gn_stats`: phase
-20 at that shape; `launches_by_path` adds the paths of phases 27-30), and
+20 at that shape; `launches_by_path` adds the paths of phases 27-31), and
 times: the kernel, the plain
 version, the bound (the larger of bytes over 3.35 TB/s and operations over
 the peak rate of the input type, from the shapes) and one library call
@@ -189,6 +200,7 @@ without TF32 (both flags set False) in every comparison.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -217,7 +229,7 @@ STEPS_APP = 10
 STEPS_PARITY = 5
 TRAIN_STEPS_INTERP = 12
 PROBE_BATCHES = (2, 4)
-PROBE_ITERS = 4
+PROBE_ITERS = 2
 # published peaks of one H100 SXM at 700 W: HBM bytes/s, FLOP/s by input type
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -351,8 +363,9 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from dynamicrafter_tpu_torch import (
-        deepcache_certify, distributed_inference, dpm_certify, generate_guidance, inference,
-        parity_check, profile_unet)
+        deepcache_certify, distributed_inference, dpm_certify, export_checkpoint,
+        generate_guidance, inference, parity_check, profile_unet)
+    from dynamicrafter_tpu_torch.parallel import sharding
     from dynamicrafter_tpu_torch.app import Image2Video
     from dynamicrafter_tpu_torch.config import ModelConfig
     from dynamicrafter_tpu_torch.experiments.fused_conv import bench_fused_conv
@@ -1980,7 +1993,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     reset(*infer_wrappers)
     dc_rows = deepcache_certify.main(["--resolutions", "512", "--cfg_passes", "2",
-                                      "--intervals", "1,2,3,4,5", "--steps", "50"])
+                                      "--intervals", "1,2,5", "--steps", "50"])
     n_dc_certify = counts(*infer_wrappers)
     torch.cuda.empty_cache()
     for row in dpm_rows:
@@ -2007,11 +2020,11 @@ def main() -> int:
               and np.isfinite(r["pixel_ssim"]) for r in dc_rows[1:]),
           f"deepcache_certify rows {dc_rows}")
     # one UNet call a step, both CFG passes in its batch: K1 5 and K2 34 a
-    # full call, K1 5 and K2 12 a DeepCache shallow one; the exact baselines
-    # at 50 and 48 steps, then N = 1..5 (N = 3 and 4 at 48 steps)
+    # full call, K1 5 and K2 12 a DeepCache shallow one; the exact baseline
+    # at 50 steps, then N = 1, 2 and 5
     dpm_calls = 120 + 120 + 30 + 50 + 30
-    dc_steps = {n: 50 if 50 % n == 0 else 48 for n in range(1, 6)}
-    full = 50 + 48 + sum(st // n for n, st in dc_steps.items())
+    dc_steps = {n: 50 for n in (1, 2, 5)}
+    full = 50 + sum(st // n for n, st in dc_steps.items())
     shallow = sum(st - st // n for n, st in dc_steps.items())
     check(n_dpm_certify[:2] == (5 * dpm_calls, 34 * dpm_calls),
           f"dpm_certify launches {n_dpm_certify} != {dpm_calls} UNet calls")
@@ -2240,6 +2253,214 @@ def main() -> int:
           "train_probe failed at batch 2 with the config policy")
     phase_s["30"] = time.perf_counter() - t0
 
+    # -- phase 31: the dp axis at world size 1 (nccl): trainer, train.main, inference.main --
+    t0 = time.perf_counter()
+    dist_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    os.environ.update(dist_env)
+    held_31 = torch.cuda.memory_allocated(dev)
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        sharding.init_distributed(dev, os.path.join(tmp, "store"))
+        try:
+            backend = torch.distributed.get_backend()
+            # (a) AccumulatingAdamW(mesh=) against the plain optimizer: the same
+            # weights, batches and draws, accumulation 2, EMA on, 4 micro-steps
+            tc = TrainingConfig.from_yaml(TRAIN_CONFIG)
+            mc = tc.model
+            pipe = DynamiCrafterPipeline.for_training(mc, dev, frozen_dtype=torch.bfloat16)
+            pipe.init_random(seed=SEED)
+            zcfg = TrainConfig(
+                learning_rate=tc.base_learning_rate, grad_clip=tc.gradient_clip_val,
+                accumulate_grad_batches=tc.accumulate_grad_batches, use_ema=True,
+                uncond_prob=mc.uncond_prob, rand_cond_frame=mc.rand_cond_frame,
+                parameterization=mc.parameterization, bf16=True)
+            bsz, t_len = tc.batch_size, mc.unet["temporal_length"]
+            hh, ww = tc.train_data["resolution"]
+            zgen = torch.Generator(device=dev).manual_seed(31)
+            tokens = torch.as_tensor(pipe.tokenizer(["a fox running", "waves at dusk"]),
+                                     dtype=torch.long, device=dev)
+            zbatches = [{"video": torch.rand(bsz, t_len, hh, ww, 3, device=dev,
+                                             generator=zgen) * 2 - 1,
+                         "tokens": tokens, "fs": torch.full((bsz,), 8.0, device=dev)}
+                        for _ in range(TRAIN_STEPS)]
+
+            def rel_l2(got, want):
+                """Relative L2 over lists of tensors, on the card."""
+                num = torch.stack([torch.linalg.vector_norm(g - w) for g, w in zip(got, want)])
+                den = torch.stack([torch.linalg.vector_norm(w) for w in want])
+                return float(num.square().sum().sqrt() / den.square().sum().sqrt())
+
+            start, zdraws, runs = None, None, {}
+            for path in ("plain", "mesh"):
+                mesh = sharding.create_mesh(1) if path == "mesh" else None
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                trainer = Trainer(pipe, zcfg, seed=SEED, mesh=mesh)
+                if start is None:
+                    start = {k: p.detach().cpu() for k, p in trainer.params.items()}
+                    zdraws = [trainer.draw(b, torch.Generator(device=dev).manual_seed(100 + i))
+                              for i, b in enumerate(zbatches)]
+                reset(*train_wrappers, flash_bwd_di)
+                secs, metrics, calls = [], [], []
+                for b, d in zip(zbatches, zdraws):
+                    sharding.collectives.clear()
+                    t1 = time.perf_counter()
+                    m = trainer.train_step(b, d)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t1)
+                    metrics.append({k: float(v) for k, v in m.items()})
+                    calls.append(dict(sharding.collectives))
+                run = dict(secs=secs, metrics=metrics, calls=calls,
+                           peak=torch.cuda.max_memory_allocated(dev) - base,
+                           launches=counts(*train_wrappers) + (flash_bwd_di.launches,))
+                opt = trainer.opt
+                if path == "plain":
+                    # the plain state stays on the card (the EMA and moments
+                    # by reference) while the mesh path runs
+                    state = [opt.optimizer.state[p] for p in trainer.params.values()]
+                    run["state"] = {
+                        "params": [p.detach().clone() for p in trainer.params.values()],
+                        "ema": list(opt.ema.values()),
+                        "exp_avg": [st["exp_avg"] for st in state],
+                        "exp_avg_sq": [st["exp_avg_sq"] for st in state]}
+                    del state
+                else:
+                    ref = runs["plain"].pop("state")
+                    rel = {"params": rel_l2([p.detach() for p in trainer.params.values()],
+                                            ref["params"])}
+                    for what in ("ema", "exp_avg", "exp_avg_sq"):
+                        rel[what] = rel_l2(opt.shards.gather(getattr(opt, what)), ref[what])
+                    run.update(rel=rel, buckets=len(opt.shards.buckets), adam_steps=opt.adam_steps)
+                    del ref
+                runs[path] = run
+                with torch.no_grad():
+                    for k, p in trainer.params.items():
+                        p.copy_(start[k])
+                del trainer, opt
+            del pipe, start, zbatches, zdraws, m, b, d
+            gc.collect()
+            torch.cuda.empty_cache()
+            plain_run, mesh_run = runs["plain"], runs["mesh"]
+            norms = [(a["grad_norm"], b["grad_norm"]) for a, b in zip(plain_run["metrics"],
+                                                                         mesh_run["metrics"])]
+            log(f"[31a] AccumulatingAdamW(mesh=) at world size 1, backend {backend}, "
+                f"{TRAIN_CONFIG} (batch {bsz} x {t_len} at {hh}x{ww}, bf16 autocast, accumulation "
+                f"{zcfg.accumulate_grad_batches}, EMA on), {TRAIN_STEPS} micro-steps from the same "
+                f"weights, batches and draws as the plain optimizer: relative L2 against plain "
+                + " ".join(f"{k} {v:.3e}" for k, v in mesh_run["rel"].items())
+                + " | grad_norm plain / mesh " + " ".join(f"{a:.6e}/{b:.6e}" for a, b in norms)
+                + " | loss plain / mesh " + " ".join(
+                    f"{a['loss']:.6f}/{b['loss']:.6f}" for a, b in zip(plain_run["metrics"],
+                                                                       mesh_run["metrics"]))
+                + f" | ms per micro-step plain {[round(1e3 * s, 1) for s in plain_run['secs']]} "
+                f"(median {1e3 * np.median(plain_run['secs']):.1f}), mesh "
+                f"{[round(1e3 * s, 1) for s in mesh_run['secs']]} (median "
+                f"{1e3 * np.median(mesh_run['secs']):.1f}) on {smi} | peak allocated above what "
+                f"was held before the optimizer was built: plain {plain_run['peak'] / 2**30:.2f} "
+                f"GiB, mesh {mesh_run['peak'] / 2**30:.2f} GiB (held at the phase's start "
+                f"{held_31 / 2**30:.2f} GiB, after (a) "
+                f"{torch.cuda.memory_allocated(dev) / 2**30:.2f}) | {mesh_run['buckets']} buckets; "
+                f"collective calls per micro-step {mesh_run['calls']} | launches K3 K4a K4b K2 K1 "
+                f"di plain {plain_run['launches']} mesh {mesh_run['launches']}")
+            for what, v in mesh_run["rel"].items():
+                check(v <= 1e-5, f"mesh-path {what} differs from plain by {v} (relative L2)")
+            check(all(abs(a - b) <= 1e-5 * abs(a) for a, b in norms), f"grad_norm {norms}")
+            check(mesh_run["adam_steps"] == TRAIN_STEPS // zcfg.accumulate_grad_batches,
+                  f"{mesh_run['adam_steps']} AdamW steps")
+            check(all(c.get("reduce_scatter") == mesh_run["buckets"] for c in mesh_run["calls"])
+                  and [c.get("all_gather", 0) for c in mesh_run["calls"]]
+                  == [0, mesh_run["buckets"]] * (TRAIN_STEPS // 2),
+                  f"collective calls per micro-step {mesh_run['calls']}")
+            check(mesh_run["launches"] == plain_run["launches"]
+                  == tuple(TRAIN_STEPS * c for c in (*per_step, di_per_step)),
+                  f"launches plain {plain_run['launches']} mesh {mesh_run['launches']}")
+
+            # (b) train.main --dp 1 under a torchrun environment; the checkpoint
+            # through export_checkpoint
+            reset(*train_wrappers, flash_bwd_di)
+            sharding.collectives.clear()
+            dp1_base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            result = train.main([
+                "--config", TRAIN_CONFIG, "--synthetic_data", "--bf16", "--max_steps", "3",
+                "--device", "cuda", "--seed", str(SEED), "--logdir", tmp, "--name", "dp1",
+                "--log_every", "1", "--dp", "1"])
+            torch.cuda.synchronize()
+            dp1_launches = counts(*train_wrappers) + (flash_bwd_di.launches,)
+            dp1_calls = dict(sharding.collectives)
+            dp1_peak = torch.cuda.max_memory_allocated(dev)
+            hist, secs = result["metrics"], result["step_seconds"]
+            mngr, trainer = result["checkpoints"], result["trainer"]
+            dp1_mesh = trainer.mesh.shape
+            ckpt_path = mngr.path(mngr.latest_step())
+            ckpt_gib = os.path.getsize(ckpt_path) / 2**30
+            t1 = time.perf_counter()
+            exported = export_checkpoint.main(["--config", TRAIN_CONFIG, "--params", ckpt_path,
+                                               "--out", os.path.join(tmp, "exported.ckpt")])
+            export_s = time.perf_counter() - t1
+            same = all(torch.equal(exported[k], p.detach().cpu())
+                       for k, p in trainer.params.items())
+            steps_saved = mngr.all_steps()
+            del result, trainer, mngr, exported
+            torch.cuda.empty_cache()
+            log(f"[31b] train.main {TRAIN_CONFIG} --synthetic_data --bf16 --dp 1 under RANK=0 "
+                f"WORLD_SIZE=1 LOCAL_RANK=0: mesh {dp1_mesh}, 3 micro-steps: loss "
+                + " ".join(f"{m['loss']:.5f}" for m in hist) + " | grad_norm "
+                + " ".join(f"{m['grad_norm']:.4e}" for m in hist) + " | s/micro-step "
+                + " ".join(f"{s:.3f}" for s in secs) + f" on {smi} | peak allocated "
+                f"{dp1_peak / 2**30:.2f} GiB, {dp1_base / 2**30:.2f} of it held before the run "
+                f"(phase 9's, without a mesh: {train_peak / 2**30:.2f}) "
+                f"| checkpoints {steps_saved}, {ckpt_gib:.2f} GiB; "
+                f"export_checkpoint read it back in {export_s:.1f}s, exported weights equal to the "
+                f"trainer's {same} | collectives {dp1_calls} | launches K3 K4a K4b K2 K1 di "
+                f"{dp1_launches}")
+            check(len(hist) == 3 and all(np.isfinite(v) for m in hist for v in m.values())
+                  and all(m["grad_norm"] > 0 for m in hist), "train.main --dp 1 metrics")
+            check(steps_saved == [3] and same, f"checkpoints {steps_saved}, export equal {same}")
+            check(dp1_mesh == {"dp": 1, "sp": 1}, f"mesh {dp1_mesh}")
+            check(dp1_launches == tuple(3 * c for c in (*per_step, di_per_step)),
+                  f"train.main --dp 1 launches {dp1_launches}")
+
+            # (c) inference.main --dp 1 against the same clip with no process group
+            dp_flags = ["--config", CONFIG,
+                        "--prompt_dir", prompt_dir(os.path.join(tmp, "p1"), 1), "--random_init",
+                        "--bf16", "--height", "320", "--width", "512",
+                        "--frame_stride", "24", "--timestep_spacing", "uniform_trailing",
+                        "--guidance_rescale", "0.7", "--perframe_ae",
+                        "--unconditional_guidance_scale", "7.5", "--text_input", "--video_length",
+                        "16", "--ddim_steps", str(STEPS_PARITY), "--ddim_eta", "1.0",
+                        "--seed", str(SEED), "--device", "cuda"]
+            reset(*infer_wrappers)
+            sharding.collectives.clear()
+            with_dp = inference.main([*dp_flags, "--savedir", os.path.join(tmp, "dp1"),
+                                      "--dp", "1"])
+            n_infer_dp = counts(*infer_wrappers)
+            infer_calls = dict(sharding.collectives)
+            for k in dist_env:
+                os.environ.pop(k)       # the run with no process group
+            without = inference.main([*dp_flags, "--savedir", os.path.join(tmp, "none")])
+            frames_equal = (np.array_equal(with_dp["videos"][0], without["videos"][0])
+                            and np.array_equal(np.load(with_dp["paths"][0]),
+                                               np.load(without["paths"][0])))
+            del with_dp, without
+        finally:
+            # before the FileStore's directory goes: a live nccl group polls it
+            sharding.destroy_distributed()
+            for k in dist_env:
+                os.environ.pop(k, None)
+    torch.cuda.empty_cache()
+    log(f"[31c] inference.main --dp 1 (nccl, world size 1) 320x512 DDIM-{STEPS_PARITY}: frames "
+        f"equal bit for bit to the run with no process group {frames_equal} | collectives "
+        f"{infer_calls} | launches K1 {n_infer_dp[0]} K2 {n_infer_dp[1]} | process group "
+        f"destroyed {not torch.distributed.is_initialized()}")
+    check(frames_equal, "inference --dp 1 frames differ from the run without a process group")
+    check(infer_calls == {"all_gather": STEPS_PARITY},
+          f"inference --dp 1 collectives {infer_calls}")
+    check(n_infer_dp[:2] == (STEPS_PARITY * per_call[0], STEPS_PARITY * per_call[1]),
+          f"inference --dp 1 launches {n_infer_dp}")
+    check(not torch.distributed.is_initialized(), "the process group outlived phase 31")
+    phase_s["31"] = time.perf_counter() - t0
+
     log("[wall] " + " ".join(f"phase {k} {v:.1f}s" for k, v in phase_s.items())
         + f" | total {time.perf_counter() - t_start:.1f}s")
 
@@ -2257,7 +2478,8 @@ def main() -> int:
                        "dpm_certify_512": n_dpm_certify[0],
                        "deepcache_certify_512": n_dc_certify[0],
                        "parity_check_512": n_parity[0],
-                       "distributed_512": n_shards[0][0] + n_shards[1][0] + n_whole[0]}),
+                       "distributed_512": n_shards[0][0] + n_shards[1][0] + n_whole[0],
+                       "inference_512_dp1": n_infer_dp[0]}),
         "small_t_fwd_tmajor": (src + "small_attention.cu", tpu + "small_attention.py:134",
                                launches[1],
                                {"inference_512": launches[1], "train_512": train_launches[3],
@@ -2273,27 +2495,38 @@ def main() -> int:
                                 "parity_check_512": n_parity[1],
                                 "distributed_512": n_shards[0][1] + n_shards[1][1] + n_whole[1],
                                 "train_512_interp": interp_launches[3],
-                                "train_probe_512": n_probe[3]}),
+                                "train_probe_512": n_probe[3],
+                                "train_512_zero_dp1": mesh_run["launches"][3],
+                                "train_512_dp1": dp1_launches[3],
+                                "inference_512_dp1": n_infer_dp[1]}),
         "flash_fwd_lse": (src + "flash_attention.cu", tpu + "flash_attention.py:32",
                           train_launches[0], {"train_512": train_launches[0],
                                               "train_1024_per_micro_step": per_step_1024[0],
                                               "train_512_interp": interp_launches[0],
-                                              "train_probe_512": n_probe[0]}),
+                                              "train_probe_512": n_probe[0],
+                                              "train_512_zero_dp1": mesh_run["launches"][0],
+                                              "train_512_dp1": dp1_launches[0]}),
         "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:304",
                          train_launches[1], {"train_512": train_launches[1],
                                              "train_1024_per_micro_step": per_step_1024[1],
                                              "train_512_interp": interp_launches[1],
-                                             "train_probe_512": n_probe[1]}),
+                                             "train_probe_512": n_probe[1],
+                                             "train_512_zero_dp1": mesh_run["launches"][1],
+                                             "train_512_dp1": dp1_launches[1]}),
         "flash_bwd_dkv": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:339",
                           train_launches[2], {"train_512": train_launches[2],
                                               "train_1024_per_micro_step": per_step_1024[2],
                                               "train_512_interp": interp_launches[2],
-                                              "train_probe_512": n_probe[2]}),
+                                              "train_probe_512": n_probe[2],
+                                              "train_512_zero_dp1": mesh_run["launches"][2],
+                                              "train_512_dp1": dp1_launches[2]}),
         "flash_bwd_di": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:329",
                          train_di, {"train_512": train_di,
                                     "train_1024_per_micro_step": per_step_1024[5],
                                     "train_512_interp": interp_di,
-                                    "train_probe_512": n_probe[5]}),
+                                    "train_probe_512": n_probe[5],
+                                    "train_512_zero_dp1": mesh_run["launches"][5],
+                                    "train_512_dp1": dp1_launches[5]}),
         "small_t_fwd": (src + "small_attention.cu", tpu + "small_attention.py:32",
                         launches_256[2], {"inference_256_bs8": launches_256[2],
                                           "inference_1024": launches_1024[2]}),

@@ -13,7 +13,8 @@ dynamicrafter_tpu_torch.distributed_inference ...`, whose WORLD_SIZE and RANK
 are read when --num_processes is not given. A process on CUDA takes card
 cuda:<LOCAL_RANK> (cuda:0 without torchrun). --coordinator is accepted for
 the JAX command line and has no effect. The arguments are parsed once and
-the namespace goes to `inference.main` as it is.
+the namespace goes to `inference.main` as it is. To share each clip's UNet
+calls across the ranks instead, torchrun `inference` itself with --dp.
 """
 from __future__ import annotations
 
@@ -44,7 +45,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         args.process_id = int(os.environ.get("RANK", "0"))
     if args.device == "cuda":
         args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
-    return inference.main(args, prompt_shard=(args.process_id, args.num_processes))
+    if (args.dp, args.sp) not in ((1, -1), (1, 1)):
+        raise SystemExit("distributed_inference shards the prompts; --dp / --sp split one "
+                         "clip's UNet calls: torchrun `dynamicrafter_tpu_torch.inference`")
+    return inference.main(args, prompt_shard=(args.process_id, args.num_processes),
+                          distributed=False)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """CLI inference: image + text -> video, over a prompt directory.
 
 The flag surface of the JAX package's `scripts/inference.py` (reference
-scripts/evaluation/inference.py:383-413) on one device, with its --sampler
-{ddim,dpm,unipc}, --solver_order and --deepcache, plus --random_init, --bf16, --device and --save_format; the three
-presets of `scripts/run.sh` are in `run.sh` beside this file. Run e.g.:
+scripts/evaluation/inference.py:383-413), with its --sampler
+{ddim,dpm,unipc}, --solver_order, --deepcache and --dp / --sp, plus
+--random_init, --bf16, --device and --save_format; the three presets of
+`scripts/run.sh` are in `run.sh` beside this file. Run e.g.:
 
   python -m dynamicrafter_tpu_torch.inference \
       --config configs/inference_512_v1.0.yaml --prompt_dir prompts/512 \
@@ -21,10 +22,22 @@ UNet call each under --sequential_cfg, which is the default at --width >=
 1024 (the JAX CLI's rule). `--profile_dir` writes a `torch.profiler` Chrome
 trace of the first batch there. `main(prompt_shard=(i, n))` runs the i-th of
 n slices of the prompt list (`distributed_inference` passes it).
+
+Under torchrun (WORLD_SIZE set) the ranks share each clip instead: `--dp N`
+splits every UNet call's rows over N processes, one card each (batched
+CFG's passes: at --bs 1 rank 0 runs the unconditional pass, rank 1 the
+conditional one), and all-gathers the outputs each step
+(`pipeline.split_rows`); rank 0 writes the files. --sp, the frame axis, is
+not ported yet (ROADMAP Queue 1 item K): it defaults to the ranks --dp
+leaves, as in the JAX CLI, so torchrun without --dp raises. E.g.
+
+  torchrun --nproc_per_node 2 -m dynamicrafter_tpu_torch.inference --dp 2 \
+      --config configs/inference_512_v1.0.yaml ... (the flags above)
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional, Sequence, Tuple, Union
 
@@ -85,6 +98,11 @@ def get_parser() -> argparse.ArgumentParser:
                    help="path to bpe_simple_vocab_16e6.txt.gz")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler Chrome trace of the first batch here")
+    p.add_argument("--dp", type=int, default=1,
+                   help="under torchrun: ranks that split each UNet call's rows")
+    p.add_argument("--sp", type=int, default=-1,
+                   help="under torchrun: frame-axis ranks (-1: those --dp leaves); above 1 "
+                        "not ported yet (ROADMAP Queue 1 item K)")
     return p
 
 
@@ -98,9 +116,11 @@ def shard_bounds(n: int, shard_id: int, num_shards: int) -> Tuple[int, int]:
 
 
 def main(argv: Union[None, Sequence[str], argparse.Namespace] = None,
-         prompt_shard: Tuple[int, int] = (0, 1)) -> dict:
+         prompt_shard: Tuple[int, int] = (0, 1), distributed: Optional[bool] = None) -> dict:
     """Run inference over a prompt dir, or over slice `prompt_shard` =
-    (shard_id, num_shards) of it; `argv` may be a parsed namespace. Returns
+    (shard_id, num_shards) of it; `argv` may be a parsed namespace.
+    `distributed` (default: whether WORLD_SIZE is set) joins the process
+    group and splits the UNet's rows over --dp ranks. Returns
     {"paths": [...], "timings": [per-batch stage seconds], "peaks":
     [per-batch peak bytes allocated in each stage, on a CUDA device],
     "build_peak": peak bytes while the pipeline was built and filled,
@@ -116,12 +136,25 @@ def main(argv: Union[None, Sequence[str], argparse.Namespace] = None,
                          f"--ddim_steps {args.ddim_steps}")
     from dynamicrafter_tpu_torch import profile_unet
     from dynamicrafter_tpu_torch.config import ModelConfig
+    from dynamicrafter_tpu_torch.parallel import sharding
     from dynamicrafter_tpu_torch.pipeline import DynamiCrafterPipeline
     from dynamicrafter_tpu_torch.utils.video import load_prompt_dir, save_results
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available")
+    if args.sp > 1:
+        raise NotImplementedError(sharding.SP_NOT_PORTED.format(sp=args.sp))
+    if distributed is None:
+        distributed = "WORLD_SIZE" in os.environ
+    mesh, joined = None, torch.distributed.is_initialized()
+    if distributed:
+        device = sharding.init_distributed(device)
+        mesh = sharding.create_mesh(args.dp, args.sp)
+    elif (args.dp, args.sp) not in ((1, -1), (1, 1)):
+        raise SystemExit(f"--dp {args.dp} --sp {args.sp} needs one process a rank: run under "
+                         "torchrun")
+    writer = mesh is None or mesh.rank == 0
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     if args.ckpt_path and not args.random_init:
         pipe = DynamiCrafterPipeline.from_checkpoint(
@@ -149,25 +182,28 @@ def main(argv: Union[None, Sequence[str], argparse.Namespace] = None,
     for i0 in range(0, len(prompts), args.bs):
         sl = slice(i0, min(i0 + args.bs, len(prompts)))
         clock, peak = {}, {}
-        prof = profile_unet.start_trace(device) if args.profile_dir and i0 == 0 else None
-        out = pipe.sample(
-            prompts[sl], videos[sl], steps=args.ddim_steps,
-            cfg_scale=args.unconditional_guidance_scale, eta=args.ddim_eta,
-            cfg_img=args.cfg_img, multiple_cond_cfg=args.multiple_cond_cfg,
-            timestep_spacing=args.timestep_spacing,
-            guidance_rescale=args.guidance_rescale,
-            fs=[args.frame_stride] * (sl.stop - sl.start),
-            loop_or_interp=args.loop or args.interp, n_samples=args.n_samples,
-            seed=args.seed,
-            negative_prompt=args.negative_prompt_text if args.negative_prompt else "",
-            sequential_cfg=args.sequential_cfg or args.width >= 1024,
-            sampler=args.sampler, solver_order=args.solver_order, deepcache=args.deepcache,
-            timings=clock, peaks=peak)
+        prof = (profile_unet.start_trace(device) if args.profile_dir and i0 == 0 and writer
+                else None)
+        with sharding.use_mesh(mesh):
+            out = pipe.sample(
+                prompts[sl], videos[sl], steps=args.ddim_steps,
+                cfg_scale=args.unconditional_guidance_scale, eta=args.ddim_eta,
+                cfg_img=args.cfg_img, multiple_cond_cfg=args.multiple_cond_cfg,
+                timestep_spacing=args.timestep_spacing,
+                guidance_rescale=args.guidance_rescale,
+                fs=[args.frame_stride] * (sl.stop - sl.start),
+                loop_or_interp=args.loop or args.interp, n_samples=args.n_samples,
+                seed=args.seed,
+                negative_prompt=args.negative_prompt_text if args.negative_prompt else "",
+                sequential_cfg=args.sequential_cfg or args.width >= 1024,
+                sampler=args.sampler, solver_order=args.solver_order, deepcache=args.deepcache,
+                timings=clock, peaks=peak)
         vids = out.videos
         if args.loop:
             vids = vids[:, :, :-1]   # the last frame repeats the first
-        paths += save_results(vids, names[sl], args.savedir,
-                              save_format=args.save_format, fps=args.savefps)
+        if writer:
+            paths += save_results(vids, names[sl], args.savedir,
+                                  save_format=args.save_format, fps=args.savefps)
         if prof is not None:
             print(f"profiler trace -> {profile_unet.stop_trace(prof, device, args.profile_dir)}")
         timings.append(clock)
@@ -178,6 +214,8 @@ def main(argv: Union[None, Sequence[str], argparse.Namespace] = None,
             f"{k} {v:.2f}s" + (f" (peak {peak[k] / 2**30:.2f} GiB)" if k in peak else "")
             for k, v in clock.items()))
     print(f"done in {time.perf_counter() - start:.1f}s -> {args.savedir}")
+    if mesh is not None and not joined:
+        sharding.destroy_distributed()
     return {"paths": paths, "timings": timings, "peaks": peaks, "build_peak": build_peak,
             "videos": outputs, "latents": latents}
 

@@ -40,6 +40,7 @@ from dynamicrafter_tpu_torch.models.vae import (
     decode_tiled,
 )
 from dynamicrafter_tpu_torch.ops.norms import keep_norms_fp32
+from dynamicrafter_tpu_torch.parallel.sharding import Mesh, active_mesh, all_gather_rows
 from dynamicrafter_tpu_torch.sampling.ddim import (
     CFGConditioning,
     SamplerSettings,
@@ -63,6 +64,41 @@ class PipelineOutput:
     denoise_rows: Optional[np.ndarray] = None
     # the sampled latents (B, n_samples, T, h, w, z) float32, before decoding
     latents: Optional[np.ndarray] = None
+
+
+def split_rows(unet, mesh: Mesh):
+    """`unet` with its batch split over the dp ranks of `mesh`: the inference
+    side of the dp axis (the JAX UNet constrains its batch to 'dp',
+    models/unet3d.py:284, :339). Rank r runs the r-th dp-th of the rows (of
+    batched CFG's 2B or 3B: the passes split across the ranks) and the
+    outputs are all-gathered, so every rank holds every row. Where the rows
+    do not divide by dp every rank runs every row, as JAX's `constrain`
+    drops an axis that does not divide (parallel/sharding.py:118-135). The
+    DeepCache `cache` (rows first) splits with the rows, and a returned
+    feature is gathered like the output."""
+    said = []
+
+    def call(x, t, context_text=None, context_img=None, fs=None, cache=None,
+             return_cache=False):
+        n, dp = x.shape[0], mesh.dp
+        kw = {"return_cache": True} if return_cache else {}
+        if n % dp:
+            if not said:
+                said.append(n)
+                print(f"[rank {mesh.rank}] {n} UNet rows do not divide by dp={dp}: every "
+                      "rank runs every row")
+            return unet(x, t, context_text=context_text, context_img=context_img, fs=fs,
+                        **kw, **({} if cache is None else {"cache": cache}))
+        lo, hi = mesh.rank * n // dp, (mesh.rank + 1) * n // dp
+        part = lambda a: None if a is None else a[lo:hi]
+        out = unet(x[lo:hi], t[lo:hi], context_text=part(context_text),
+                   context_img=part(context_img), fs=part(fs), **kw,
+                   **({} if cache is None else {"cache": cache[lo:hi]}))
+        if return_cache:
+            return all_gather_rows(out[0], mesh), all_gather_rows(out[1], mesh)
+        return all_gather_rows(out, mesh)
+
+    return call
 
 
 def _text_config(config: ModelConfig) -> CLIPTextConfig:
@@ -369,7 +405,9 @@ class DynamiCrafterPipeline:
         x0_latents: (B, T, h, w, z), 1 = hold the latent to x0.
         `timings`, when given, receives the seconds of each stage
         (synchronised on the device), and `peaks` the peak bytes allocated
-        on a CUDA device during each stage.
+        on a CUDA device during each stage. Under an active mesh
+        (`parallel.sharding.use_mesh`) the UNet's rows split over its dp
+        ranks (`split_rows`); every rank must call with the same arguments.
 
         Returns PipelineOutput with videos (B, n_samples, T, H, W, 3) and,
         with `log_every_t`, the decoded intermediates; or with decode=False
@@ -435,7 +473,9 @@ class DynamiCrafterPipeline:
             use_corrector=use_corrector)
         table = sched_lib.build_ddim_table(self.schedule, num_steps=steps,
                                            discretize=timestep_spacing, eta=eta)
-        model_fn = make_cfg_denoiser(self.unet, cond, settings)
+        mesh = active_mesh()
+        model_fn = make_cfg_denoiser(self.unet if mesh is None else split_rows(self.unet, mesh),
+                                     cond, settings)
         t0 = stage_start()
         x_T = on_dev(x_T)
         if x_T is not None and x_T.dim() == 5:

@@ -1,7 +1,8 @@
-"""Training CLI: fine-tune DynamiCrafter on one device.
+"""Training CLI: fine-tune DynamiCrafter on one device, or data-parallel
+under torchrun.
 
-The flag surface of the JAX package's `scripts/train.py` for one device
-(reference main/trainer.py). It reads a reference-style training YAML
+The flag surface of the JAX package's `scripts/train.py` (reference
+main/trainer.py). It reads a reference-style training YAML
 (`model:`, `data:`, `lightning:`): base_learning_rate and scale_lr,
 accumulate_grad_batches, max_steps and gradient_clip_val, the checkpoint
 interval and monitor. Run e.g.:
@@ -23,6 +24,19 @@ checkpoint policies with no PyTorch counterpart.
 Without a pretrained checkpoint every weight is drawn from N(0, 0.02)
 (`--seed`). SIGUSR1 writes a checkpoint at the end of the current
 micro-step (reference trainer.py:129-143).
+
+Under torchrun (WORLD_SIZE set) each process drives one card as a rank of
+the dp axis: ZeRO-2, as the reference's default DDPSharded strategy
+(`training.trainer.AccumulatingAdamW` with a mesh). --bs is per rank, so a
+micro-step takes world x bs clips; each rank reads its own shard of the
+data and draws from (seed, rank); with scale_lr the rate is base_lr x
+world x bs (reference main/trainer.py:88-93). Rank 0 alone writes the log,
+metrics.csv, TensorBoard, samples and checkpoints; traces are per rank
+(`profile_rank<r>` beside rank 0's `profile`). --sp (the frame axis) is not
+ported yet (ROADMAP Queue 1 item K) and raises above 1. E.g.
+
+  torchrun --nproc_per_node 4 -m dynamicrafter_tpu_torch.train \
+      --config configs/training_512_v1.0.yaml --synthetic_data --bf16
 """
 from __future__ import annotations
 
@@ -86,6 +100,10 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--vocab_path", type=str, default=None,
                    help="path to bpe_simple_vocab_16e6.txt.gz")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--dp", type=int, default=-1,
+                   help="under torchrun: data-parallel ranks (-1: the world size / --sp)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="frame-axis ranks; above 1 not ported yet (ROADMAP Queue 1 item K)")
     return p
 
 
@@ -117,11 +135,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     per micro-step), "step_seconds" (host wall time of each micro-step,
     synchronised on the device), "checkpoints" (the CheckpointManager),
     "trace" (the profiler trace's path or None), "worker_pids" (the process
-    loader's workers)} for callers that drive it in-process."""
+    loader's workers)} for callers that drive it in-process. Where WORLD_SIZE
+    is set (torchrun), it trains as a rank of the dp axis."""
     args = get_parser().parse_args(argv)
     from dynamicrafter_tpu_torch import profile_unet
     from dynamicrafter_tpu_torch.data.webvid import DataLoader, ProcessDataLoader
     from dynamicrafter_tpu_torch.config import TrainingConfig
+    from dynamicrafter_tpu_torch.parallel import sharding
     from dynamicrafter_tpu_torch.pipeline import DynamiCrafterPipeline
     from dynamicrafter_tpu_torch.training.checkpoints import CheckpointManager
     from dynamicrafter_tpu_torch.training.logging import (
@@ -131,17 +151,27 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available")
+    if args.sp > 1:
+        raise NotImplementedError(sharding.SP_NOT_PORTED.format(sp=args.sp))
+    mesh, joined = None, torch.distributed.is_initialized()
+    if "WORLD_SIZE" in os.environ:
+        device = sharding.init_distributed(device)
+        world = torch.distributed.get_world_size()
+        mesh = sharding.create_mesh(args.dp if args.dp > 0 else world // args.sp, args.sp)
+    elif args.dp not in (-1, 1):
+        raise SystemExit(f"--dp {args.dp} needs one process a rank: run under torchrun")
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.dp)
     tc = TrainingConfig.from_yaml(args.config)
     mc = tc.model
     if args.checkpoint == "none":
         mc.unet["use_checkpoint"] = False
     workdir = os.path.join(args.logdir, args.name)
-    log = setup_logger(workdir)
+    log = setup_logger(workdir, rank)
     if args.debug:
         log.setLevel(logging.DEBUG)
 
     bs = args.bs or tc.batch_size
-    lr = (args.lr or tc.base_learning_rate) * (bs if tc.scale_lr else 1)
+    lr = (args.lr or tc.base_learning_rate) * (world * bs if tc.scale_lr else 1)
     max_steps = args.max_steps or tc.max_steps
     cfg = TrainConfig(
         learning_rate=lr, grad_clip=tc.gradient_clip_val,
@@ -154,7 +184,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         original_elbo_weight=mc.params.get("original_elbo_weight", 0.0),
         learn_logvar=mc.params.get("learn_logvar", False),
         logvar_init=mc.params.get("logvar_init", 0.0), bf16=args.bf16)
-    log.info(f"device={device} lr={lr} bs={bs} accum={cfg.accumulate_grad_batches} "
+    log.info(f"device={device} mesh={None if mesh is None else mesh.shape} lr={lr} "
+             f"bs={bs} per rank accum={cfg.accumulate_grad_batches} "
              f"max_steps={max_steps} bf16={args.bf16} loader={args.loader} "
              f"checkpointing={bool(mc.unet.get('use_checkpoint', False))} "
              f"interp_mode={cfg.interp_mode} rand_cond_frame={cfg.rand_cond_frame}")
@@ -177,13 +208,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         pipe.init_random(seed=args.seed)
         log.info("WARNING: random-init weights N(0, 0.02) (no pretrained checkpoint)")
 
-    trainer = Trainer(pipe, cfg, train_resampler=train_resampler, seed=args.seed)
+    trainer = Trainer(pipe, cfg, train_resampler=train_resampler, seed=args.seed, mesh=mesh)
     ckpt = tc.checkpoint
     ckpt_every = ckpt.get("every_n_train_steps", 9000)
     monitor = mc.params.get("monitor")
     mngr = CheckpointManager(os.path.join(workdir, "checkpoints"), max_to_keep=3,
                              monitor=monitor, top_k=ckpt.get("save_top_k", 3),
-                             mode=ckpt.get("mode", "min"))
+                             mode=ckpt.get("mode", "min"), mesh=mesh)
     if args.auto_resume or args.auto_resume_weight_only:
         state = mngr.restore()
         if state is not None:
@@ -197,17 +228,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     loader_cls = DataLoader if args.loader == "threads" else ProcessDataLoader
     loader = loader_cls(_build_dataset(tc.train_data, args, t_len, log), batch_size=bs,
                         tokenizer=tokenizer, seed=args.seed, num_workers=tc.num_workers,
-                        fs_key=fs_key)
+                        fs_key=fs_key, shard_id=rank, num_shards=world)
     val_iter = None
     if args.val_every:
         val_data = _build_dataset(tc.validation_data or tc.train_data, args, t_len, log)
         val_iter = iter(loader_cls(val_data, batch_size=bs, tokenizer=tokenizer,
                                    shuffle=False, seed=args.seed + 1,
-                                   num_workers=tc.num_workers, fs_key=fs_key))
+                                   num_workers=tc.num_workers, fs_key=fs_key,
+                                   shard_id=rank, num_shards=world))
 
-    metrics_log = MetricLogger(workdir)
+    # rank 0 writes; every rank makes every collective call (a rank that
+    # skipped one would hang the others)
+    metrics_log = MetricLogger(workdir) if rank == 0 else None
     sample_logger = None
-    if args.sample_every > 0:
+    if args.sample_every > 0 and rank == 0:
         sample_logger = SampleLogger(
             pipe, workdir, every_n_steps=args.sample_every,
             sample_kwargs=tc.batch_logger.get("log_images_kwargs"),
@@ -217,7 +251,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
     history, step_seconds, last_val = [], [], {}
     prof, trace = None, None
-    profile_dir = os.path.join(workdir, "profile")
+    profile_dir = os.path.join(workdir, "profile" if rank == 0 else f"profile_rank{rank}")
     for batch in loader:
         if trainer.step >= max_steps:
             break
@@ -237,18 +271,23 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         if val_iter is not None and step % args.val_every == 0:
             last_val = {k: float(v) for k, v in
                         trainer.eval_step(_to_device(next(val_iter), device)).items()}
-            metrics_log.log(step, last_val)
+            if metrics_log is not None:
+                metrics_log.log(step, last_val)
             log.info(f"step {step} val: " + " ".join(f"{k}={v:.4g}" for k, v in last_val.items()))
-        if step % args.log_every == 0:
+        if step % args.log_every == 0 and metrics_log is not None:
             vals = dict(vals, s_per_step=step_seconds[-1], **device_memory_stats())
             metrics_log.log(step, vals)
             log.info(f"step {step}: " + " ".join(f"{k}={v:.4g}" for k, v in vals.items()))
-        if sample_logger is not None and step % sample_logger.every == 0:
+        if args.sample_every > 0 and step % args.sample_every == 0:
             # sample with the EMA weights, the trained ones restored after
             # (reference ema_scope, ddpm3d.py:188-201); only on the steps that
-            # sample, since the scope copies every trainable weight twice
+            # sample, since the scope copies every trainable weight twice. With
+            # a mesh every rank gathers the EMA and rank 0 samples
             with trainer.ema_scope():
-                sample_logger.maybe_log(step, batch)
+                if sample_logger is not None:
+                    sample_logger.maybe_log(step, batch)
+        if mesh is not None:
+            want_ckpt["now"] = sharding.any_rank(want_ckpt["now"], mesh, device)
         if step % ckpt_every == 0 or want_ckpt["now"]:
             mngr.save(step, trainer.state_dict(), metrics=last_val)
             want_ckpt["now"] = False
@@ -256,10 +295,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if prof is not None:
         trace = profile_unet.stop_trace(prof, device, profile_dir)
         log.info(f"profiler trace of micro-steps [10, {trainer.step}) -> {trace}")
-    metrics_log.close()
+    if metrics_log is not None:
+        metrics_log.close()
     if mngr.latest_step() != trainer.step:
         mngr.save(trainer.step, trainer.state_dict(), metrics=last_val)
     log.info(f"done at step {trainer.step}")
+    if mesh is not None and not joined:
+        sharding.destroy_distributed()
     return {"trainer": trainer, "workdir": workdir, "metrics": history,
             "step_seconds": step_seconds, "checkpoints": mngr, "trace": trace,
             "worker_pids": getattr(loader, "worker_pids", ())}

@@ -7,7 +7,9 @@ checkpoint keys, the optimizer state, the EMA weights and the gradient
 accumulator. Retention follows the JAX manager: the newest `max_to_keep`,
 or, with a monitored metric, the best `top_k` (the reference's monitored
 ModelCheckpoint, main/utils_train.py:68-73). The metrics of every kept
-checkpoint live in `<dir>/index.json`.
+checkpoint live in `<dir>/index.json`. With a data-parallel mesh every rank
+calls `save` with the same (gathered) state: rank 0 writes, and every rank
+leaves `save` after a barrier, so that none reads the directory early.
 """
 from __future__ import annotations
 
@@ -19,14 +21,18 @@ from typing import Dict, Optional
 
 import torch
 
+from dynamicrafter_tpu_torch.parallel.sharding import Mesh, barrier
+
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
 
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: Optional[int] = None,
-                 monitor: Optional[str] = None, top_k: int = 3, mode: str = "min"):
+                 monitor: Optional[str] = None, top_k: int = 3, mode: str = "min",
+                 mesh: Optional[Mesh] = None):
         if mode not in ("min", "max"):
             raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
+        self.mesh = mesh
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep, self.monitor, self.top_k, self.mode = max_to_keep, monitor, top_k, mode
@@ -50,8 +56,18 @@ class CheckpointManager:
             return json.load(f)
 
     def save(self, step: int, state: dict, metrics: Optional[dict] = None) -> str:
-        """Write `state` for `step` (atomically), then apply retention."""
+        """Write `state` for `step` (atomically), then apply retention; with
+        a mesh, on rank 0, and every rank returns after a barrier."""
         path = self.path(step)
+        if self.mesh is not None:
+            if self.mesh.rank == 0:
+                self._write(path, step, state, metrics)
+            barrier(self.mesh)
+            return path
+        self._write(path, step, state, metrics)
+        return path
+
+    def _write(self, path: str, step: int, state: dict, metrics: Optional[dict]) -> None:
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(state, tmp)
         os.replace(tmp, path)
@@ -60,7 +76,6 @@ class CheckpointManager:
         self._retain(index)
         with open(self._index_path, "w") as f:
             json.dump(index, f, indent=1, sort_keys=True)
-        return path
 
     def _retain(self, index: Dict[str, dict]) -> None:
         steps = self.all_steps()

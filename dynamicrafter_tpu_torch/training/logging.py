@@ -19,18 +19,24 @@ from dynamicrafter_tpu_torch.utils.video import make_denoise_grid, save_clip, sa
 mainlogger = logging.getLogger("dynamicrafter_tpu_torch.train")
 
 
-def setup_logger(logdir: str) -> logging.Logger:
+def setup_logger(logdir: str, rank: int = 0) -> logging.Logger:
     """INFO to `<logdir>/train.log` and to the console (replacing the
-    handlers of an earlier call)."""
-    os.makedirs(logdir, exist_ok=True)
+    handlers of an earlier call); on a data-parallel rank other than 0,
+    warnings to the console alone, so that rank 0 writes the run's log."""
     for h in list(mainlogger.handlers):
         mainlogger.removeHandler(h)
         h.close()
     fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
-    for h in (logging.FileHandler(os.path.join(logdir, "train.log")), logging.StreamHandler()):
+    handlers = [logging.StreamHandler()]
+    if rank == 0:
+        os.makedirs(logdir, exist_ok=True)
+        handlers.insert(0, logging.FileHandler(os.path.join(logdir, "train.log")))
+    else:
+        fmt = logging.Formatter(f"%(asctime)s %(levelname)s [rank {rank}] %(message)s")
+    for h in handlers:
         h.setFormatter(fmt)
         mainlogger.addHandler(h)
-    mainlogger.setLevel(logging.INFO)
+    mainlogger.setLevel(logging.INFO if rank == 0 else logging.WARNING)
     mainlogger.propagate = False
     return mainlogger
 

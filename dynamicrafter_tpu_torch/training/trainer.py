@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from dynamicrafter_tpu_torch.models.clip import clip_preprocess
+from dynamicrafter_tpu_torch.parallel.sharding import BUCKET_NUMEL, FlatShards, Mesh, dp_mean
 from dynamicrafter_tpu_torch.schedule import extract_into_tensor
 from dynamicrafter_tpu_torch.training.ema import ema_init, ema_update
 
@@ -145,20 +146,63 @@ class AccumulatingAdamW:
     takes one micro-step's gradients, keeps their running mean, and every
     k-th call clips the mean by its global norm and applies AdamW (optax's
     defaults: betas 0.9/0.999, eps 1e-8, weight decay `cfg.weight_decay`);
-    the EMA follows after every call, and `step` counts calls."""
+    the EMA follows after every call, and `step` counts calls.
 
-    def __init__(self, params: Dict[str, torch.Tensor], cfg: TrainConfig):
-        self.params, self.cfg = params, cfg
-        self.optimizer = torch.optim.AdamW(
-            list(params.values()), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=cfg.weight_decay)
-        self.ema = ema_init(params) if cfg.use_ema else None
+    With a `mesh`, ZeRO-2 over its dp axis, in the order of the JAX step
+    (trainer.py:286-303; the reference's DDPSharded strategy): `update`
+    reduce-scatters the local gradients (each the mean over this rank's
+    batch) into this rank's shard of their dp mean and keeps the running
+    mean in a shard-sized accumulator; at the window's end it clips by the
+    global norm, runs AdamW on the shard and all-gathers the shard into the
+    tensors in place. The AdamW is `torch.optim.AdamW` itself, over views of
+    this rank's elements of the tensors (`pieces`), its moments views of the
+    shard-sized `exp_avg` and `exp_avg_sq`; the EMA shadow `ema` is this
+    rank's shard too. The arithmetic is the plain path's kernel for kernel,
+    so at dp 1 the two agree bit for bit. `update` returns the global norm
+    of the micro-step's dp-mean gradient. `state_dict` gathers full tensors
+    in the plain path's format (no padding), so a checkpoint resumes at any
+    dp; `load_state_dict` takes this rank's shard. Every rank makes every
+    call. The layout is `shards` (`parallel.sharding.FlatShards`)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], cfg: TrainConfig,
+                 mesh: Optional[Mesh] = None, bucket_numel: int = BUCKET_NUMEL):
+        self.params, self.cfg, self.mesh = params, cfg, mesh
         self.step = 0          # micro-steps taken
         self.mini_step = 0     # position inside the accumulation window
         self._acc: Optional[List[torch.Tensor]] = None
+        if mesh is None:
+            self.optimizer = torch.optim.AdamW(
+                list(params.values()), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                weight_decay=cfg.weight_decay)
+            self.ema = ema_init(params) if cfg.use_ema else None
+            return
+        tensors = [p.detach() for p in params.values()]
+        self.shards = FlatShards(tensors, mesh, bucket_numel)
+        self.pieces = self.shards.views(tensors)
+        self.optimizer = torch.optim.AdamW(
+            self.pieces, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=cfg.weight_decay)
+        self.exp_avg, self.exp_avg_sq = self.shards.zeros(), self.shards.zeros()
+        self._set_moments(0)
+        self.ema = self.shards.shard_of(tensors) if cfg.use_ema else None
 
-    def update(self, grads: List[torch.Tensor]) -> None:
-        """Take one micro-step's gradients (in `params` order; consumed)."""
+    def _set_moments(self, steps: int) -> None:
+        """The optimizer's state: each piece's moments as views of the flat
+        shards (the padding stays outside every view) after `steps` steps."""
+        for piece, m, v in zip(self.pieces, self.shards.pieces(self.exp_avg),
+                               self.shards.pieces(self.exp_avg_sq)):
+            self.optimizer.state[piece] = {"step": torch.tensor(float(steps)),
+                                           "exp_avg": m, "exp_avg_sq": v}
+
+    @property
+    def adam_steps(self) -> int:
+        return int(self.optimizer.state[self.pieces[0]]["step"]) if self.pieces else 0
+
+    def update(self, grads: List[torch.Tensor]) -> Optional[torch.Tensor]:
+        """Take one micro-step's gradients (in `params` order; consumed).
+        With a mesh, returns the global norm of their dp mean."""
+        if self.mesh is not None:
+            return self._update_sharded(grads)
         k = self.cfg.accumulate_grad_batches
         if k > 1:
             # Welford running mean, as optax.MultiSteps keeps it; in place
@@ -183,7 +227,43 @@ class AccumulatingAdamW:
             ema_update(self.ema, self.params, self.step, self.cfg.ema_decay)
         self.step += 1
 
+    @torch.no_grad()
+    def _update_sharded(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        # the plain path's foreach kernels on one-element lists: a scalar
+        # division or a multiplication may round otherwise in another kernel
+        k = self.cfg.accumulate_grad_batches
+        g = self.shards.reduce_scatter(grads)
+        norm = self.shards.norm(g)
+        if k > 1:
+            if self._acc is None:
+                self._acc = g
+            else:
+                torch._foreach_sub_([g], [self._acc])
+                torch._foreach_div_([g], self.mini_step + 1)
+                torch._foreach_add_([self._acc], [g])
+            g = self._acc
+        if self.mini_step == k - 1:
+            total = norm if k == 1 else self.shards.norm(g)
+            torch._foreach_mul_([g], torch.where(total < self.cfg.grad_clip, 1.0,
+                                                 self.cfg.grad_clip / total))
+            for piece, grad in zip(self.pieces, self.shards.pieces(g)):
+                piece.grad = grad
+            self.optimizer.step()
+            for piece in self.pieces:
+                piece.grad = None
+            self.shards.gather_into(list(self.params.values()))
+            self._acc = None
+        self.mini_step = (self.mini_step + 1) % k
+        if self.ema is not None:
+            d = min(self.cfg.ema_decay, (1.0 + self.step) / (10.0 + self.step))
+            torch._foreach_lerp_(self.shards.pieces(self.ema),
+                                 self.shards.views(list(self.params.values())), 1.0 - d)
+        self.step += 1
+        return norm
+
     def state_dict(self) -> dict:
+        if self.mesh is not None:
+            return self._state_dict_sharded()
         return {
             "step": self.step,
             "optimizer": self.optimizer.state_dict(),
@@ -193,8 +273,53 @@ class AccumulatingAdamW:
                           if self._acc is not None else None),
         }
 
+    def _state_dict_sharded(self) -> dict:
+        """`state_dict` gathered from the shards onto the CPU, in the plain
+        path's format (either path's `load_state_dict` reads it)."""
+        full = lambda shard: dict(zip(self.params, self.shards.gather(shard, "cpu")))
+        moments, steps = {}, self.adam_steps
+        if steps:
+            m, v = (self.shards.gather(x, "cpu") for x in (self.exp_avg, self.exp_avg_sq))
+            moments = {i: {"step": torch.tensor(float(steps)), "exp_avg": m[i],
+                           "exp_avg_sq": v[i]} for i in range(len(m))}
+        group = dict(self.optimizer.state_dict()["param_groups"][0],
+                     params=list(range(len(self.params))))
+        return {
+            "step": self.step,
+            "optimizer": {"state": moments, "param_groups": [group]},
+            "ema": full(self.ema) if self.ema is not None else None,
+            "mini_step": self.mini_step,
+            "acc_grads": full(self._acc) if self._acc is not None else None,
+        }
+
+    @torch.no_grad()
+    def _load_sharded(self, state: dict, weights_only: bool) -> None:
+        in_order = lambda d: [d[k] for k in self.params]
+        if self.ema is not None and state.get("ema") is not None:
+            self.ema = self.shards.shard_of(in_order(state["ema"]))
+        if weights_only:
+            return
+        self.step = int(state["step"])
+        self.mini_step = int(state["mini_step"])
+        opt = state["optimizer"]
+        self.optimizer.param_groups[0].update(
+            {k: v for k, v in opt["param_groups"][0].items() if k != "params"})
+        per_param = [opt["state"].get(i) for i in range(len(self.params))]
+        if per_param[0] is None:
+            self.exp_avg.zero_()
+            self.exp_avg_sq.zero_()
+            self._set_moments(0)
+        else:
+            for name, shard in (("exp_avg", self.exp_avg), ("exp_avg_sq", self.exp_avg_sq)):
+                shard.copy_(self.shards.shard_of([s[name] for s in per_param]))
+            self._set_moments(int(per_param[0]["step"]))
+        acc = state["acc_grads"]
+        self._acc = self.shards.shard_of(in_order(acc)) if acc is not None else None
+
     @torch.no_grad()
     def load_state_dict(self, state: dict, weights_only: bool = False) -> None:
+        if self.mesh is not None:
+            return self._load_sharded(state, weights_only)
         if self.ema is not None and state.get("ema") is not None:
             for k, s in self.ema.items():
                 s.copy_(state["ema"][k])
@@ -214,10 +339,15 @@ class Trainer:
 
     `params` maps reference checkpoint keys (`model.diffusion_model.*`,
     `image_proj_model.*`, and `logvar` when learned) to the trainable
-    tensors; checkpoints and EMA use the same keys."""
+    tensors; checkpoints and EMA use the same keys.
 
-    def __init__(self, pipe, cfg: TrainConfig, train_resampler: bool = True, seed: int = 0):
-        self.pipe, self.cfg, self.seed = pipe, cfg, seed
+    With a `mesh` each rank takes its own batch and draws (seeded from
+    (seed, rank, step)), the optimizer is ZeRO-2 over dp (`AccumulatingAdamW`)
+    and the metrics are dp means; every rank must make every call."""
+
+    def __init__(self, pipe, cfg: TrainConfig, train_resampler: bool = True, seed: int = 0,
+                 mesh: Optional[Mesh] = None):
+        self.pipe, self.cfg, self.seed, self.mesh = pipe, cfg, seed, mesh
         modules = {"model.diffusion_model.": pipe.unet}
         if train_resampler:
             modules["image_proj_model."] = pipe.resampler
@@ -229,7 +359,7 @@ class Trainer:
             self.logvar = torch.full((pipe.schedule.num_timesteps,), cfg.logvar_init,
                                      device=pipe.device, requires_grad=True)
             self.params["logvar"] = self.logvar
-        self.opt = AccumulatingAdamW(self.params, cfg)
+        self.opt = AccumulatingAdamW(self.params, cfg, mesh=mesh)
         self.batch_input = make_batch_input(pipe, cfg)
 
     @property
@@ -242,12 +372,14 @@ class Trainer:
 
     def draw(self, batch, generator: Optional[torch.Generator] = None) -> Draws:
         """This micro-step's random numbers, from a generator seeded from
-        (seed, step) unless one is given."""
+        (seed, step), with a mesh (seed, rank, step), unless one is given."""
         pipe, cfg = self.pipe, self.cfg
         video = batch["video"]
         dev = video.device
         if generator is None:
-            seed = int(np.random.SeedSequence([self.seed, self.step]).generate_state(1)[0])
+            entropy = [self.seed, self.step] if self.mesh is None else [
+                self.seed, self.mesh.rank, self.step]
+            seed = int(np.random.SeedSequence(entropy).generate_state(1)[0])
             generator = torch.Generator(device=dev).manual_seed(seed)
         b, t, hh, ww = video.shape[:4]
         f = pipe._latent_factor
@@ -310,10 +442,16 @@ class Trainer:
 
     def train_step(self, batch, draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
         """One micro-step; metrics are 0-d device tensors, `grad_norm` the
-        norm of this micro-step's raw gradients."""
+        norm of this micro-step's raw gradients (with a mesh: the losses'
+        dp means and the norm of the dp-mean gradient, as the JAX step
+        reports them over its global batch)."""
         if draws is None:
             draws = self.draw(batch)
         _, metrics, grads = self.loss_and_grads(batch, draws)
+        if self.mesh is not None:
+            metrics = dp_mean(metrics, self.mesh)
+            metrics["grad_norm"] = self.opt.update(grads)
+            return metrics
         metrics["grad_norm"] = global_norm(grads)
         self.opt.update(grads)
         return metrics
@@ -321,15 +459,19 @@ class Trainer:
     @contextlib.contextmanager
     def ema_scope(self):
         """The EMA weights swapped into the modules (reference ema_scope,
-        ddpm3d.py:188-201); the trained weights come back on exit."""
+        ddpm3d.py:188-201); the trained weights come back on exit. With a
+        mesh every rank all-gathers the EMA shards into its modules."""
         ema = self.opt.ema
         if ema is None:
             yield
             return
         with torch.no_grad():
             saved = {k: p.detach().clone() for k, p in self.params.items()}
-            for k, p in self.params.items():
-                p.copy_(ema[k])
+            if self.mesh is not None:
+                self.opt.shards.gather_into(list(self.params.values()), ema)
+            else:
+                for k, p in self.params.items():
+                    p.copy_(ema[k])
         try:
             yield
         finally:
@@ -340,7 +482,7 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch, draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
         """Validation losses with and without the EMA weights
-        (ddpm3d.py:398-405)."""
+        (ddpm3d.py:398-405); with a mesh their dp means."""
         if draws is None:
             draws = self.draw(batch)
         _, m = self.loss(batch, draws)
@@ -349,7 +491,7 @@ class Trainer:
         if self.opt.ema is not None:
             with self.ema_scope():
                 out["val/loss_ema"] = self.loss(batch, draws)[1]["loss"]
-        return out
+        return out if self.mesh is None else dp_mean(out, self.mesh)
 
     # ------------------------------------------------------------------
     # state

@@ -114,16 +114,18 @@ def test_two_shards_union_equals_one_process(setup):
 
 def test_parser_takes_the_inference_flags_and_the_shard(setup, monkeypatch):
     """The namespace goes to inference.main as parsed, with the shard from
-    RANK / WORLD_SIZE when the flags are absent and cuda:<LOCAL_RANK>."""
+    RANK / WORLD_SIZE when the flags are absent and cuda:<LOCAL_RANK>, and
+    never as a rank of a process group (the prompt shards need no
+    collective)."""
     root, cfg, prompts = setup
     seen = {}
-    monkeypatch.setattr(inference, "main",
-                        lambda args, prompt_shard: seen.update(args=args, shard=prompt_shard))
+    monkeypatch.setattr(inference, "main", lambda args, prompt_shard, distributed: seen.update(
+        args=args, shard=prompt_shard, distributed=distributed))
     monkeypatch.setenv("RANK", "3")
     monkeypatch.setenv("WORLD_SIZE", "4")
     monkeypatch.setenv("LOCAL_RANK", "1")
     distributed_inference.main(["--config", cfg, "--prompt_dir", prompts, "--bs", "2"])
-    assert seen["shard"] == (3, 4)
+    assert seen["shard"] == (3, 4) and seen["distributed"] is False
     assert seen["args"].device == "cuda:1" and seen["args"].bs == 2
     distributed_inference.main(["--config", cfg, "--prompt_dir", prompts, "--num_processes",
                                 "2", "--process_id", "0", "--device", "cpu"])

@@ -69,6 +69,8 @@ MODULES = [
     "dynamicrafter_tpu_torch.utils.discovery",
     "dynamicrafter_tpu_torch.data",
     "dynamicrafter_tpu_torch.data.webvid",
+    "dynamicrafter_tpu_torch.parallel",
+    "dynamicrafter_tpu_torch.parallel.sharding",
 ]
 
 _PROBE = """

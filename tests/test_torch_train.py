@@ -50,6 +50,10 @@ B, T, HW, LAT = 2, 4, 16, 8     # clips, frames, frame size, latent size
 
 @pytest.fixture(scope="module")
 def pipes():
+    return build_pipes()
+
+
+def build_pipes():
     """The JAX pipeline with random params, and the port's training
     construction (fp32 throughout) loaded from them."""
     jp = JPipeline(JModelConfig(TINY_MODEL_CONFIG))
@@ -87,9 +91,11 @@ def _torch_batch(batch):
 
 
 def _jax_draws(seed, jp, cfg):
-    """The JAX train step's random numbers for key PRNGKey(seed), drawn by
-    repeating its key splits; returns (JAX batch key, port Draws)."""
-    r_batch, r_t, r_noise = jax.random.split(jax.random.PRNGKey(seed), 3)
+    """The JAX train step's random numbers for key PRNGKey(seed) (or for
+    `seed` itself when it is a key), drawn by repeating its key splits;
+    returns (JAX batch key, port Draws)."""
+    key = jax.random.PRNGKey(seed) if isinstance(seed, int) else seed
+    r_batch, r_t, r_noise = jax.random.split(key, 3)
     r_drop, r_frame, r_enc = jax.random.split(r_batch, 3)
     lat = (B, T, LAT, LAT, 4)
     enc = jax.random.normal(r_enc, (B * T, *lat[2:]))
