@@ -147,7 +147,7 @@ Run from the repository root. Phases, each printing one line:
      weights, bf16, 2-pass CFG): `dpm_certify.main` with the default
      candidates dpm@30, ddim@50, ddim@30 and dpm@120, which must reproduce
      the dpm@120 reference (relative L2 0), and `deepcache_certify.main` at
-     N = 1 (equal to the exact sampler: infinite PSNR, SSIM 1), 2 and 5; each
+     N = 1 (equal to the exact sampler: infinite PSNR, SSIM 1) to 5; each
      row with its seconds beside the card's name and power limit.
  27. discovery and `parity_check` at 320x512: the CLI from an empty HOME and
      working directory must print one "blocked on:" line and exit 2 (unless
@@ -229,7 +229,7 @@ STEPS_APP = 10
 STEPS_PARITY = 5
 TRAIN_STEPS_INTERP = 12
 PROBE_BATCHES = (2, 4)
-PROBE_ITERS = 2
+PROBE_ITERS = 4
 # published peaks of one H100 SXM at 700 W: HBM bytes/s, FLOP/s by input type
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1993,7 +1993,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     reset(*infer_wrappers)
     dc_rows = deepcache_certify.main(["--resolutions", "512", "--cfg_passes", "2",
-                                      "--intervals", "1,2,5", "--steps", "50"])
+                                      "--intervals", "1,2,3,4,5", "--steps", "50"])
     n_dc_certify = counts(*infer_wrappers)
     torch.cuda.empty_cache()
     for row in dpm_rows:
@@ -2020,11 +2020,11 @@ def main() -> int:
               and np.isfinite(r["pixel_ssim"]) for r in dc_rows[1:]),
           f"deepcache_certify rows {dc_rows}")
     # one UNet call a step, both CFG passes in its batch: K1 5 and K2 34 a
-    # full call, K1 5 and K2 12 a DeepCache shallow one; the exact baseline
-    # at 50 steps, then N = 1, 2 and 5
+    # full call, K1 5 and K2 12 a DeepCache shallow one; the exact baselines
+    # at 50 and 48 steps, then N = 1..5 (N = 3 and 4 at 48 steps)
     dpm_calls = 120 + 120 + 30 + 50 + 30
-    dc_steps = {n: 50 for n in (1, 2, 5)}
-    full = 50 + sum(st // n for n, st in dc_steps.items())
+    dc_steps = {n: 50 if 50 % n == 0 else 48 for n in range(1, 6)}
+    full = 50 + 48 + sum(st // n for n, st in dc_steps.items())
     shallow = sum(st - st // n for n, st in dc_steps.items())
     check(n_dpm_certify[:2] == (5 * dpm_calls, 34 * dpm_calls),
           f"dpm_certify launches {n_dpm_certify} != {dpm_calls} UNet calls")

@@ -173,6 +173,14 @@ def barrier(mesh: Mesh) -> None:
     dist.barrier(group=mesh.group)
 
 
+def gather_objects(value, mesh: Mesh) -> list:
+    """Every rank's `value` (any picklable object), in rank order."""
+    collectives["all_gather_object"] += 1
+    out = [None] * dist.get_world_size(mesh.group)
+    dist.all_gather_object(out, value, group=mesh.group)
+    return out
+
+
 def dp_mean(values: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
     """The mean over the dp ranks of each 0-d tensor, in one all-reduce."""
     keys = list(values)
@@ -306,17 +314,22 @@ class FlatShards:
                                  list(full.split(self.numels[bk.start:bk.stop])))
 
     @torch.no_grad()
-    def gather(self, source: torch.Tensor, device=None) -> List[torch.Tensor]:
+    def gather(self, source: torch.Tensor, device=None,
+               root: Optional[int] = None) -> Optional[List[torch.Tensor]]:
         """The full-size tensors (in the layout's shapes) whose shards every
         rank holds in `source`, as new tensors on `device` (default: the
-        shard's)."""
+        shard's). With `root` only that rank keeps them: the others make the
+        same collective calls, hold one bucket at a time, and get None."""
+        keep = root is None or root == self.mesh.rank
         out = []
         for bk in self.buckets:
             full = self._gather(bk, source[bk.offset:bk.offset + bk.per])
-            out += [x.view(self.shapes[k]).to(device or self.device, copy=True)
-                    for k, x in zip(range(bk.start, bk.stop),
-                                    full.split(self.numels[bk.start:bk.stop]))]
-        return out
+            if keep:
+                out += [x.view(self.shapes[k]).to(device or self.device, copy=True)
+                        for k, x in zip(range(bk.start, bk.stop),
+                                        full.split(self.numels[bk.start:bk.stop]))]
+            del full
+        return out if keep else None
 
     @torch.no_grad()
     def norm(self, shard: torch.Tensor) -> torch.Tensor:

@@ -297,6 +297,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         log.info(f"profiler trace of micro-steps [10, {trainer.step}) -> {trace}")
     if metrics_log is not None:
         metrics_log.close()
+    # with a mesh latest_step is rank 0's on every rank, so all ranks agree
+    # on the save (and its all-gathers) even where only rank 0 sees the files
     if mngr.latest_step() != trainer.step:
         mngr.save(trainer.step, trainer.state_dict(), metrics=last_val)
     log.info(f"done at step {trainer.step}")

@@ -8,8 +8,12 @@ accumulator. Retention follows the JAX manager: the newest `max_to_keep`,
 or, with a monitored metric, the best `top_k` (the reference's monitored
 ModelCheckpoint, main/utils_train.py:68-73). The metrics of every kept
 checkpoint live in `<dir>/index.json`. With a data-parallel mesh every rank
-calls `save` with the same (gathered) state: rank 0 writes, and every rank
-leaves `save` after a barrier, so that none reads the directory early.
+calls `save` (rank 0 with the gathered state, the others with None): rank 0
+writes, and every rank leaves `save` after a barrier, so that none reads the
+directory early. What is in the directory is rank 0's word: `latest_step`
+gives rank 0's on every rank, so that every rank decides alike whether to
+save or resume, and `restore` raises on every rank if one of them does not
+see the file that rank 0 names (a --logdir the ranks do not share).
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from typing import Dict, Optional
 
 import torch
 
-from dynamicrafter_tpu_torch.parallel.sharding import Mesh, barrier
+from dynamicrafter_tpu_torch.parallel.sharding import Mesh, barrier, gather_objects
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -46,8 +50,11 @@ class CheckpointManager:
                       if (m := _NAME.match(f)))
 
     def latest_step(self) -> Optional[int]:
+        """The newest saved step, or None; with a mesh, rank 0's on every
+        rank (a collective: every rank calls it)."""
         steps = self.all_steps()
-        return steps[-1] if steps else None
+        step = steps[-1] if steps else None
+        return step if self.mesh is None else gather_objects(step, self.mesh)[0]
 
     def _index(self) -> Dict[str, dict]:
         if not os.path.exists(self._index_path):
@@ -55,7 +62,7 @@ class CheckpointManager:
         with open(self._index_path) as f:
             return json.load(f)
 
-    def save(self, step: int, state: dict, metrics: Optional[dict] = None) -> str:
+    def save(self, step: int, state: Optional[dict], metrics: Optional[dict] = None) -> str:
         """Write `state` for `step` (atomically), then apply retention; with
         a mesh, on rank 0, and every rank returns after a barrier."""
         path = self.path(step)
@@ -94,11 +101,19 @@ class CheckpointManager:
 
     def restore(self, step: Optional[int] = None) -> Optional[dict]:
         """The state saved at `step` (default: the latest) on the CPU, or
-        None."""
+        None. With a mesh every rank calls it and loads rank 0's step."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None
-        return torch.load(self.path(step), map_location="cpu", weights_only=True)
+        path = self.path(step)
+        if self.mesh is not None:
+            seen = gather_objects(os.path.exists(path), self.mesh)
+            if not all(seen):
+                raise RuntimeError(
+                    f"ranks {[r for r, s in enumerate(seen) if not s]} do not see {path}, which "
+                    "rank 0 wrote: to resume, every rank needs the same checkpoint directory "
+                    "(a --logdir on a filesystem that all ranks share)")
+        return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def load_trained_weights(pipe, state: dict) -> None:

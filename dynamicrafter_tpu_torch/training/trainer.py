@@ -160,9 +160,10 @@ class AccumulatingAdamW:
     rank's shard too. The arithmetic is the plain path's kernel for kernel,
     so at dp 1 the two agree bit for bit. `update` returns the global norm
     of the micro-step's dp-mean gradient. `state_dict` gathers full tensors
-    in the plain path's format (no padding), so a checkpoint resumes at any
-    dp; `load_state_dict` takes this rank's shard. Every rank makes every
-    call. The layout is `shards` (`parallel.sharding.FlatShards`)."""
+    onto rank 0's host in the plain path's format (no padding; None on the
+    other ranks), so a checkpoint resumes at any dp; `load_state_dict` takes
+    this rank's shard. Every rank makes every call. The layout is `shards`
+    (`parallel.sharding.FlatShards`)."""
 
     def __init__(self, params: Dict[str, torch.Tensor], cfg: TrainConfig,
                  mesh: Optional[Mesh] = None, bucket_numel: int = BUCKET_NUMEL):
@@ -273,23 +274,33 @@ class AccumulatingAdamW:
                           if self._acc is not None else None),
         }
 
-    def _state_dict_sharded(self) -> dict:
-        """`state_dict` gathered from the shards onto the CPU, in the plain
-        path's format (either path's `load_state_dict` reads it)."""
-        full = lambda shard: dict(zip(self.params, self.shards.gather(shard, "cpu")))
-        moments, steps = {}, self.adam_steps
+    def _state_dict_sharded(self) -> Optional[dict]:
+        """`state_dict` gathered from the shards onto rank 0's CPU, in the
+        plain path's format (either path's `load_state_dict` reads it). Every
+        rank makes the all-gathers; the others copy nothing to the host and
+        get None."""
+        gather = lambda shard: self.shards.gather(shard, "cpu", root=0)
+        m = v = ema = acc = None
+        steps = self.adam_steps
         if steps:
-            m, v = (self.shards.gather(x, "cpu") for x in (self.exp_avg, self.exp_avg_sq))
-            moments = {i: {"step": torch.tensor(float(steps)), "exp_avg": m[i],
-                           "exp_avg_sq": v[i]} for i in range(len(m))}
+            m, v = gather(self.exp_avg), gather(self.exp_avg_sq)
+        if self.ema is not None:
+            ema = gather(self.ema)
+        if self._acc is not None:
+            acc = gather(self._acc)
+        if self.mesh.rank != 0:
+            return None
+        moments = {} if m is None else {
+            i: {"step": torch.tensor(float(steps)), "exp_avg": m[i], "exp_avg_sq": v[i]}
+            for i in range(len(m))}
         group = dict(self.optimizer.state_dict()["param_groups"][0],
                      params=list(range(len(self.params))))
         return {
             "step": self.step,
             "optimizer": {"state": moments, "param_groups": [group]},
-            "ema": full(self.ema) if self.ema is not None else None,
+            "ema": dict(zip(self.params, ema)) if ema is not None else None,
             "mini_step": self.mini_step,
-            "acc_grads": full(self._acc) if self._acc is not None else None,
+            "acc_grads": dict(zip(self.params, acc)) if acc is not None else None,
         }
 
     @torch.no_grad()
@@ -497,11 +508,14 @@ class Trainer:
     # state
     # ------------------------------------------------------------------
 
-    def state_dict(self) -> dict:
+    def state_dict(self) -> Optional[dict]:
         """The step, the trainable weights, and the optimizer, EMA and
-        accumulator state (`AccumulatingAdamW.state_dict`)."""
-        return {"weights": {k: p.detach() for k, p in self.params.items()},
-                **self.opt.state_dict()}
+        accumulator state (`AccumulatingAdamW.state_dict`). With a mesh every
+        rank calls it and rank 0 alone gets the state; the others get None."""
+        opt = self.opt.state_dict()
+        if opt is None:
+            return None
+        return {"weights": {k: p.detach() for k, p in self.params.items()}, **opt}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict, weights_only: bool = False) -> None:

@@ -7,7 +7,9 @@ Training: each rank reads its own shard of the synthetic clips, the
 metrics are the ranks' means (equal on both), rank 0 alone writes
 metrics.csv, the TensorBoard file and the checkpoints, and a SIGUSR1 that
 reaches rank 1 alone still checkpoints on both (the flag is all-reduced),
-with validation and sampling (the EMA gather) on every rank. Inference: the
+with validation and sampling (the EMA gather) on every rank; with a --logdir
+of each rank's own, the ranks still agree on saving and resuming (rank 0's
+directory decides, and a resume that rank 1 cannot see raises). Inference: the
 frames of --dp 2 equal the one-process frames at a relative 1e-5 for
 batched CFG (the two passes split across the ranks), DeepCache (the
 feature splits with the rows) and three-pass CFG (3 rows do not divide by
@@ -134,6 +136,48 @@ def test_train_main_on_two_ranks(setup):
     for what in ("weights", "ema", "acc_grads"):
         if state[what] is not None:
             assert sum(v.numel() for v in state[what].values()) == n, what
+
+
+def _own_logdir_rank(rank, world, cfg, logdir, out_dir):
+    """train.main with a --logdir of each rank's own, as on nodes that share
+    no filesystem: rank 0 signals itself at the last micro-step, so rank 0
+    checkpoints it where rank 1 cannot see it; then a resume from those
+    directories."""
+    from dynamicrafter_tpu_torch.training.trainer import Trainer
+
+    step = Trainer.train_step
+
+    def step_then_signal(self, *a, **k):
+        out = step(self, *a, **k)
+        if rank == 0 and self.step == STEPS:
+            os.kill(os.getpid(), signal.SIGUSR1)
+        return out
+
+    flags = [*_train_flags(cfg, os.path.join(logdir, f"rank{rank}")), "--dp", str(world),
+             "--val_every", "0", "--sample_every", "0"]
+    Trainer.train_step = step_then_signal
+    result = train.main(flags)
+    Trainer.train_step = step
+    out = {"steps": result["checkpoints"].all_steps(), "step": result["trainer"].step}
+    try:
+        train.main([*flags, "--auto_resume"])
+    except RuntimeError as e:
+        out["resume_error"] = str(e)
+    torch.save(out, os.path.join(out_dir, f"own_logdir_rank{rank}.pt"))
+
+
+def test_train_main_with_a_logdir_of_each_rank(setup):
+    """Whether to save at the end, and what to resume, is rank 0's decision
+    on every rank: the run whose last checkpoint only rank 0 sees ends on
+    both ranks (rank 1 does not save again alone and hang in the
+    all-gathers), and the resume raises on both, naming rank 1."""
+    root, cfg, _, _ = setup
+    run_ranks(_own_logdir_rank, 2, root, cfg, str(root / "own_logdirs"), str(root))
+    ranks = [torch.load(root / f"own_logdir_rank{r}.pt", weights_only=False) for r in range(2)]
+    assert ranks[0]["steps"] == [STEPS] and ranks[1]["steps"] == []
+    assert [r["step"] for r in ranks] == [STEPS, STEPS]
+    for r in ranks:
+        assert "ranks [1] do not see" in r.get("resume_error", ""), r
 
 
 def test_train_and_inference_refuse_sp_and_lone_dp(setup):

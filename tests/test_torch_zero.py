@@ -100,14 +100,31 @@ def _inputs(pipe, trainer, seed=0):
     return out
 
 
-def _record(trainer, state=None):
+def _from_state(state):
     """Parameters, EMA and AdamW moments by name, from a state_dict."""
-    state = trainer.state_dict() if state is None else state
     names, moments = list(state["weights"]), state["optimizer"]["state"]
     return {"params": {k: v.detach().clone() for k, v in state["weights"].items()},
             "ema": {k: v.clone() for k, v in state["ema"].items()},
             **{m: {k: moments[i][m].clone() for i, k in enumerate(names)}
                for m in ("exp_avg", "exp_avg_sq")}}
+
+
+def _record(trainer):
+    """Parameters, EMA and AdamW moments by name. With a mesh, on every
+    rank: every rank calls state_dict (rank 0 alone gets the state), then
+    gathers the shards itself; `state` says whether this rank got a state
+    and whether it equals the gathered tensors bit for bit."""
+    if trainer.mesh is None:
+        return _from_state(trainer.state_dict())
+    state = trainer.state_dict()
+    opt = trainer.opt
+    full = lambda x: dict(zip(trainer.params, opt.shards.gather(x)))
+    rec = {"params": {k: p.detach().clone() for k, p in trainer.params.items()},
+           "ema": full(opt.ema), "exp_avg": full(opt.exp_avg), "exp_avg_sq": full(opt.exp_avg_sq)}
+    got = None if state is None else _from_state(state)
+    rec["state"] = None if got is None else all(
+        torch.equal(got[what][k], rec[what][k]) for what in got for k in got[what])
+    return rec
 
 
 def _zero_rank(rank, world, job_path, out_dir):
@@ -136,6 +153,7 @@ def _zero_rank(rank, world, job_path, out_dir):
             state = trainer.state_dict()
             if rank == 0:
                 torch.save(state, os.path.join(out_dir, f"dp{world}_step3.pt"))
+            out["step3_state"] = state is not None
         if step % 2 == 0:
             out[step] = _record(trainer)
     if job.get("resume"):
@@ -221,6 +239,18 @@ def test_each_rank_holds_a_dp_th_of_the_state(runs, name, world):
         assert s["exp_avg"] == s["exp_avg_sq"] == s["ema"] == s["acc"] == want
 
 
+@pytest.mark.parametrize("name,world", [("ema", 2), ("logvar", 3)])
+def test_state_dict_is_built_on_rank_0_alone(runs, name, world):
+    """Every rank makes state_dict's all-gathers; rank 0 alone copies the
+    full tensors to the host, and they equal what each rank gathers bit for
+    bit; the other ranks get None."""
+    _, dist, _ = runs
+    for r, out in enumerate(dist[name]):
+        assert out["step3_state"] == (r == 0), r
+        for step in (2, 4):
+            assert out[step]["state"] == (True if r == 0 else None), (r, step)
+
+
 def test_checkpoint_dp2_resumes_in_one_process(runs):
     """A dp 2 checkpoint (full tensors, the one-process format) loads into
     the one-process trainer, whose next micro-step equals the uninterrupted
@@ -284,10 +314,9 @@ def _jax_rank(rank, world, job_path, out_dir):
     for batch, draws in job["inputs"]:
         m = trainer.train_step(*rows(batch, draws, rank, world))
         metrics.append({k: float(v) for k, v in m.items()})
-    state = trainer.state_dict()
+    rec = _record(trainer)
     if rank == 0:
-        torch.save(dict(_record(trainer, state), metrics=metrics),
-                   os.path.join(out_dir, "jax_dp2.pt"))
+        torch.save(dict(rec, metrics=metrics), os.path.join(out_dir, "jax_dp2.pt"))
 
 
 def test_dp2_step_matches_the_jax_train_step(tmp_path):
