@@ -179,13 +179,27 @@ Run from the repository root. Phases, each printing one line:
      `export_checkpoint`; (c) `inference.main --dp 1` at DDIM-5 against the
      same clip with no process group, frames equal bit for bit; then the
      process group is destroyed.
+ 32. the sp axis (each clip's frames split over the ranks) with two processes
+     that this script spawns (itself, with --sp-rank), sharing the one card
+     over gloo (nccl cannot put two ranks on one device; gloo carries the
+     CUDA tensors through host memory itself), joined by a FileStore: (a)
+     `inference.main --sp 2` on the 320x512 model at DDIM-5 (eta 1, CFG 7.5,
+     rescale 0.7), its frames against the one-process `inference.main` on
+     the same seed (relative L2 at most 2e-2), stage seconds and peaks per
+     rank; (b) `train.main --sp 2`, two micro-steps of the 320x512 recipe,
+     its losses, and its parameters and first moments after the update read
+     from the two checkpoints, against the one-process `train.main`; (c) the
+     collectives of every UNet call equal to JAX's plan (2 all-to-alls a
+     TemporalTransformer, one halo exchange a temporal conv, one all-reduce
+     of statistics each, no gather), and K1's and K2's launches per rank.
 
 Then a JSON line with, for each kernel, its launches on its main path (K1 and
 K2 phase 5, K3, K4a, K4b and the di pre-pass phase 9, K5 phase 13, K6, K9 and
 K10 phase 19, K7, K8 and `gn_stats` phase 21; `launches_by_path` has every
 path), error against the plain version (K6, K9, K10: the worst over phase
 18's bf16 shapes; K7, K8: at the first shape of phase 21; `gn_stats`: phase
-20 at that shape; `launches_by_path` adds the paths of phases 27-31), and
+20 at that shape; `launches_by_path` adds the paths of phases 27-32, the sp
+ones summed over the two ranks), and
 times: the kernel, the plain
 version, the bound (the larger of bytes over 3.35 TB/s and operations over
 the peak rate of the input type, from the shapes) and one library call
@@ -200,6 +214,7 @@ without TF32 (both flags set False) in every comparison.
 """
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import os
@@ -230,6 +245,9 @@ STEPS_PARITY = 5
 TRAIN_STEPS_INTERP = 12
 PROBE_BATCHES = (2, 4)
 PROBE_ITERS = 4
+SP = 2
+STEPS_SP = 5
+TRAIN_STEPS_SP = 2
 # published peaks of one H100 SXM at 700 W: HBM bytes/s, FLOP/s by input type
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -353,6 +371,93 @@ def reset(*wrappers) -> None:
         w.launches = 0
 
 
+def sp_infer_flags(tmp: str, name: str) -> list:
+    """Phase 32's `inference.main` flags: the 320x512 slice at DDIM-5."""
+    return ["--config", CONFIG, "--prompt_dir", os.path.join(tmp, "prompts"), "--random_init",
+            "--bf16", "--height", "320", "--width", "512", "--frame_stride", "24",
+            "--timestep_spacing", "uniform_trailing", "--guidance_rescale", "0.7",
+            "--perframe_ae", "--unconditional_guidance_scale", "7.5", "--text_input",
+            "--video_length", "16", "--ddim_steps", str(STEPS_SP), "--ddim_eta", "1.0",
+            "--seed", str(SEED), "--device", "cuda", "--savedir", os.path.join(tmp, name)]
+
+
+def sp_train_flags(tmp: str, name: str) -> list:
+    """Phase 32's `train.main` flags: the 320x512 recipe, TRAIN_STEPS_SP
+    micro-steps (one update at its accumulation of 2)."""
+    return ["--config", TRAIN_CONFIG, "--synthetic_data", "--bf16",
+            "--max_steps", str(TRAIN_STEPS_SP), "--device", "cuda", "--seed", str(SEED),
+            "--logdir", tmp, "--name", name, "--log_every", "1"]
+
+
+def sp_rank_main(rank: int, tmp: str) -> int:
+    """One rank of phase 32 (a process the phase spawns with RANK,
+    WORLD_SIZE=SP and LOCAL_RANK=0): joins a gloo group on cuda:0 through a
+    FileStore in `tmp`, runs `inference.main --sp SP` and then `train.main
+    --sp SP`, and writes what it saw to `tmp/sp_rank<rank>.json` (rank 0
+    also the frames and the checkpoint)."""
+    import numpy as np
+    import torch
+
+    from dynamicrafter_tpu_torch import inference, train
+    from dynamicrafter_tpu_torch.models.unet3d import UNetModel
+    from dynamicrafter_tpu_torch.ops.flash_attention import (
+        flash_bwd_di, flash_bwd_dkv, flash_bwd_dq, flash_fwd, flash_fwd_lse)
+    from dynamicrafter_tpu_torch.ops.small_attention import small_t_fwd_tmajor
+    from dynamicrafter_tpu_torch.parallel import sharding
+
+    os.chdir(REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = sharding.init_distributed("cuda", os.path.join(tmp, "store"), backend="gloo")
+    out = {"rank": rank, "device": str(dev), "backend": torch.distributed.get_backend(),
+           "world": torch.distributed.get_world_size()}
+    # the collectives of each UNet call, counted around its forward
+    per_call, forward = [], UNetModel.forward
+
+    def counted(self, *a, **k):
+        before = collections.Counter(sharding.collectives)
+        y = forward(self, *a, **k)
+        per_call.append(dict(collections.Counter(sharding.collectives) - before))
+        return y
+
+    try:
+        # (a) inference.main --sp SP
+        UNetModel.forward = counted
+        infer_w = (flash_fwd, small_t_fwd_tmajor)
+        reset(*infer_w)
+        sharding.collectives.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        r = inference.main([*sp_infer_flags(tmp, f"sp_rank{rank}"), "--sp", str(SP)])
+        torch.cuda.synchronize()
+        UNetModel.forward = forward
+        out["infer"] = dict(launches=counts(*infer_w), calls=dict(sharding.collectives),
+                            per_call=per_call, timings=r["timings"][0],
+                            peak=torch.cuda.max_memory_allocated(dev), paths=r["paths"])
+        np.save(os.path.join(tmp, f"sp_frames{rank}.npy"), r["videos"][0])
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b) train.main --sp SP: the ranks share each clip's frames
+        train_w = (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, small_t_fwd_tmajor, flash_fwd)
+        reset(*train_w, flash_bwd_di)
+        sharding.collectives.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        r = train.main([*sp_train_flags(tmp, "sp_train"), "--sp", str(SP)])
+        torch.cuda.synchronize()
+        out["train"] = dict(metrics=r["metrics"], secs=r["step_seconds"],
+                            launches=counts(*train_w) + (flash_bwd_di.launches,),
+                            calls=dict(sharding.collectives), mesh=r["trainer"].mesh.shape,
+                            peak=torch.cuda.max_memory_allocated(dev),
+                            steps=r["checkpoints"].all_steps())
+        del r
+    finally:
+        UNetModel.forward = forward
+        sharding.destroy_distributed()
+    with open(os.path.join(tmp, f"sp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -399,7 +504,7 @@ def main() -> int:
         CFGConditioning, SamplerSettings, make_cfg_denoiser)
     from dynamicrafter_tpu_torch.sampling.dpm import dpm_sample
     from dynamicrafter_tpu_torch.schedule import build_ddim_table, build_schedule
-    from dynamicrafter_tpu_torch.training.trainer import TrainConfig, Trainer
+    from dynamicrafter_tpu_torch.training.trainer import AccumulatingAdamW, TrainConfig, Trainer
     from dynamicrafter_tpu_torch.utils.weights import init_normal_
     phase_s = {}
 
@@ -2296,6 +2401,10 @@ def main() -> int:
                 base = torch.cuda.memory_allocated(dev)
                 torch.cuda.reset_peak_memory_stats(dev)
                 trainer = Trainer(pipe, zcfg, seed=SEED, mesh=mesh)
+                if mesh is not None:
+                    # the Trainer takes the plain optimizer at dp 1: the ZeRO-2
+                    # one on its one-rank dp group is what this phase holds to it
+                    trainer.opt = AccumulatingAdamW(trainer.params, zcfg, mesh=mesh)
                 if start is None:
                     start = {k: p.detach().cpu() for k, p in trainer.params.items()}
                     zdraws = [trainer.draw(b, torch.Generator(device=dev).manual_seed(100 + i))
@@ -2461,6 +2570,173 @@ def main() -> int:
     check(not torch.distributed.is_initialized(), "the process group outlived phase 31")
     phase_s["31"] = time.perf_counter() - t0
 
+    # -- phase 32: the sp axis, two processes sharing the card over gloo --------
+    t0 = time.perf_counter()
+    from dynamicrafter_tpu_torch.models.unet3d import _build_level_specs
+
+    # the JAX plan of one UNet call (tests/test_sp_collectives.py::_expected)
+    ucfg = UNetConfig.from_dict(ModelConfig.from_yaml(CONFIG).unet)
+    in_s, mid_s, out_s = _build_level_specs(ucfg)
+    n_temporal = sum(1 for b in in_s + [mid_s] + out_s for sp_ in b if sp_[0] == "temporal")
+    n_temporal += int(ucfg.addition_attention)
+    n_tconv = 4 * sum(1 for b in in_s + [mid_s] + out_s for sp_ in b if sp_[0] == "res")
+    plan = {"sp_all_to_all": 2 * n_temporal, "sp_halo": n_tconv,
+            "sp_all_reduce": n_temporal + n_tconv}
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_32 = torch.cuda.memory_allocated(dev)
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        prompt_dir(os.path.join(tmp, "prompts"), 1)
+        # the one-process run first, then the ranks, then the one-process trainer:
+        # the card holds two ranks' trainers at once but never a third
+        reset(*infer_wrappers)
+        torch.cuda.reset_peak_memory_stats(dev)
+        one = inference.main(sp_infer_flags(tmp, "one"))
+        torch.cuda.synchronize()
+        one_frames, one_clock = one["videos"][0], one["timings"][0]
+        n_one, one_peak = counts(flash_fwd, small_t_fwd_tmajor), torch.cuda.max_memory_allocated(dev)
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        procs = []
+        t1 = time.perf_counter()
+        for r in range(SP):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(SP), LOCAL_RANK="0",
+                       PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+            logf = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--sp-rank", str(r), tmp],
+                env=env, cwd=REPO, stdout=logf, stderr=subprocess.STDOUT), logf))
+        try:
+            for proc, _ in procs:
+                proc.wait(timeout=max(1.0, t1 + 900 - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for proc, logf in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                logf.close()
+        ranks_s = time.perf_counter() - t1
+        codes = [proc.returncode for proc, _ in procs]
+        if codes != [0] * SP:
+            for r in range(SP):
+                with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                    print(f"--- phase 32 rank {r} (exit {codes[r]}), last lines:\n"
+                          + "".join(f.readlines()[-40:]), file=sys.stderr)
+        check(codes == [0] * SP, f"phase 32 ranks exited {codes}")
+        ranks = []
+        for r in range(SP):
+            with open(os.path.join(tmp, f"sp_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        sp_frames = [np.load(os.path.join(tmp, f"sp_frames{r}.npy")) for r in range(SP)]
+        frames_rel = max(float(np.linalg.norm(f - one_frames) / np.linalg.norm(one_frames))
+                         for f in sp_frames)
+
+        # the one-process trainer on the same batches and draws (dp 1)
+        train_w = (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, small_t_fwd_tmajor, flash_fwd)
+        reset(*train_w, flash_bwd_di)
+        torch.cuda.reset_peak_memory_stats(dev)
+        one_train = train.main(sp_train_flags(tmp, "one_train"))
+        torch.cuda.synchronize()
+        one_hist, one_secs = one_train["metrics"], one_train["step_seconds"]
+        one_train_peak = torch.cuda.max_memory_allocated(dev)
+        one_train_launches = counts(*train_w) + (flash_bwd_di.launches,)
+        del one_train
+        gc.collect()
+        torch.cuda.empty_cache()
+        # parameters and first moments after the update, from the two checkpoints
+        ckpt = lambda name: torch.load(
+            os.path.join(tmp, name, "checkpoints", f"step_{TRAIN_STEPS_SP:09d}.pt"),
+            map_location="cpu", mmap=True, weights_only=True)
+        got, want = ckpt("sp_train"), ckpt("one_train")
+
+        def ckpt_rel(a, b):
+            num = den = 0.0
+            for x, y in zip(a, b):
+                x, y = x.to(dev, torch.float64), y.to(dev, torch.float64)
+                num += float(torch.linalg.vector_norm(x - y)) ** 2
+                den += float(torch.linalg.vector_norm(y)) ** 2
+            return (num / den) ** 0.5
+
+        params_rel = ckpt_rel([got["weights"][k] for k in want["weights"]],
+                              list(want["weights"].values()))
+        moments = lambda c: [c["optimizer"]["state"][i]["exp_avg"]
+                             for i in sorted(c["optimizer"]["state"])]
+        exp_avg_rel = ckpt_rel(moments(got), moments(want))
+        del got, want
+    torch.cuda.empty_cache()
+    inf, trn = [r["infer"] for r in ranks], [r["train"] for r in ranks]
+    gib = lambda b: f"{b / 2**30:.2f}"
+    log(f"[32a] inference.main --sp {SP} {CONFIG} 320x512 DDIM-{STEPS_SP} (eta 1, CFG 7.5, "
+        f"rescale 0.7), {SP} processes on one card: backend {ranks[0]['backend']}, world "
+        f"{ranks[0]['world']}, devices {[r['device'] for r in ranks]} (both ranks share the card: "
+        f"nccl cannot put two ranks on one device; gloo carries the CUDA tensors through host "
+        f"memory itself, so no collective is staged by the port: staged none) | frames' relative "
+        f"L2 against the one-process run {frames_rel:.3e} (bound 2e-2) | stage seconds sp "
+        + "; ".join(f"rank {r}: " + " ".join(f"{k} {v:.2f}" for k, v in i["timings"].items())
+                    for r, i in enumerate(inf))
+        + " | one process " + " ".join(f"{k} {v:.2f}" for k, v in one_clock.items())
+        + f" on {smi} | peak allocated per rank {[gib(i['peak']) for i in inf]} GiB, one process "
+        f"{gib(one_peak)} GiB | files written by rank {[r for r, i in enumerate(inf) if i['paths']]}"
+        f" | launches K1 K2 per rank {[tuple(i['launches']) for i in inf]}, one process {n_one}")
+    check(frames_rel <= 2e-2, f"sp frames differ from the one-process run: rel L2 {frames_rel}")
+    check(all(np.isfinite(f).all() and f.shape == one_frames.shape for f in sp_frames),
+          "sp frames")
+    check([bool(i["paths"]) for i in inf] == [True] + [False] * (SP - 1), "sp writers")
+    check(all(tuple(i["launches"]) == n_one == (STEPS_SP * per_call[0], STEPS_SP * per_call[1])
+              for i in inf), f"sp inference launches {[i['launches'] for i in inf]}, {n_one}")
+    step_losses = lambda h: [m["loss"] for m in h]
+    loss_rel = max(abs(a - b) / abs(b) for t in trn for a, b in
+                   zip(step_losses(t["metrics"]), step_losses(one_hist)))
+    log(f"[32b] train.main --sp {SP} {TRAIN_CONFIG} (batch 2 x 16 at 320x512, bf16 autocast, "
+        f"accumulation 2), {TRAIN_STEPS_SP} micro-steps, mesh {trn[0]['mesh']}: loss per rank "
+        + "; ".join(" ".join(f"{m['loss']:.6f}" for m in t["metrics"]) for t in trn)
+        + " | one process " + " ".join(f"{m['loss']:.6f}" for m in one_hist)
+        + f" (largest relative difference {loss_rel:.3e}) | grad_norm sp "
+        + " ".join(f"{m['grad_norm']:.6e}" for m in trn[0]["metrics"]) + ", one process "
+        + " ".join(f"{m['grad_norm']:.6e}" for m in one_hist)
+        + f" | after the update, relative L2 against one process: parameters {params_rel:.3e}, "
+        f"first moment {exp_avg_rel:.3e} | s/micro-step per rank "
+        + "; ".join(" ".join(f"{x:.3f}" for x in t["secs"]) for t in trn)
+        + " | one process " + " ".join(f"{x:.3f}" for x in one_secs)
+        + f" on {smi} | peak allocated per rank {[gib(t['peak']) for t in trn]} GiB, one process "
+        f"{gib(one_train_peak)} GiB (held by this process {gib(held_32)}) | collectives per rank "
+        f"{trn[0]['calls']} | launches K3 K4a K4b K2 K1 di per rank "
+        f"{[tuple(t['launches']) for t in trn]}, one process {one_train_launches} | checkpoint "
+        f"steps {[t['steps'] for t in trn]} | ranks' wall {ranks_s:.1f}s")
+    check(all(all(np.isfinite(v) for m in t["metrics"] for v in m.values()) for t in trn),
+          "sp train metrics")
+    check(all(t["metrics"] == trn[0]["metrics"] for t in trn), "sp ranks report other metrics")
+    check(all(t["mesh"] == {"dp": 1, "sp": SP} for t in trn), f"train mesh {trn[0]['mesh']}")
+    check(loss_rel <= 2e-2 and params_rel <= 2e-2 and exp_avg_rel <= 2e-2,
+          f"sp training differs: loss {loss_rel}, params {params_rel}, first moment {exp_avg_rel}")
+    check(all(tuple(t["launches"]) == one_train_launches
+              == tuple(TRAIN_STEPS_SP * c for c in (*per_step, di_per_step)) for t in trn),
+          f"sp train launches {[t['launches'] for t in trn]}, one process {one_train_launches}")
+    # (c) the collectives of each UNet call and of the whole run
+    want_run = {"all_gather": STEPS_SP, "sp_all_gather": 2,
+                **{k: STEPS_SP * v for k, v in plan.items()}}
+    want_run["sp_all_reduce"] += STEPS_SP          # guidance rescale's stds, once a step
+    log(f"[32c] collectives per UNet call (JAX plan of {n_temporal} TemporalTransformers with "
+        f"init_attn and {n_tconv} temporal convs: {plan}, no gather): "
+        + "; ".join(f"rank {r}: {len(i['per_call'])} calls, "
+                    f"{sorted({json.dumps(c, sort_keys=True) for c in i['per_call']})}"
+                    for r, i in enumerate(inf))
+        + f" | whole run per rank {inf[0]['calls']} (the dp rows' all-gather a call at dp 1, "
+        f"rescale's all-reduce a step, latents and frames gathered once each) | K1 {inf[0]['launches'][0]}"
+        f" and K2 {inf[0]['launches'][1]} launches a rank on this path, {n_one[0] // STEPS_SP} "
+        f"and {n_one[1] // STEPS_SP} a call | phase {time.perf_counter() - t0:.1f}s")
+    check(all(len(i["per_call"]) == STEPS_SP and all(c == plan for c in i["per_call"])
+              for i in inf), f"sp collectives per UNet call {[i['per_call'] for i in inf]}")
+    check(all(i["calls"] == want_run for i in inf),
+          f"sp run collectives {[i['calls'] for i in inf]} != {want_run}")
+    n_sp_infer = [sum(i["launches"][k] for i in inf) for k in range(2)]
+    n_sp_train = [sum(t["launches"][k] for t in trn) for k in range(6)]
+    phase_s["32"] = time.perf_counter() - t0
+
     log("[wall] " + " ".join(f"phase {k} {v:.1f}s" for k, v in phase_s.items())
         + f" | total {time.perf_counter() - t_start:.1f}s")
 
@@ -2479,7 +2755,7 @@ def main() -> int:
                        "deepcache_certify_512": n_dc_certify[0],
                        "parity_check_512": n_parity[0],
                        "distributed_512": n_shards[0][0] + n_shards[1][0] + n_whole[0],
-                       "inference_512_dp1": n_infer_dp[0]}),
+                       "inference_512_dp1": n_infer_dp[0], "inference_sp2": n_sp_infer[0]}),
         "small_t_fwd_tmajor": (src + "small_attention.cu", tpu + "small_attention.py:134",
                                launches[1],
                                {"inference_512": launches[1], "train_512": train_launches[3],
@@ -2498,35 +2774,40 @@ def main() -> int:
                                 "train_probe_512": n_probe[3],
                                 "train_512_zero_dp1": mesh_run["launches"][3],
                                 "train_512_dp1": dp1_launches[3],
-                                "inference_512_dp1": n_infer_dp[1]}),
+                                "inference_512_dp1": n_infer_dp[1],
+                                "inference_sp2": n_sp_infer[1], "train_sp2": n_sp_train[3]}),
         "flash_fwd_lse": (src + "flash_attention.cu", tpu + "flash_attention.py:32",
                           train_launches[0], {"train_512": train_launches[0],
                                               "train_1024_per_micro_step": per_step_1024[0],
                                               "train_512_interp": interp_launches[0],
                                               "train_probe_512": n_probe[0],
                                               "train_512_zero_dp1": mesh_run["launches"][0],
-                                              "train_512_dp1": dp1_launches[0]}),
+                                              "train_512_dp1": dp1_launches[0],
+                                              "train_sp2": n_sp_train[0]}),
         "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:304",
                          train_launches[1], {"train_512": train_launches[1],
                                              "train_1024_per_micro_step": per_step_1024[1],
                                              "train_512_interp": interp_launches[1],
                                              "train_probe_512": n_probe[1],
                                              "train_512_zero_dp1": mesh_run["launches"][1],
-                                             "train_512_dp1": dp1_launches[1]}),
+                                             "train_512_dp1": dp1_launches[1],
+                                             "train_sp2": n_sp_train[1]}),
         "flash_bwd_dkv": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:339",
                           train_launches[2], {"train_512": train_launches[2],
                                               "train_1024_per_micro_step": per_step_1024[2],
                                               "train_512_interp": interp_launches[2],
                                               "train_probe_512": n_probe[2],
                                               "train_512_zero_dp1": mesh_run["launches"][2],
-                                              "train_512_dp1": dp1_launches[2]}),
+                                              "train_512_dp1": dp1_launches[2],
+                                              "train_sp2": n_sp_train[2]}),
         "flash_bwd_di": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:329",
                          train_di, {"train_512": train_di,
                                     "train_1024_per_micro_step": per_step_1024[5],
                                     "train_512_interp": interp_di,
                                     "train_probe_512": n_probe[5],
                                     "train_512_zero_dp1": mesh_run["launches"][5],
-                                    "train_512_dp1": dp1_launches[5]}),
+                                    "train_512_dp1": dp1_launches[5],
+                                    "train_sp2": n_sp_train[5]}),
         "small_t_fwd": (src + "small_attention.cu", tpu + "small_attention.py:32",
                         launches_256[2], {"inference_256_bs8": launches_256[2],
                                           "inference_1024": launches_1024[2]}),
@@ -2559,4 +2840,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sp-rank"]:
+        sys.exit(sp_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -23,15 +23,18 @@ UNet call each under --sequential_cfg, which is the default at --width >=
 trace of the first batch there. `main(prompt_shard=(i, n))` runs the i-th of
 n slices of the prompt list (`distributed_inference` passes it).
 
-Under torchrun (WORLD_SIZE set) the ranks share each clip instead: `--dp N`
-splits every UNet call's rows over N processes, one card each (batched
-CFG's passes: at --bs 1 rank 0 runs the unconditional pass, rank 1 the
-conditional one), and all-gathers the outputs each step
-(`pipeline.split_rows`); rank 0 writes the files. --sp, the frame axis, is
-not ported yet (ROADMAP Queue 1 item K): it defaults to the ranks --dp
-leaves, as in the JAX CLI, so torchrun without --dp raises. E.g.
+Under torchrun (WORLD_SIZE set) the ranks share each clip instead, on a
+(dp, sp) mesh of one card a process. `--dp D` splits every UNet call's rows
+over D ranks (batched CFG's passes: at --bs 1 one dp rank runs the
+unconditional pass, the other the conditional one) and all-gathers the
+outputs each step (`pipeline.split_rows`). `--sp S` splits each clip's
+frames over S ranks: each runs the UNet on its T/S frames, with the
+collectives of the temporal layers between them, and decodes them; the
+frames are gathered at the end. --sp defaults to the ranks --dp leaves, as
+in the JAX CLI, so a bare torchrun splits the frames over every rank.
+Rank 0 writes the files. E.g.
 
-  torchrun --nproc_per_node 2 -m dynamicrafter_tpu_torch.inference --dp 2 \
+  torchrun --nproc_per_node 4 -m dynamicrafter_tpu_torch.inference --dp 2 --sp 2 \
       --config configs/inference_512_v1.0.yaml ... (the flags above)
 """
 from __future__ import annotations
@@ -101,8 +104,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--dp", type=int, default=1,
                    help="under torchrun: ranks that split each UNet call's rows")
     p.add_argument("--sp", type=int, default=-1,
-                   help="under torchrun: frame-axis ranks (-1: those --dp leaves); above 1 "
-                        "not ported yet (ROADMAP Queue 1 item K)")
+                   help="under torchrun: ranks that split each clip's frames (-1: those "
+                        "--dp leaves)")
     return p
 
 
@@ -120,7 +123,8 @@ def main(argv: Union[None, Sequence[str], argparse.Namespace] = None,
     """Run inference over a prompt dir, or over slice `prompt_shard` =
     (shard_id, num_shards) of it; `argv` may be a parsed namespace.
     `distributed` (default: whether WORLD_SIZE is set) joins the process
-    group and splits the UNet's rows over --dp ranks. Returns
+    group and splits the UNet's rows over --dp ranks and each clip's
+    frames over --sp ranks. Returns
     {"paths": [...], "timings": [per-batch stage seconds], "peaks":
     [per-batch peak bytes allocated in each stage, on a CUDA device],
     "build_peak": peak bytes while the pipeline was built and filled,
@@ -143,8 +147,6 @@ def main(argv: Union[None, Sequence[str], argparse.Namespace] = None,
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available")
-    if args.sp > 1:
-        raise NotImplementedError(sharding.SP_NOT_PORTED.format(sp=args.sp))
     if distributed is None:
         distributed = "WORLD_SIZE" in os.environ
     mesh, joined = None, torch.distributed.is_initialized()

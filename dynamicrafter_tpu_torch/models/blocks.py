@@ -7,6 +7,16 @@ layout, so spatial convs are plain Conv2d. Temporal blocks view them as
 (B, T, H*W, C) (temporal attention, read in place by K2). Every block that
 mixes frames takes the frame count `t` as an argument.
 
+Under the sp axis (`frames`, a `parallel.sharding.FrameSplit`) the
+activations hold this rank's T/sp frames of each clip and `t` is that local
+count. Per-frame blocks run as they are. The blocks that mix frames write
+out the collectives that JAX's partitioner inserts (its models/blocks.py
+307-355, 469-482): TemporalTransformer normalizes with the clip's
+statistics, moves to every frame of HW/sp positions and back (two
+all-to-alls), and runs replicated where sp does not divide HW; each
+temporal conv takes its neighbours' boundary frames (`halo`) in place of
+its zero padding along T.
+
 Submodule names and Sequential indices reproduce the reference checkpoint
 keys (to_out.0, ff.net.0.proj, in_layers.2, temopral_conv.conv1.2, ...).
 """
@@ -19,7 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from dynamicrafter_tpu_torch.ops.attention import attention_axis1, dot_product_attention
-from dynamicrafter_tpu_torch.ops.norms import GroupNorm, LayerNorm
+from dynamicrafter_tpu_torch.ops.norms import ClipGroupNorm, GroupNorm, LayerNorm
+from dynamicrafter_tpu_torch.parallel import sharding
+from dynamicrafter_tpu_torch.parallel.sharding import FrameSplit
 
 Context = Optional[Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]]
 # (text context (B, Lt, Cc), image context (B, T, Li, Cc) or None)
@@ -232,7 +244,7 @@ class TemporalTransformer(nn.Module):
                  temporal_length: Optional[int] = None):
         super().__init__()
         inner = n_heads * d_head
-        self.norm = GroupNorm(32, in_channels, eps=1e-6)
+        self.norm = ClipGroupNorm(32, in_channels, eps=1e-6)
         proj = (lambda i, o: nn.Linear(i, o)) if use_linear else \
             (lambda i, o: nn.Conv1d(i, o, 1))
         self.proj_in = proj(in_channels, inner)
@@ -245,14 +257,26 @@ class TemporalTransformer(nn.Module):
             for _ in range(depth)])
         self.proj_out = proj(inner, in_channels)
 
-    def forward(self, x: torch.Tensor, t: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t: int, frames: Optional[FrameSplit] = None) -> torch.Tensor:
         bt, c, h, w = x.shape
         b = bt // t
-        y = self.norm(x.view(b, t, c, h * w).transpose(1, 2))   # (B, C, T, HW)
-        if self.time_major:
-            y = y.permute(0, 2, 3, 1)                            # (B, T, HW, C)
-        else:
-            y = y.permute(0, 3, 2, 1)                            # (B, HW, T, C)
+        if frames is not None:
+            if (h * w) % frames.sp:
+                # HW does not split: gather the clip, run whole, keep this
+                # rank's frames (JAX drops the 'sp' constraint here)
+                whole = sharding.sp_gather_frames(x.view(b, t, c, h, w), frames)
+                y = self.forward(whole.reshape(b * frames.t, c, h, w), frames.t)
+                return frames.slice(y.view(b, frames.t, c, h, w)).reshape(bt, c, h, w)
+        # under sp, JAX's order: the norm on this rank's frames with the
+        # clip's statistics, the all-to-all to every frame of HW/sp positions
+        # (K2 reads that layout in place), the blocks, the all-to-all back
+        y = self.norm(x.view(b, t, c, h * w).transpose(1, 2), frames)   # (B, C, T', HW)
+        y = y.permute(0, 2, 3, 1)                                # (B, T', HW, C)
+        if frames is not None:
+            y = sharding.frames_to_tokens(y, frames)             # (B, T, HW/sp, C)
+            t = frames.t
+        if not self.time_major:
+            y = y.transpose(1, 2)                                # (B, HW, T, C)
         y = _proj(self.proj_in, y)
         mask = None
         if self.causal_attention:
@@ -262,6 +286,8 @@ class TemporalTransformer(nn.Module):
         y = _proj(self.proj_out, y)
         if not self.time_major:
             y = y.transpose(1, 2)                                # (B, T, HW, C)
+        if frames is not None:
+            y = sharding.tokens_to_frames(y, frames)             # (B, T/sp, HW, C)
         return y.transpose(2, 3).reshape(bt, c, h, w) + x
 
 
@@ -289,16 +315,29 @@ class TemporalConvBlock(nn.Module):
             k = (3, 1, 1) if not spatial_aware else ((3, 1, 3) if w_axis else (3, 3, 1))
             return nn.Conv3d(channels, channels, k, padding=tuple(e // 2 for e in k))
 
-        gn = lambda: GroupNorm(32, channels)
+        gn = lambda: ClipGroupNorm(32, channels)
         self.conv1 = nn.Sequential(gn(), nn.SiLU(), conv(False))
         self.conv2 = nn.Sequential(gn(), nn.SiLU(), nn.Dropout(0.0), conv(True))
         self.conv3 = nn.Sequential(gn(), nn.SiLU(), nn.Dropout(0.0), conv(False))
         self.conv4 = nn.Sequential(gn(), nn.SiLU(), nn.Dropout(0.0), conv(True))
 
-    def forward(self, x: torch.Tensor, t: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t: int, frames: Optional[FrameSplit] = None) -> torch.Tensor:
         """x: (B*T, C, H, W)."""
         clip = _to_clip(x, t)
-        h = self.conv4(self.conv3(self.conv2(self.conv1(clip))))
+        if frames is None:
+            h = self.conv4(self.conv3(self.conv2(self.conv1(clip))))
+            return _from_clip(clip + h)
+        h = clip
+        for seq in (self.conv1, self.conv2, self.conv3, self.conv4):
+            h = seq[0](h, frames)
+            for layer in seq[1:-1]:                 # SiLU (and Dropout(0))
+                h = layer(h)
+            # the neighbours' boundary frames stand in for the zero padding
+            # along T (zeros at the clip's ends)
+            prev, nxt = sharding.halo(h, frames, dim=2)
+            conv = seq[-1]
+            h = F.conv3d(torch.cat([prev, h, nxt], dim=2), conv.weight, conv.bias,
+                         padding=(0, *conv.padding[1:]))
         return _from_clip(clip + h)
 
 
@@ -355,8 +394,10 @@ class ResBlock(nn.Module):
         self.temopral_conv = (TemporalConvBlock(out_ch, spatial_aware=tempspatial_aware)
                               if use_temporal_conv else None)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor, t: int) -> torch.Tensor:
-        """x: (B*T, C, H, W); emb: (B, E), shared by the T frames of a clip."""
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, t: int,
+                frames: Optional[FrameSplit] = None) -> torch.Tensor:
+        """x: (B*T, C, H, W); emb: (B, E), shared by the T frames of a clip.
+        `frames` reaches the temporal convs."""
         if self.resample is not None:
             h = self.resample(self.in_layers[:2](x))
             x = self.resample(x)
@@ -372,5 +413,5 @@ class ResBlock(nn.Module):
             h = self.out_layers(h + emb_out)
         h = self.skip_connection(x) + h
         if self.temopral_conv is not None:
-            h = self.temopral_conv(h, t)
+            h = self.temopral_conv(h, t, frames)
         return h

@@ -20,6 +20,13 @@ lse) across the boundary (`flash_residual_policy`, the JAX package's
 `_flash_residual_policy`), so the backward pass feeds K4a/K4b from them and
 K3 runs once per spatial self-attention per step. Without gradients (the
 sampler) nothing is checkpointed.
+
+The sp axis: under `parallel.sharding.use_frames(split)` x holds this
+rank's T/sp frames of each clip and the output is this rank's frames (the
+JAX UNet's T on 'sp', models/unet3d.py:284,339). Every layer runs with the
+local frame count; the temporal ones get `split` as an argument and make
+the collectives (`models/blocks.py`). Where sp does not divide T the caller
+makes no split and every rank runs the whole clip.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from dynamicrafter_tpu_torch.models.blocks import (
     Upsample,
 )
 from dynamicrafter_tpu_torch.ops.norms import GroupNorm
+from dynamicrafter_tpu_torch.parallel.sharding import active_frames
 
 
 def flash_residual_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -224,14 +232,14 @@ class UNetModel(nn.Module):
             return checkpointed(layer, *args)
         return layer(*args)
 
-    def _run_layers(self, layers, h, emb, context, t):
+    def _run_layers(self, layers, h, emb, context, t, frames=None):
         for layer in layers:
             if isinstance(layer, ResBlock):
-                h = self._call(layer, h, emb, t)
+                h = self._call(layer, h, emb, t, frames)
             elif isinstance(layer, SpatialTransformer):
                 h = self._call(layer, h, context, t)
             elif isinstance(layer, TemporalTransformer):
-                h = self._call(layer, h, t)
+                h = self._call(layer, h, t, frames)
             else:  # first conv, down, up
                 h = layer(h)
         return h
@@ -253,10 +261,20 @@ class UNetModel(nn.Module):
         num_res_blocks + 1 output blocks from the cached feature, skipping
         every deeper level and the middle block. shallow(x, t,
         cache=full_cache(x, t)) equals the full forward; reusing a cache
-        over adjacent sampler steps is the approximation."""
+        over adjacent sampler steps is the approximation.
+
+        Under an active frame split x (and `cache`) hold this rank's frames
+        and context_img the whole clip's (this rank's frames are taken)."""
         cfg = self.config
         dtype = self.dtype
         b, t, hh, ww, cin = x.shape
+        frames = active_frames()
+        if frames is not None:
+            if t != frames.local:
+                raise ValueError(f"x holds {t} frames; this rank's of the split clip are "
+                                 f"{frames.local}")
+            if context_img is not None:
+                context_img = frames.slice(context_img)
         n_top_in = 1 + cfg.num_res_blocks
         n_top_out = cfg.num_res_blocks + 1
         if (cache is not None or return_cache) and len(cfg.channel_mult) < 2:
@@ -282,12 +300,12 @@ class UNetModel(nn.Module):
         hs = []
         in_blocks = self.input_blocks if cache is None else self.input_blocks[:n_top_in]
         for i, layers in enumerate(in_blocks):
-            h = self._run_layers(layers, h, emb, context, t)
+            h = self._run_layers(layers, h, emb, context, t, frames)
             if i == 0 and cfg.addition_attention:
-                h = self._call(self.init_attn[0], h, t)
+                h = self._call(self.init_attn[0], h, t, frames)
             hs.append(h)
         if cache is None:
-            h = self._run_layers(self.middle_block, h, emb, context, t)
+            h = self._run_layers(self.middle_block, h, emb, context, t, frames)
             out_blocks = self.output_blocks
         else:
             h = cache.to(dtype).permute(0, 1, 4, 2, 3).flatten(0, 1)
@@ -298,6 +316,6 @@ class UNetModel(nn.Module):
             if i == seam and return_cache:
                 cache_out = frames_last(h)
             h = torch.cat([h, hs.pop()], dim=1)
-            h = self._run_layers(layers, h, emb, context, t)
+            h = self._run_layers(layers, h, emb, context, t, frames)
         h = frames_last(self.out(h))
         return (h, cache_out) if return_cache else h

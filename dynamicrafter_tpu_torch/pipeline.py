@@ -40,6 +40,7 @@ from dynamicrafter_tpu_torch.models.vae import (
     decode_tiled,
 )
 from dynamicrafter_tpu_torch.ops.norms import keep_norms_fp32
+from dynamicrafter_tpu_torch.parallel import sharding
 from dynamicrafter_tpu_torch.parallel.sharding import Mesh, active_mesh, all_gather_rows
 from dynamicrafter_tpu_torch.sampling.ddim import (
     CFGConditioning,
@@ -89,7 +90,7 @@ def split_rows(unet, mesh: Mesh):
                       "rank runs every row")
             return unet(x, t, context_text=context_text, context_img=context_img, fs=fs,
                         **kw, **({} if cache is None else {"cache": cache}))
-        lo, hi = mesh.rank * n // dp, (mesh.rank + 1) * n // dp
+        lo, hi = mesh.dp_rank * n // dp, (mesh.dp_rank + 1) * n // dp
         part = lambda a: None if a is None else a[lo:hi]
         out = unet(x[lo:hi], t[lo:hi], context_text=part(context_text),
                    context_img=part(context_img), fs=part(fs), **kw,
@@ -407,7 +408,13 @@ class DynamiCrafterPipeline:
         (synchronised on the device), and `peaks` the peak bytes allocated
         on a CUDA device during each stage. Under an active mesh
         (`parallel.sharding.use_mesh`) the UNet's rows split over its dp
-        ranks (`split_rows`); every rank must call with the same arguments.
+        ranks (`split_rows`) and each clip's frames over its sp ranks:
+        conditioning runs whole on every rank, x_T and every later draw are
+        the whole clip's with this rank's frames kept, the sampler runs on
+        those, each rank decodes its frames, and the latents and frames are
+        gathered, so every rank returns the whole clip. Where sp does not
+        divide the frames every rank runs whole clips. Every rank must call
+        with the same arguments.
 
         Returns PipelineOutput with videos (B, n_samples, T, H, W, 3) and,
         with `log_every_t`, the decoded intermediates; or with decode=False
@@ -474,6 +481,18 @@ class DynamiCrafterPipeline:
         table = sched_lib.build_ddim_table(self.schedule, num_steps=steps,
                                            discretize=timestep_spacing, eta=eta)
         mesh = active_mesh()
+        split = sharding.split_frames(t, mesh)
+        if mesh is not None and mesh.sp > 1 and split is None:
+            print(f"[rank {mesh.rank}] {t} frames do not divide by sp={mesh.sp}: every rank "
+                  "runs whole clips")
+        # this rank's frames of a whole clip (frames at `dim`), and every sp
+        # rank's frames gathered into whole clips on every rank
+        mine = (lambda a, dim=1: a) if split is None else (
+            lambda a, dim=1: None if a is None else split.slice(a, dim))
+        whole = (lambda a, dim=1: a) if split is None else (
+            lambda a, dim=1: sharding.sp_gather_frames(a, split, dim))
+        if cond.concat is not None:
+            cond = cond._replace(concat=mine(cond.concat, 2))
         model_fn = make_cfg_denoiser(self.unet if mesh is None else split_rows(self.unet, mesh),
                                      cond, settings)
         t0 = stage_start()
@@ -481,30 +500,33 @@ class DynamiCrafterPipeline:
         if x_T is not None and x_T.dim() == 5:
             x_T = x_T[:, None].expand(b, n_samples, *x_T.shape[1:])
         variants, inter = [], None
-        for k in range(n_samples):
-            xt = (torch.randn(lat_shape, generator=gen, device=dev) if x_T is None
-                  else x_T[:, k])
-            blend = dict(generator=gen, mask=on_dev(mask), x0=on_dev(x0_latents))
-            if sampler == "dpm":
-                z = dpm_sample(model_fn, xt, self.schedule, table, settings, **blend)
-            elif sampler == "unipc":
-                z = unipc_sample(model_fn, xt, self.schedule, table, settings, **blend)
-            else:
-                z = ddim_sample(model_fn, xt, self.schedule, table, settings, **blend,
-                                log_every_t=log_every_t)
-            if log_every_t is not None:
-                z, inter = z[0], z[1]["x_inter"]
-            variants.append(z)
-        z_all = torch.stack(variants, dim=1)
+        with sharding.use_frames(split):
+            for k in range(n_samples):
+                xt = mine(torch.randn(lat_shape, generator=gen, device=dev) if x_T is None
+                          else x_T[:, k])
+                blend = dict(generator=gen, mask=mine(on_dev(mask)),
+                             x0=mine(on_dev(x0_latents)))
+                if sampler == "dpm":
+                    z = dpm_sample(model_fn, xt, self.schedule, table, settings, **blend)
+                elif sampler == "unipc":
+                    z = unipc_sample(model_fn, xt, self.schedule, table, settings, **blend)
+                else:
+                    z = ddim_sample(model_fn, xt, self.schedule, table, settings, **blend,
+                                    log_every_t=log_every_t)
+                if log_every_t is not None:
+                    z, inter = z[0], z[1]["x_inter"]
+                variants.append(z)
+        z_all = whole(torch.stack(variants, dim=1), 2)
         stage_end("ddim", t0)
         if not decode:
             if log_every_t is not None:
-                return z_all.cpu().numpy(), inter.cpu().numpy()
+                return z_all.cpu().numpy(), whole(inter, 2).cpu().numpy()
             return z_all.cpu().numpy()
         t0 = stage_start()
-        frames = np.stack([self.decode_latents(z).cpu().numpy() for z in variants], axis=1)
+        frames = np.stack([whole(self.decode_latents(z)).cpu().numpy() for z in variants],
+                          axis=1)
         rows = None
         if log_every_t is not None:
-            rows = np.stack([self.decode_latents(x).cpu().numpy() for x in inter])
+            rows = np.stack([whole(self.decode_latents(x)).cpu().numpy() for x in inter])
         stage_end("decode", t0)
         return PipelineOutput(videos=frames, denoise_rows=rows, latents=z_all.cpu().numpy())

@@ -14,6 +14,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from dynamicrafter_tpu_torch.parallel.sharding import active_frames, randn_frames
 from dynamicrafter_tpu_torch.schedule import DiffusionSchedule
 
 
@@ -40,6 +41,8 @@ def p_sample_loop(model_fn: Callable, x_T: torch.Tensor, schedule: DiffusionSche
     down to 0. model_fn(x, t) -> model output (the reference's ancestral path
     applies no CFG). `noise` and `mask_noise` (T, *x.shape) replace the
     draws from `generator`; within a step the update draws before the blend.
+    Under an active frame split draws and given noise are the whole clip's,
+    sliced to this rank's frames (as in `ddim_sample`).
 
     Returns the final latent, or (latent, intermediates) with intermediates
     (n_logs + 1, *x.shape) starting with x_T, saved whenever i %
@@ -55,8 +58,12 @@ def p_sample_loop(model_fn: Callable, x_T: torch.Tensor, schedule: DiffusionSche
     i_vals = np.arange(T - 1, -1, -1)
     n_logs, slots = log_slots((i_vals % log_every_t == 0) | (i_vals == T - 1))
     buf = x.new_zeros((n_logs, *x.shape))
-    draw = lambda given, k: (given[k].to(x) if given is not None else torch.randn(
-        x.shape, generator=generator, device=x.device, dtype=x.dtype))
+    split = active_frames()
+
+    def draw(given, k):
+        if given is None:
+            return randn_frames(x, generator)
+        return given[k].to(x) if split is None else split.slice(given[k].to(x))
     for k, i in enumerate(i_vals):
         t = int(i)
         out = model_fn(x, t)

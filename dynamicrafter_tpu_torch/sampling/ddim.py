@@ -25,7 +25,10 @@ Random numbers: step noise (eta > 0) is either pre-drawn, `noise` of shape
 (S, *x.shape) in scan order, or drawn from an explicit torch.Generator; so
 is the noise of the mask blend (`mask_noise`). Within a step the blend
 draws before the update. The CFG mode draws nothing, so batched and
-sequential CFG see the same numbers.
+sequential CFG see the same numbers. Under an active frame split
+(`parallel.sharding.use_frames`) x holds this rank's frames: each draw is
+the whole clip's, sliced (`randn_frames`), and so is pre-drawn noise (the
+whole clip's), so every sp rank sees the numbers one process would.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from dynamicrafter_tpu_torch.parallel.sharding import active_frames, randn_frames
 from dynamicrafter_tpu_torch.schedule import (
     DDIMTable,
     DiffusionSchedule,
@@ -174,8 +178,9 @@ def make_mask_blend(schedule: DiffusionSchedule, settings: SamplerSettings,
             img_orig = x0
         else:
             if mask_noise is None:
-                mask_noise = torch.randn(x.shape, generator=generator, device=x.device,
-                                         dtype=x.dtype)
+                mask_noise = randn_frames(x, generator)
+            elif active_frames() is not None:
+                mask_noise = active_frames().slice(mask_noise)
             ts = torch.full((x.shape[0],), int(t), dtype=torch.long, device=x.device)
             img_orig = schedule.q_sample(x0, ts, mask_noise.to(device=x.device, dtype=x.dtype))
         return img_orig * mask + (1.0 - mask) * x
@@ -261,9 +266,10 @@ def ddim_sample(model_fn: Callable, x_T: torch.Tensor, schedule: DiffusionSchedu
         if settings.eta > 0.0:
             if noise is not None:
                 n = noise[i].to(device=x.device, dtype=x.dtype)
+                if active_frames() is not None:
+                    n = active_frames().slice(n)
             else:
-                n = torch.randn(x.shape, generator=generator, device=x.device,
-                                dtype=x.dtype)
+                n = randn_frames(x, generator)
             x = x + float(sigma) * n
         if log_every_t is not None and (idx % log_every_t == 0 or idx == s - 1):
             x_inter.append(x)

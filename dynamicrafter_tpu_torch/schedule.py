@@ -16,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dynamicrafter_tpu_torch.parallel.sharding import active_frames, sp_all_reduce
+
 
 def make_beta_schedule(schedule: str, n_timestep: int,
                        linear_start: float = 1e-4, linear_end: float = 2e-2,
@@ -121,12 +123,32 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     return emb
 
 
+def _clip_stds(*xs: torch.Tensor):
+    """The std of each sample of each x over all its other axes, (B, 1,
+    ...). Under an active frame split the x hold this rank's frames: the
+    sums of x and x^2 go over the sp group (one all-reduce for all of them)
+    and each std is the whole clip's."""
+    dims = tuple(range(1, xs[0].dim()))
+    split = active_frames()
+    if split is None:
+        return [x.std(dim=dims, keepdim=True, correction=0) for x in xs]
+    sums = sp_all_reduce(torch.stack([s for x in xs for s in (x.sum(dims), x.square().sum(dims))]),
+                         split)
+    n = xs[0][0].numel() * split.sp
+    stds = []
+    for total, squares in sums.view(len(xs), 2, -1).unbind():
+        mean = total / n
+        var = (squares / n - mean.square()).clamp_min(0.0)
+        stds.append(var.sqrt().reshape(-1, *(1,) * len(dims)))
+    return stds
+
+
 def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor,
                       guidance_rescale: float = 0.0) -> torch.Tensor:
-    """Rescale CFG output std to the text-conditional std (arXiv:2305.08891)."""
-    dims = tuple(range(1, noise_pred_text.dim()))
-    std_text = noise_pred_text.std(dim=dims, keepdim=True, correction=0)
-    std_cfg = noise_cfg.std(dim=dims, keepdim=True, correction=0)
+    """Rescale CFG output std to the text-conditional std (arXiv:2305.08891).
+    The std spans the whole clip, also where its frames are split over the
+    sp ranks."""
+    std_text, std_cfg = _clip_stds(noise_pred_text, noise_cfg)
     rescaled = noise_cfg * (std_text / torch.clamp(std_cfg, min=1e-12))
     return guidance_rescale * rescaled + (1 - guidance_rescale) * noise_cfg
 

@@ -26,16 +26,22 @@ Without a pretrained checkpoint every weight is drawn from N(0, 0.02)
 micro-step (reference trainer.py:129-143).
 
 Under torchrun (WORLD_SIZE set) each process drives one card as a rank of
-the dp axis: ZeRO-2, as the reference's default DDPSharded strategy
-(`training.trainer.AccumulatingAdamW` with a mesh). --bs is per rank, so a
-micro-step takes world x bs clips; each rank reads its own shard of the
-data and draws from (seed, rank); with scale_lr the rate is base_lr x
-world x bs (reference main/trainer.py:88-93). Rank 0 alone writes the log,
-metrics.csv, TensorBoard, samples and checkpoints; traces are per rank
-(`profile_rank<r>` beside rank 0's `profile`). --sp (the frame axis) is not
-ported yet (ROADMAP Queue 1 item K) and raises above 1. E.g.
+a (dp, sp) mesh. `--sp S` splits each clip's frames over S ranks: the ranks
+of an sp group take the same batch and draws, each runs the UNet on its
+T/S frames (the temporal layers' collectives between them), the loss is the
+clip's mean, and the gradients are summed over the group. Over the dp axis
+(`--dp`, default world / S) it is ZeRO-2, as the reference's default
+DDPSharded strategy (`training.trainer.AccumulatingAdamW` with a mesh).
+--bs is per sp group, so a micro-step takes dp x bs clips; each sp group
+reads its own shard of the data and draws from (seed, dp rank) (at dp 1
+the one-process draws, and the plain optimizer: ZeRO has nothing to
+shard); with scale_lr the rate is base_lr x world x bs, the JAX CLI's
+rule, which counts sp ranks too (reference main/trainer.py:88-93). Rank 0
+alone writes
+the log, metrics.csv, TensorBoard, samples and checkpoints; traces are per
+rank (`profile_rank<r>` beside rank 0's `profile`). E.g.
 
-  torchrun --nproc_per_node 4 -m dynamicrafter_tpu_torch.train \
+  torchrun --nproc_per_node 4 -m dynamicrafter_tpu_torch.train --sp 2 \
       --config configs/training_512_v1.0.yaml --synthetic_data --bf16
 """
 from __future__ import annotations
@@ -103,7 +109,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--dp", type=int, default=-1,
                    help="under torchrun: data-parallel ranks (-1: the world size / --sp)")
     p.add_argument("--sp", type=int, default=1,
-                   help="frame-axis ranks; above 1 not ported yet (ROADMAP Queue 1 item K)")
+                   help="under torchrun: ranks that split each clip's frames")
     return p
 
 
@@ -151,16 +157,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available")
-    if args.sp > 1:
-        raise NotImplementedError(sharding.SP_NOT_PORTED.format(sp=args.sp))
     mesh, joined = None, torch.distributed.is_initialized()
     if "WORLD_SIZE" in os.environ:
         device = sharding.init_distributed(device)
         world = torch.distributed.get_world_size()
         mesh = sharding.create_mesh(args.dp if args.dp > 0 else world // args.sp, args.sp)
-    elif args.dp not in (-1, 1):
-        raise SystemExit(f"--dp {args.dp} needs one process a rank: run under torchrun")
-    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.dp)
+    elif args.dp not in (-1, 1) or args.sp != 1:
+        raise SystemExit(f"--dp {args.dp} --sp {args.sp} needs one process a rank: run under "
+                         "torchrun")
+    # rank 0 writes; each sp group reads one shard of the data
+    rank, shard, shards = (0, 0, 1) if mesh is None else (mesh.rank, mesh.dp_rank, mesh.dp)
     tc = TrainingConfig.from_yaml(args.config)
     mc = tc.model
     if args.checkpoint == "none":
@@ -171,6 +177,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         log.setLevel(logging.DEBUG)
 
     bs = args.bs or tc.batch_size
+    # JAX's rule (scripts/train.py:153): every device counts, sp ranks too,
+    # though an update under sp holds dp x bs clips
+    world = 1 if mesh is None else mesh.world_size
     lr = (args.lr or tc.base_learning_rate) * (world * bs if tc.scale_lr else 1)
     max_steps = args.max_steps or tc.max_steps
     cfg = TrainConfig(
@@ -228,14 +237,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     loader_cls = DataLoader if args.loader == "threads" else ProcessDataLoader
     loader = loader_cls(_build_dataset(tc.train_data, args, t_len, log), batch_size=bs,
                         tokenizer=tokenizer, seed=args.seed, num_workers=tc.num_workers,
-                        fs_key=fs_key, shard_id=rank, num_shards=world)
+                        fs_key=fs_key, shard_id=shard, num_shards=shards)
     val_iter = None
     if args.val_every:
         val_data = _build_dataset(tc.validation_data or tc.train_data, args, t_len, log)
         val_iter = iter(loader_cls(val_data, batch_size=bs, tokenizer=tokenizer,
                                    shuffle=False, seed=args.seed + 1,
                                    num_workers=tc.num_workers, fs_key=fs_key,
-                                   shard_id=rank, num_shards=world))
+                                   shard_id=shard, num_shards=shards))
 
     # rank 0 writes; every rank makes every collective call (a rank that
     # skipped one would hang the others)

@@ -33,7 +33,14 @@ import numpy as np
 import torch
 
 from dynamicrafter_tpu_torch.models.clip import clip_preprocess
-from dynamicrafter_tpu_torch.parallel.sharding import BUCKET_NUMEL, FlatShards, Mesh, dp_mean
+from dynamicrafter_tpu_torch.parallel import sharding
+from dynamicrafter_tpu_torch.parallel.sharding import (
+    BUCKET_NUMEL,
+    FlatShards,
+    FrameSplit,
+    Mesh,
+    dp_mean,
+)
 from dynamicrafter_tpu_torch.schedule import extract_into_tensor
 from dynamicrafter_tpu_torch.training.ema import ema_init, ema_update
 
@@ -61,17 +68,21 @@ class TrainConfig:
 
 def combine_diffusion_losses(loss_simple: torch.Tensor, t: torch.Tensor,
                              cfg: TrainConfig, schedule,
-                             logvar: Optional[torch.Tensor] = None):
+                             logvar: Optional[torch.Tensor] = None, share: float = 1.0):
     """The loss after the model call (ddpm3d.py:763-783): per-timestep
     logvar weighting (the learned table, else the constant
     cfg.logvar_init), l_simple_weight, and original_elbo_weight * loss_vlb.
-    loss_simple: (B,) per-sample mean l1/l2 losses."""
+    loss_simple: (B,) per-sample mean l1/l2 losses. With `share` < 1,
+    loss_simple is one sp rank's part of each clip's mean (its frames' sum
+    over the clip's count) and the returned loss is that rank's part of the
+    loss: the parts of the sp ranks sum to the clip's loss (the logvar
+    term, which does not scale with loss_simple, is shared out)."""
     if logvar is not None:
         logvar_t = logvar[t].to(loss_simple.dtype)
     else:
         logvar_t = torch.tensor(cfg.logvar_init, dtype=loss_simple.dtype,
                                 device=loss_simple.device)
-    loss_gamma = loss_simple / torch.exp(logvar_t) + logvar_t
+    loss_gamma = loss_simple / torch.exp(logvar_t) + share * logvar_t
     loss = cfg.l_simple_weight * loss_gamma.mean()
     lvlb = torch.as_tensor(schedule.lvlb_weights, device=t.device)[t]
     loss_vlb = (lvlb * loss_simple).mean()
@@ -96,18 +107,37 @@ class Draws(NamedTuple):
 def make_batch_input(pipe, cfg: TrainConfig):
     """The conditioning assembly (get_batch_input, ddpm3d.py:1058-1128).
 
-    Returns fn(batch, draws) -> (z, text_ctx, img_ctx, cc). batch: video
-    (B, T, H, W, 3) in [-1, 1], tokens (B, 77) int64. The frozen towers run
-    without gradients; the Resampler records them when it is trainable."""
+    Returns fn(batch, draws, frames=None) -> (z, text_ctx, img_ctx, cc).
+    batch: video (B, T, H, W, 3) in [-1, 1], tokens (B, 77) int64. The
+    frozen towers run without gradients; the Resampler records them when it
+    is trainable. With `frames` (a clip split over the sp ranks) z and cc
+    are this rank's frames: the VAE encodes them alone, and the frames the
+    concat takes (the conditioning frame, or the first and last) are encoded
+    on every rank; text_ctx and img_ctx stay whole."""
     null_tokens = torch.as_tensor(np.asarray(pipe.tokenizer([""])), dtype=torch.long,
                                   device=pipe.device)
     p = cfg.uncond_prob
 
-    def batch_input(batch, draws: Draws):
+    def encode(video, noise, idx=None):
+        """The latents of frames `idx` (a tensor; default: all) of video."""
+        if idx is None:
+            return pipe.encode_video(video, noise)
+        b, t = video.shape[:2]
+        noise = noise.view(b, t, *noise.shape[1:]).index_select(1, idx).flatten(0, 1)
+        return pipe.encode_video(video.index_select(1, idx), noise)
+
+    def batch_input(batch, draws: Draws, frames: Optional[FrameSplit] = None):
         video = batch["video"]
         b, t = video.shape[:2]
         with torch.no_grad():
-            z = pipe.encode_video(video, draws.enc_noise)
+            if frames is None:
+                z = encode(video, draws.enc_noise)
+            else:
+                mine = torch.arange(frames.lo, frames.lo + frames.local, device=video.device)
+                z = encode(video, draws.enc_noise, mine)
+                ends = torch.tensor([0, t - 1], device=video.device)
+                z_cond = encode(video, draws.enc_noise,
+                                ends if cfg.interp_mode else draws.cond_idx)
             u = draws.uniform
             prompt_mask = (u < 2 * p)[:, None, None]
             input_mask = 1.0 - ((u >= p) & (u < 3 * p)).to(video.dtype)[:, None, None, None]
@@ -119,7 +149,14 @@ def make_batch_input(pipe, cfg: TrainConfig):
             tokens = pipe.vision_encoder(px)
         img_ctx = pipe.resampler(tokens)
         img_ctx = img_ctx.reshape(b, t, -1, img_ctx.shape[-1])
-        if cfg.interp_mode:
+        if frames is not None:
+            if cfg.interp_mode:
+                cc = torch.zeros((b, t, *z.shape[2:]), dtype=z.dtype, device=z.device)
+                cc[:, 0], cc[:, -1] = z_cond[:, 0], z_cond[:, 1]
+                cc = frames.slice(cc)
+            else:
+                cc = z_cond.expand(z.shape)
+        elif cfg.interp_mode:
             cc = torch.zeros_like(z)
             cc[:, 0], cc[:, -1] = z[:, 0], z[:, -1]
         else:
@@ -214,6 +251,9 @@ class AccumulatingAdamW:
                 torch._foreach_sub_(grads, self._acc)
                 torch._foreach_div_(grads, self.mini_step + 1)
                 torch._foreach_add_(self._acc, grads)
+                # consumed: freed before AdamW's moments and temporaries are
+                # allocated (a full-size set of buffers less at the peak)
+                grads.clear()
             grads = self._acc
         if self.mini_step == k - 1:
             clip_by_global_norm_(grads, self.cfg.grad_clip)
@@ -352,9 +392,14 @@ class Trainer:
     `image_proj_model.*`, and `logvar` when learned) to the trainable
     tensors; checkpoints and EMA use the same keys.
 
-    With a `mesh` each rank takes its own batch and draws (seeded from
-    (seed, rank, step)), the optimizer is ZeRO-2 over dp (`AccumulatingAdamW`)
-    and the metrics are dp means; every rank must make every call."""
+    With a `mesh` each dp rank takes its own batch and draws (seeded from
+    (seed, dp rank, step) where dp > 1), the optimizer is ZeRO-2 over dp
+    where dp > 1 (`AccumulatingAdamW`; the plain one at dp 1) and the
+    metrics are dp means; every rank must make every call. With sp > 1 the
+    ranks of an sp group share the batch and draws and split each clip's
+    frames (`loss`), and their gradients are summed over the group before
+    the dp reduce-scatter (ZeRO stays over dp, as JAX's `zero_spec` shards
+    over the data axis alone)."""
 
     def __init__(self, pipe, cfg: TrainConfig, train_resampler: bool = True, seed: int = 0,
                  mesh: Optional[Mesh] = None):
@@ -370,7 +415,11 @@ class Trainer:
             self.logvar = torch.full((pipe.schedule.num_timesteps,), cfg.logvar_init,
                                      device=pipe.device, requires_grad=True)
             self.params["logvar"] = self.logvar
-        self.opt = AccumulatingAdamW(self.params, cfg, mesh=mesh)
+        # ZeRO over dp; at dp 1 there is nothing to shard, and the plain
+        # optimizer spares the shard-sized buffers (bit for bit the same
+        # arithmetic, AccumulatingAdamW's docstring)
+        self.opt = AccumulatingAdamW(self.params, cfg,
+                                     mesh=mesh if mesh is not None and mesh.dp > 1 else None)
         self.batch_input = make_batch_input(pipe, cfg)
 
     @property
@@ -383,13 +432,15 @@ class Trainer:
 
     def draw(self, batch, generator: Optional[torch.Generator] = None) -> Draws:
         """This micro-step's random numbers, from a generator seeded from
-        (seed, step), with a mesh (seed, rank, step), unless one is given."""
+        (seed, step), with a mesh of dp > 1 (seed, dp rank, step), unless one
+        is given; whole clips' draws on every sp rank."""
         pipe, cfg = self.pipe, self.cfg
         video = batch["video"]
         dev = video.device
         if generator is None:
-            entropy = [self.seed, self.step] if self.mesh is None else [
-                self.seed, self.mesh.rank, self.step]
+            # at dp 1 the one batch is the one-process run's, and so are its draws
+            entropy = ([self.seed, self.step] if self.mesh is None or self.mesh.dp == 1
+                       else [self.seed, self.mesh.dp_rank, self.step])
             seed = int(np.random.SeedSequence(entropy).generate_state(1)[0])
             generator = torch.Generator(device=dev).manual_seed(seed)
         b, t, hh, ww = video.shape[:4]
@@ -406,23 +457,38 @@ class Trainer:
             offset=(torch.randn((b, t, 1, 1, lat[-1]), **kw)
                     if cfg.noise_strength > 0 else None))
 
+    def frames(self, batch) -> Optional[FrameSplit]:
+        """The split of the batch's clips over the mesh's sp ranks, or None
+        (no mesh, sp = 1, or sp does not divide the frames: every rank of
+        the group then runs whole clips)."""
+        if self.mesh is None:
+            return None
+        return sharding.split_frames(batch["video"].shape[1], self.mesh)
+
     def _autocast(self):
         if not self.cfg.bf16:
             return contextlib.nullcontext()
         return torch.autocast(self.pipe.device.type, dtype=torch.bfloat16)
 
     def loss(self, batch, draws: Draws):
-        """(loss, metrics) of one micro-step (ddpm3d.py:740-784)."""
+        """(loss, metrics) of one micro-step (ddpm3d.py:740-784). Under sp
+        this rank's frames of each clip: the loss is this rank's part (the
+        parts of the sp group sum to the clip's loss; each rank's backward
+        reaches the others' frames through the collectives), the metrics
+        are the whole clips' (the per-clip sums all-reduced over the group
+        and divided by the clips' element counts)."""
         cfg, sched, unet = self.cfg, self.pipe.schedule, self.pipe.unet
-        with self._autocast():
-            z, text_ctx, img_ctx, cc = self.batch_input(batch, draws)
+        frames = self.frames(batch)
+        mine = (lambda a: a) if frames is None else frames.slice
+        with self._autocast(), sharding.use_frames(frames):
+            z, text_ctx, img_ctx, cc = self.batch_input(batch, draws, frames)
             t = draws.t
             if sched.scale_arr is not None:
                 # dynamic rescale of x0 (ddpm3d.py:711-715)
                 z = z * extract_into_tensor(sched.scale_arr, t, z.dim())
-            noise = draws.noise
+            noise = mine(draws.noise)
             if cfg.noise_strength > 0:
-                noise = noise + cfg.noise_strength * draws.offset
+                noise = noise + cfg.noise_strength * mine(draws.offset)
             x_noisy = sched.q_sample(z, t, noise)
             if cfg.parameterization == "v":
                 target = sched.get_v(z, noise, t)
@@ -433,8 +499,15 @@ class Trainer:
             pred = unet(torch.cat([x_noisy, cc], dim=-1), t, context_text=text_ctx,
                         context_img=img_ctx, fs=batch.get("fs"))
         err = pred.float() - target
-        loss_simple = (err.abs() if cfg.loss_type == "l1" else err.square()).mean(dim=(1, 2, 3, 4))
-        return combine_diffusion_losses(loss_simple, t, cfg, sched, self.logvar)
+        err = err.abs() if cfg.loss_type == "l1" else err.square()
+        if frames is None:
+            return combine_diffusion_losses(err.mean(dim=(1, 2, 3, 4)), t, cfg, sched,
+                                            self.logvar)
+        part = err.sum(dim=(1, 2, 3, 4)) / (err[0].numel() * frames.sp)
+        whole = sharding.sp_all_reduce(part.detach(), frames)
+        loss, _ = combine_diffusion_losses(part, t, cfg, sched, self.logvar, 1.0 / frames.sp)
+        _, metrics = combine_diffusion_losses(whole, t, cfg, sched, self.logvar)
+        return loss, metrics
 
     def loss_and_grads(self, batch, draws: Draws):
         """Forward and backward of one micro-step: (loss, metrics, grads),
@@ -460,7 +533,10 @@ class Trainer:
             draws = self.draw(batch)
         _, metrics, grads = self.loss_and_grads(batch, draws)
         if self.mesh is not None:
+            if self.frames(batch) is not None:
+                sharding.sp_sum_(grads, self.mesh)
             metrics = dp_mean(metrics, self.mesh)
+        if self.opt.mesh is not None:
             metrics["grad_norm"] = self.opt.update(grads)
             return metrics
         metrics["grad_norm"] = global_norm(grads)
@@ -478,7 +554,7 @@ class Trainer:
             return
         with torch.no_grad():
             saved = {k: p.detach().clone() for k, p in self.params.items()}
-            if self.mesh is not None:
+            if self.opt.mesh is not None:
                 self.opt.shards.gather_into(list(self.params.values()), ema)
             else:
                 for k, p in self.params.items():

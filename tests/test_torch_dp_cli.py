@@ -181,10 +181,13 @@ def test_train_main_with_a_logdir_of_each_rank(setup):
 
 
 def test_train_and_inference_refuse_sp_and_lone_dp(setup):
+    """--sp and --dp above 1 split one run over processes: without torchrun
+    both entry points refuse them (--sp raised naming ROADMAP item K before
+    the sp axis was ported)."""
     root, cfg, infer_cfg, prompts = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item K"):
+    with pytest.raises(SystemExit, match="torchrun"):
         train.main([*_train_flags(cfg, str(root / "x")), "--sp", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item K"):
+    with pytest.raises(SystemExit, match="torchrun"):
         inference.main(["--config", infer_cfg, "--prompt_dir", prompts, "--sp", "2",
                         "--device", "cpu"])
     with pytest.raises(SystemExit, match="torchrun"):
@@ -203,13 +206,12 @@ def _infer_flags(cfg, prompts, savedir):
 
 
 def _infer_rank(rank, world, cfg, prompts, out_dir):
-    """Without --dp two ranks make sp = 2 (the JAX default), which raises;
-    then each variant at --dp 2, into a directory of the rank's own."""
-    out = {}
-    try:
-        inference.main(_infer_flags(cfg, prompts, os.path.join(out_dir, "none")))
-    except NotImplementedError as e:
-        out["no_dp"] = str(e)
+    """Without --dp two ranks make sp = 2 (the JAX default): each clip's
+    frames split over the ranks; then each variant at --dp 2, into a
+    directory of the rank's own."""
+    sharding.collectives.clear()
+    r = inference.main(_infer_flags(cfg, prompts, os.path.join(out_dir, f"no_dp_rank{rank}")))
+    out = {"no_dp": (r["videos"][0], r["paths"], dict(sharding.collectives))}
     for name, (extra, _) in VARIANTS.items():
         savedir = os.path.join(out_dir, f"{name}_rank{rank}")
         sharding.collectives.clear()
@@ -222,7 +224,14 @@ def test_inference_dp2_equals_one_process(setup):
     root, _, cfg, prompts = setup
     run_ranks(_infer_rank, 2, root, cfg, prompts, str(root))
     ranks = [torch.load(root / f"infer_rank{r}.pt", weights_only=False) for r in range(2)]
-    assert all("ROADMAP Queue 1 item K" in r["no_dp"] for r in ranks)
+    one = inference.main(_infer_flags(cfg, prompts, str(root / "no_dp_one")))
+    want = one["videos"][0]
+    for r, (videos, paths, calls) in enumerate(got["no_dp"] for got in ranks):
+        # sp = 2: both ranks hold the whole clip (latents and frames gathered)
+        err = np.linalg.norm(videos - want) / np.linalg.norm(want)
+        assert err <= 1e-5, ("no_dp", r, err)
+        assert len(paths) == (1 if r == 0 else 0), ("no_dp", r, paths)
+        assert calls["sp_all_gather"] == 2 and calls["sp_all_to_all"] > 0, calls
     for name, (extra, gathers) in VARIANTS.items():
         one = inference.main([*_infer_flags(cfg, prompts, str(root / f"{name}_one")), *extra])
         want = one["videos"][0]

@@ -97,10 +97,15 @@ def test_create_mesh_shapes():
 
 @pytest.mark.parametrize("dp,sp", [(1, -1), (2, 4), (4, 2), (1, 8)])
 def test_sp_raises_naming_item_k(dp, sp):
-    """sp > 1 is not ported: a plain error naming ROADMAP item K, never a
-    quiet fall-back to dp."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item K"):
-        create_mesh(dp=dp, sp=sp, world_size=8)
+    """sp > 1 builds the mesh (it raised naming ROADMAP item K before the sp
+    axis was ported): JAX's shape, sp = -1 taking the processes dp leaves,
+    and rank r at (r // sp, r % sp), never a quiet fall-back to dp."""
+    want_sp = 8 // dp if sp == -1 else sp
+    for r in range(8):
+        mesh = create_mesh(dp=dp, sp=sp, world_size=8, rank=r)
+        assert mesh.shape == {DATA_AXIS: dp, SEQ_AXIS: want_sp}
+        assert (mesh.dp_rank, mesh.sp_rank) == divmod(r, want_sp)
+        assert mesh.group is None and mesh.sp_group is None     # no process group here
 
 
 def test_use_mesh_restores_state():
