@@ -311,24 +311,30 @@ def _all_to_all(out: torch.Tensor, inp: torch.Tensor, split: FrameSplit, kind: s
                            input_split_sizes=in_splits, group=split.mesh.sp_group)
 
 
-def _t_to_hw(x: torch.Tensor, split: FrameSplit) -> torch.Tensor:
-    """(B, T/sp, HW, C) -> (B, T, HW/sp, C): HW piece j goes to sp rank j."""
+def _exchange(split: FrameSplit):
+    """The sp all-to-all of a tensor in the wire layout (sp pieces at dim 0,
+    piece j to sp rank j)."""
+    def run(inp: torch.Tensor) -> torch.Tensor:
+        out = torch.empty_like(inp)
+        _all_to_all(out, inp, split, "sp_all_to_all")
+        return out
+    return run
+
+
+def _t_to_hw(x: torch.Tensor, sp: int, exchange) -> torch.Tensor:
+    """(B, T/sp, HW, C) -> (B, T, HW/sp, C): HW piece j goes to sp rank j
+    through `exchange`. The two layout copies (into and out of the wire
+    layout) are this function's own work."""
     b, tl, n, c = x.shape
-    sp = split.sp
-    inp = x.reshape(b, tl, sp, n // sp, c).permute(2, 0, 1, 3, 4).contiguous()
-    out = torch.empty_like(inp)
-    _all_to_all(out, inp, split, "sp_all_to_all")
+    out = exchange(x.reshape(b, tl, sp, n // sp, c).permute(2, 0, 1, 3, 4).contiguous())
     # out[i]: sp rank i's frames at this rank's HW piece
     return out.permute(1, 0, 2, 3, 4).reshape(b, sp * tl, n // sp, c)
 
 
-def _hw_to_t(y: torch.Tensor, split: FrameSplit) -> torch.Tensor:
+def _hw_to_t(y: torch.Tensor, sp: int, exchange) -> torch.Tensor:
     """(B, T, HW/sp, C) -> (B, T/sp, HW, C), the inverse of `_t_to_hw`."""
     b, t, m, c = y.shape
-    sp = split.sp
-    inp = y.reshape(b, sp, t // sp, m, c).permute(1, 0, 2, 3, 4).contiguous()
-    out = torch.empty_like(inp)
-    _all_to_all(out, inp, split, "sp_all_to_all")
+    out = exchange(y.reshape(b, sp, t // sp, m, c).permute(1, 0, 2, 3, 4).contiguous())
     # out[i]: this rank's frames at sp rank i's HW piece
     return out.permute(1, 2, 0, 3, 4).reshape(b, t // sp, sp * m, c)
 
@@ -337,22 +343,22 @@ class _FramesToTokens(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, split):
         ctx.split = split
-        return _t_to_hw(x, split)
+        return _t_to_hw(x, split.sp, _exchange(split))
 
     @staticmethod
     def backward(ctx, g):
-        return _hw_to_t(g, ctx.split), None
+        return _hw_to_t(g, ctx.split.sp, _exchange(ctx.split)), None
 
 
 class _TokensToFrames(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, split):
         ctx.split = split
-        return _hw_to_t(y, split)
+        return _hw_to_t(y, split.sp, _exchange(split))
 
     @staticmethod
     def backward(ctx, g):
-        return _t_to_hw(g, ctx.split), None
+        return _t_to_hw(g, ctx.split.sp, _exchange(ctx.split)), None
 
 
 def frames_to_tokens(x: torch.Tensor, split: FrameSplit) -> torch.Tensor:
@@ -465,24 +471,33 @@ def sp_gather_frames(x: torch.Tensor, split: FrameSplit, dim: int = 1) -> torch.
     return _GatherFrames.apply(x, split, dim)
 
 
+def _buckets(numels: Sequence[int], limit: int) -> List[Tuple[int, int]]:
+    """[start, stop) of each bucket: consecutive tensors of `numels` packed
+    greedily while they hold at most `limit` elements together (a larger
+    tensor is a bucket of its own)."""
+    out, i = [], 0
+    while i < len(numels):
+        j, n = i + 1, numels[i]
+        while j < len(numels) and n + numels[j] <= limit:
+            n += numels[j]
+            j += 1
+        out.append((i, j))
+        i = j
+    return out
+
+
 @torch.no_grad()
 def sp_sum_(tensors: Sequence[torch.Tensor], mesh: Mesh,
             bucket_numel: int = BUCKET_NUMEL) -> None:
     """Sum each tensor over the sp group of `mesh`, in place: one all-reduce
     a flat bucket of at most `bucket_numel` elements (a larger tensor is a
     bucket of its own)."""
-    i = 0
-    while i < len(tensors):
-        j, n = i + 1, tensors[i].numel()
-        while j < len(tensors) and n + tensors[j].numel() <= bucket_numel:
-            n += tensors[j].numel()
-            j += 1
+    for i, j in _buckets([t.numel() for t in tensors], bucket_numel):
         flat = torch.cat([t.reshape(-1) for t in tensors[i:j]])
         collectives["sp_all_reduce"] += 1
         dist.all_reduce(flat, group=mesh.sp_group)
         torch._foreach_copy_([t.view(-1) for t in tensors[i:j]],
                              list(flat.split([t.numel() for t in tensors[i:j]])))
-        i = j
 
 
 # -- the ZeRO layout ---------------------------------------------------------
@@ -518,12 +533,9 @@ class FlatShards:
         self.buckets: List[_Bucket] = []
         self.spec: List[Tuple[int, int, int]] = []   # (tensor, lo, hi) in shard order
         self._offsets: List[int] = []                # each spec entry's place in the shard
-        i = off = 0
-        while i < len(tensors):
-            j, n = i + 1, self.numels[i]
-            while j < len(tensors) and n + self.numels[j] <= bucket_numel:
-                n += self.numels[j]
-                j += 1
+        off = 0
+        for i, j in _buckets(self.numels, bucket_numel):
+            n = sum(self.numels[i:j])
             lo, hi = shard_bounds(n, mesh.dp, mesh.dp_rank)
             first, base, o = len(self.spec), 0, off
             for k in range(i, j):
@@ -536,7 +548,6 @@ class FlatShards:
             per = -(-n // mesh.dp)
             self.buckets.append(_Bucket(i, j, n, off, per, first, len(self.spec)))
             off += per
-            i = j
         self.numel = off
 
     def zeros(self) -> torch.Tensor:

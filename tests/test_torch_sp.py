@@ -14,8 +14,8 @@ runs the whole clip) and a level whose HW sp does not divide (that stage
 runs replicated); (e) the samplers (DDIM with eta 1, guidance rescale 0.7,
 2- and 3-pass CFG, generator draws with a mask blend, dpm, DeepCache); (f)
 the collectives of one UNet call against the formula of
-tests/test_sp_collectives.py; (g) `train.main --sp 2` against the
-one-process trainer; (h) the rank layout of `create_mesh` against JAX's
+tests/test_sp_collectives.py; (g) `train.main --sp 2`, and `--dp 2 --sp 2`
+on four ranks, against the one-process trainer; (h) the rank layout of `create_mesh` against JAX's
 `devices.reshape(dp, sp)`.
 
 The spawned ranks import this file, so it imports no JAX at the top; the
@@ -640,3 +640,131 @@ def test_train_main_sp2_matches_one_process(tmp_path):
         assert rel_l2(r["params"], one["params"]) <= 1e-5
         assert rel_l2(r["exp_avg"], one["exp_avg"]) <= 1e-5
     assert not os.path.exists(tmp_path / "sp" / "run" / "checkpoints" / "step_000000002.pt.tmp")
+
+
+def _record_steps(seen):
+    """Trainer.train_step and eval_step wrapped to record each call's batch
+    and draws (drawn where the step would draw them) into `seen[kind]` and
+    the validation metrics into `seen["val_metrics"]`."""
+    from dynamicrafter_tpu_torch.training.trainer import Trainer
+
+    def recording(kind, fn):
+        def run(self, batch, draws=None):
+            draws = self.draw(batch) if draws is None else draws
+            seen[kind].append((batch, draws))
+            out = fn(self, batch, draws)
+            if kind == "val":
+                seen["val_metrics"].append({k: float(v) for k, v in out.items()})
+            return out
+        return run
+
+    Trainer.train_step = recording("train", Trainer.train_step)
+    Trainer.eval_step = recording("val", Trainer.eval_step)
+
+
+def _train_dp2_sp2_rank(rank, world, cfg, logdir, out_dir):
+    """train.main --dp 2 --sp 2 on this rank, recording the batches and draws
+    of its micro-steps and validation, and the checkpoints it wrote."""
+    from dynamicrafter_tpu_torch import train
+    from dynamicrafter_tpu_torch.training import checkpoints
+
+    seen = {"train": [], "val": [], "val_metrics": [], "ckpt_writes": []}
+    _record_steps(seen)
+    write = checkpoints.CheckpointManager._write
+
+    def recording_write(self, path, s, *a):
+        seen["ckpt_writes"].append(s)
+        return write(self, path, s, *a)
+
+    checkpoints.CheckpointManager._write = recording_write
+    sharding.collectives.clear()
+    result = train.main([*_train_flags(cfg, logdir), "--dp", "2", "--sp", "2"])
+    out = _train_state(result)
+    out.update(seen, calls=dict(sharding.collectives),
+               steps=result["checkpoints"].all_steps())
+    torch.save(out, os.path.join(out_dir, f"train_dp2_sp2_rank{rank}.pt"))
+
+
+def _joined(a, b):
+    """Two dp ranks' batches, or draws, as one micro-batch: tensors and
+    lists concatenated along the batch, the one conditioning frame kept."""
+    if isinstance(a, dict):
+        return {k: _joined(a[k], b[k]) for k in a}
+    if isinstance(a, tuple):
+        assert torch.equal(a.cond_idx, b.cond_idx)
+        return type(a)(*[v if k == "cond_idx" else _joined(v, w)
+                         for k, v, w in zip(a._fields, a, b)])
+    if isinstance(a, torch.Tensor):
+        return torch.cat([a, b])
+    return None if a is None else list(a) + list(b)
+
+
+def test_train_main_dp2_sp2_matches_one_process(tmp_path):
+    """Four ranks at (dp, sp) = (2, 2): each sp group (ranks {0, 1} and {2,
+    3}) takes its own shard of the data and its own draws, both of its
+    ranks the same; the gradients are summed over sp and reduce-scattered
+    over dp (ZeRO over the dp groups {0, 2} and {1, 3}). Two micro-steps (one
+    AdamW update at accumulation 2, EMA on, validation at step 2) against
+    `train.main` in one process on the two sp groups' batches and draws
+    concatenated: losses, gradient norms and validation losses (the EMA's
+    through `ema_scope`'s all-gather), the parameters and the first moment
+    agree to relative 1e-5 on every rank; rank 0 alone writes the
+    checkpoint. rand_cond_frame is off: a micro-batch has one conditioning
+    frame (ddpm3d.py), so two sp groups' batches form one only if they
+    share it."""
+    from dynamicrafter_tpu_torch import train
+    from dynamicrafter_tpu_torch.training.trainer import Trainer
+
+    cfg = copy.deepcopy(TINY_MODEL_CONFIG)
+    cfg["model"]["params"].update(use_ema=True, rand_cond_frame=False)
+    cfg["data"] = {"params": {"batch_size": 1, "num_workers": 1, "train": {
+        "params": {"video_length": T, "resolution": [2 * LAT, 2 * LAT]}}}}
+    cfg["lightning"] = {"trainer": {"accumulate_grad_batches": 2, "max_steps": 100}}
+    path = tmp_path / "tiny_train.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    run_ranks(_train_dp2_sp2_rank, 4, tmp_path, str(path), str(tmp_path / "mesh"),
+              str(tmp_path), timeout=300)
+    ranks = [torch.load(tmp_path / f"train_dp2_sp2_rank{r}.pt", weights_only=False)
+             for r in range(4)]
+    for kind in ("train", "val"):
+        assert len(ranks[0][kind]) == (2 if kind == "train" else 1)
+        for (ba, da), (bb, db) in zip(ranks[0][kind], ranks[2][kind]):
+            assert not torch.equal(ba["video"], bb["video"])       # the dp shards differ
+            assert not torch.equal(da.noise, db.noise)             # draws from the dp rank
+        for lead, other in ((0, 1), (2, 3)):                       # an sp group agrees
+            for (ba, da), (bb, db) in zip(ranks[lead][kind], ranks[other][kind]):
+                assert torch.equal(ba["video"], bb["video"])
+                assert all(x is None and y is None or torch.equal(x, y) for x, y in zip(da, db))
+    joined = {kind: [(_joined(ba, bb), _joined(da, db)) for (ba, da), (bb, db)
+                     in zip(ranks[0][kind], ranks[2][kind])] for kind in ("train", "val")}
+
+    val_metrics = []
+
+    def substituting(kind, fn):
+        calls = iter(joined[kind])
+
+        def run(self, batch, draws=None):
+            out = fn(self, *next(calls))
+            if kind == "val":
+                val_metrics.append({k: float(v) for k, v in out.items()})
+            return out
+        return run
+
+    step, ev = Trainer.train_step, Trainer.eval_step
+    Trainer.train_step, Trainer.eval_step = substituting("train", step), substituting("val", ev)
+    try:
+        one = _train_state(train.main(_train_flags(str(path), str(tmp_path / "one"))))
+    finally:
+        Trainer.train_step, Trainer.eval_step = step, ev
+    assert len(val_metrics) == 1 and "val/loss_ema" in val_metrics[0]
+    for r in ranks:
+        assert r["mesh"] == {"dp": 2, "sp": 2} and r["steps"] == [2]
+        assert r["calls"]["sp_all_to_all"] > 0 and r["calls"]["reduce_scatter"] > 0
+        assert len(r["metrics"]) == len(one["metrics"]) == 2 and len(r["val_metrics"]) == 1
+        for got, want in zip(r["metrics"] + r["val_metrics"], one["metrics"] + val_metrics):
+            assert got.keys() == want.keys()
+            for k in want:
+                assert abs(got[k] - want[k]) <= 1e-5 * abs(want[k]), (k, got[k], want[k])
+        assert rel_l2(r["params"], one["params"]) <= 1e-5
+        assert rel_l2(r["exp_avg"], one["exp_avg"]) <= 1e-5
+    assert [r["ckpt_writes"] for r in ranks] == [[2], [], [], []]
