@@ -47,13 +47,16 @@ Run from the repository root. Phases, each printing one line:
      autocast, fp32 trainable weights), through the kernels and through the
      plain versions on the same weights and draws: loss and flattened
      gradient compared, kernel launches per micro-step counted; the median,
-     min and max of 10 more micro-steps on the kernel route, and one
+     min and max of TIMED_STEPS more micro-steps on the kernel route, and one
      profiled, its device time by kernel family;
   9. the training slice end to end through `dynamicrafter_tpu_torch.train.main`
      (the `python -m dynamicrafter_tpu_torch.train` entry point): 4
      micro-steps at accumulation 2 from N(0, 0.02) weights on synthetic
-     clips; checks finite losses, moved trainable and unmoved frozen
-     weights, the checkpoint, and the kernel launches;
+     clips, with --val_every 2 and --sample_every 2 (SampleLogger's sampler
+     at 10 DDIM steps, set through the config's own log_images_kwargs);
+     checks finite losses and validation losses, the sampled clips (finite,
+     written), moved trainable and unmoved frozen weights, the checkpoint,
+     and the kernel launches of the micro-steps, validations and samples;
  10. K5 (position-major small-sequence attention) against its plain version
      at the 256x256 middle-block shape (256, 16, 20*64) bf16 and fp32 and
      at ragged shapes (G not a multiple of the row tile, T = 8 and 32, other
@@ -78,8 +81,8 @@ Run from the repository root. Phases, each printing one line:
      batch (--bs 8), DDIM-50, eta 1, CFG 7.5 batched, fs 3;
  14. the 576x1024 slice end to end through `inference.main`: one prompt,
      sequential CFG (the CLI's default at this width), per-frame encode,
-     tiled decode, at a reduced DDIM step count; before it, the full-width
-     UNet of that config cut to 2 frames, kernels against plain;
+     tiled decode, DDIM-50; before it, the full-width UNet of that config
+     cut to 2 frames, kernels against plain;
  15. interpolation and looping through `inference.main --interp` / `--loop`
      on the 320x512 model at a reduced step count;
  16. the other samplers through `inference.main` on the 320x512 model at
@@ -143,12 +146,13 @@ Run from the repository root. Phases, each printing one line:
      micro-step, one profiled by kernel family; then that UNet cut to 2
      frames, forward and backward through the kernels and through the plain
      versions, gradients compared;
- 26. the sampler-quality scripts on the 320x512 model (random N(0, 0.02)
-     weights, bf16, 2-pass CFG): `dpm_certify.main` with the default
-     candidates dpm@30, ddim@50, ddim@30 and dpm@120, which must reproduce
-     the dpm@120 reference (relative L2 0), and `deepcache_certify.main` at
-     N = 1 (equal to the exact sampler: infinite PSNR, SSIM 1) to 5; each
-     row with its seconds beside the card's name and power limit.
+ 26. the sampler-quality scripts at 256x256, 320x512 and 576x1024 (random
+     N(0, 0.02) weights, bf16, 2-pass CFG), cut to CERTIFY_REF_STEPS and
+     CERTIFY_STEPS: `dpm_certify.main` against dpm@10, whose candidate at
+     that count must reproduce it (relative L2 0), and ddim@10, and
+     `deepcache_certify.main` at N = 1 (equal to the exact sampler: infinite
+     PSNR, SSIM 1) and 5 over 10 steps; launches exact; each row with its
+     seconds beside the card's name and power limit.
  27. discovery and `parity_check` at 320x512: the CLI from an empty HOME and
      working directory must print one "blocked on:" line and exit 2 (unless
      `discover` finds weights there); then `parity_check.check` on the
@@ -160,18 +164,18 @@ Run from the repository root. Phases, each printing one line:
      --profile_dir: disjoint shards whose frames equal the one-process run's,
      and the first batch's trace naming K1's and K2's kernels;
  29. `train.main` on configs/training_512_interp.yaml (interp_mode, batch 2 x
-     16 at 320x512) for 12 micro-steps with --loader processes (spawned
-     workers; /dev/shm's size printed) and --profile_steps 2: finite losses,
-     launches 12 x phase 8's, the trace naming K3, K4a, K4b and K2's kernels,
+     16 at 320x512) for 11 micro-steps with --loader processes (spawned
+     workers; /dev/shm's size printed) and --profile_steps 1: finite losses,
+     launches 11 x phase 8's, the trace naming K3, K4a, K4b and K2's kernels,
      the median s/micro-step beside phase 9's;
- 30. `train_probe` at 320x512, policies config and none, batch 2 and 4 (one
-     process per batch): ms/step and peak per row, launches exact for the
+ 30. `train_probe` at 320x512, policies config and none, batch 2 and 4 (in
+     one process of its own): ms/step and peak per row, launches exact for the
      rows that ran; an out-of-memory row is a result, but config at batch 2
      must run.
  31. the dp axis at world size 1 over nccl (a FileStore in a temporary
      directory; RANK=0 WORLD_SIZE=1 LOCAL_RANK=0): (a) the training_512_v1.0
      step through `AccumulatingAdamW(mesh=)` (ZeRO-2) against the plain
-     optimizer, 4 micro-steps at accumulation 2 with EMA from the same
+     optimizer, TRAIN_STEPS_DP micro-steps (one update) with EMA from the same
      weights, batches and draws: relative L2 of the parameters, EMA and both
      moments (at most 1e-5), grad_norm, ms per micro-step, peak memory and
      the collective calls of each micro-step; then the ZeRO state's way
@@ -179,8 +183,8 @@ Run from the repository root. Phases, each printing one line:
      all-gathered into the modules (`ema_scope`), the state gathered onto
      rank 0's host (`state_dict`), written by `CheckpointManager(mesh=)`
      and read back (weights, EMA, both moments, step counters), its EMA
-     through `export_checkpoint --ema`; (b) `train.main --dp 1`, 3
-     micro-steps on synthetic clips (the Trainer takes the plain optimizer
+     through `export_checkpoint --ema`; (b) `train.main --dp 1`,
+     TRAIN_STEPS_DP micro-steps on synthetic clips (the Trainer takes the plain optimizer
      at dp 1: ZeRO has nothing to shard), its checkpoint read back by
      `export_checkpoint`; (c) `inference.main --dp 1` at DDIM-5 against the
      same clip with no process group, frames equal bit for bit; then the
@@ -201,13 +205,32 @@ Run from the repository root. Phases, each printing one line:
      collectives of every UNet call equal to JAX's plan (2 all-to-alls a
      TemporalTransformer, one halo exchange a temporal conv, one all-reduce
      of statistics each, no gather), and K1's and K2's launches per rank.
+ 33. `inference.main` at 576x1024 (--bs 1, sequential CFG) with `--sampler
+     dpm` (30 steps), `--sampler unipc --solver_order 2` (20) and DDIM-50
+     with `--deepcache 5`: frames, stage seconds and peaks, launches against
+     a full pass's and a DeepCache shallow pass's counts;
+ 34. the same three samplers at 256x256, 8 prompts in one batch (--bs 8,
+     batched CFG over 16 clips, 'uniform' spacing: dpm@30 takes 31 steps);
+ 35. SDS through `generate_guidance.main` at 256_256 and 576_1024 (bf16,
+     STEPS_SDS_WIDE steps: finite latents that moved, seconds per step,
+     stage peaks) and the app's `Image2Video.get_image` at both sizes in
+     mode i2v (10 steps);
+ 36. the 576x1024 fine-tune through `train.main` on
+     configs/training_1024_v1.0.yaml: 4 micro-steps at accumulation 2 (two
+     AdamW updates; finite losses, moved and unmoved weights, peak, launches,
+     the checkpoint); `export_checkpoint` of it, `train.main --pretrained`
+     of the export (the loaded weights equal it) and `inference.main
+     --ckpt_path` of it at DDIM-5 (strict load); 2 micro-steps, then
+     `--auto_resume` to 4: weights, moments and losses equal the
+     uninterrupted run's bit for bit, the counters continue. Each checkpoint
+     directory is deleted once checked.
 
 Then a JSON line with, for each kernel, its launches on its main path (K1 and
 K2 phase 5, K3, K4a, K4b and the di pre-pass phase 9, K5 phase 13, K6, K9 and
 K10 phase 19, K7, K8 and `gn_stats` phase 21; `launches_by_path` has every
 path), error against the plain version (K6, K9, K10: the worst over phase
 18's bf16 shapes; K7, K8: at the first shape of phase 21; `gn_stats`: phase
-20 at that shape; `launches_by_path` adds the paths of phases 27-32, the sp
+20 at that shape; `launches_by_path` adds the paths of phases 26-36, the sp
 ones summed over the two ranks), and
 times: the kernel, the plain
 version, the bound (the larger of bytes over 3.35 TB/s and operations over
@@ -224,6 +247,8 @@ without TF32 (both flags set False) in every comparison.
 from __future__ import annotations
 
 import collections
+import csv
+import functools
 import gc
 import json
 import os
@@ -242,18 +267,30 @@ CONFIG_256 = "configs/inference_256_v1.0.yaml"
 CONFIG_1024 = "configs/inference_1024_v1.0.yaml"
 PROMPTS = "prompts/512"
 STEPS = 50
-STEPS_1024 = 8
+STEPS_1024 = 50
 STEPS_INTERP = 4
 STEPS_DPM = 30
 STEPS_UNIPC = 20
 DEEPCACHE = 5
 TRAIN_STEPS = 4
+TIMED_STEPS = 4
+TRAIN_STEPS_DP = 2
+SAMPLE_EVERY = 2
+STEPS_SAMPLE = 5
 STEPS_SDS = 20
 STEPS_APP = 10
+STEPS_SDS_WIDE = 5
+# the certify scripts' resolutions and depth, cut from the scripts' own
+# defaults (dpm@120 against dpm:30, ddim:50, ddim:30; N = 2..5 over 50 steps);
+# deepcache_certify by group of resolutions, N = 1 alone at 576x1024, where a
+# row's SSIM on the host takes longer than its two samplers
+CERTIFY_RESOLUTIONS = "256,512,1024"
+CERTIFY_REF_STEPS, CERTIFY_CANDIDATES = 5, "dpm:5,ddim:5"
+CERTIFY_STEPS, CERTIFY_INTERVALS = 5, (("256,512", (1, 5)), ("1024", (1,)))
 STEPS_PARITY = 5
-TRAIN_STEPS_INTERP = 12
+TRAIN_STEPS_INTERP = 11
 PROBE_BATCHES = (2, 4)
-PROBE_ITERS = 4
+PROBE_ITERS = 2
 SP = 2
 STEPS_SP = 5
 TRAIN_STEPS_SP = 2
@@ -380,6 +417,520 @@ def reset(*wrappers) -> None:
         w.launches = 0
 
 
+def fast_checkpoint_io() -> None:
+    """`torch.save` without a CRC32 of each record and through pinned host
+    buffers: the checkpoints this script writes (tens of GB) are read back,
+    compared and deleted at once, so a CRC guards nothing here, and both
+    defaults cost write time. `torch.load` reads either kind."""
+    from torch.utils.serialization import config
+
+    config.save.compute_crc32 = False
+    config.save.use_pinned_memory_for_d2h = True
+
+
+@functools.lru_cache(maxsize=None)
+def smi_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def infer_kernels() -> tuple:
+    """The wrappers of the kernels an inference path launches: K1, K2, K5."""
+    from dynamicrafter_tpu_torch.ops.flash_attention import flash_fwd
+    from dynamicrafter_tpu_torch.ops.small_attention import small_t_fwd, small_t_fwd_tmajor
+
+    return flash_fwd, small_t_fwd_tmajor, small_t_fwd
+
+
+def train_kernels() -> tuple:
+    """The wrappers a training micro-step launches: K3, K4a, K4b, K2, K1, and
+    the di pre-pass."""
+    from dynamicrafter_tpu_torch.ops.flash_attention import (
+        flash_bwd_di, flash_bwd_dkv, flash_bwd_dq, flash_fwd, flash_fwd_lse)
+    from dynamicrafter_tpu_torch.ops.small_attention import small_t_fwd_tmajor
+
+    return flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, small_t_fwd_tmajor, flash_fwd, flash_bwd_di
+
+
+def unet_calls(spacing: str, steps: int) -> int:
+    """The sampler steps (UNet calls a CFG pass) of a run at `steps` and
+    `spacing`: the length of the port's DDIM table, which "uniform" makes
+    one longer where 1000 // steps leaves a remainder (dpm@30 at 256x256
+    takes 31), as the JAX package's and the reference's tables do."""
+    from dynamicrafter_tpu_torch.schedule import make_ddim_timesteps
+
+    return len(make_ddim_timesteps(spacing, steps, 1000))
+
+
+def prompt_dir(root: str, n_prompts: int, images_per_prompt: int = 1, size: tuple = None) -> str:
+    """A prompt dir of copies of the example image and as many prompt lines.
+    With `size` (height, width) the copies are the example as `load_image`
+    fits it to that size, so that `load_prompt_dir` reads the same pixels
+    without its resize (float64 numpy, slow on the host)."""
+    import numpy as np
+
+    from dynamicrafter_tpu_torch.utils.video import load_image, save_image
+
+    os.makedirs(root)
+    example = os.path.join(PROMPTS, "example.png")
+    if size is not None:
+        example = os.path.join(root, "example.png")
+        fitted = load_image(os.path.join(PROMPTS, "example.png"), size)
+        save_image(np.round((fitted + 1) * 127.5).astype(np.uint8), example)
+    for i in range(n_prompts * images_per_prompt):
+        shutil.copy(example, os.path.join(root, f"img{i:02d}.png"))
+    if size is not None:
+        os.remove(example)
+    with open(os.path.join(root, "prompts.txt"), "w") as f:
+        f.write("".join(f"a clip of scene {i}, slow camera motion\n" for i in range(n_prompts)))
+    return root
+
+
+def run_cli(tag: str, flags: list, expect_shape: tuple, steps: int, sampler: str = "DDIM",
+            weights: str = None):
+    """Drive `inference.main` with the counts at 0, on random weights or on
+    the checkpoint `weights`; returns (launches K1, K2, K5, stage seconds,
+    peak bytes) after checking the written frames. Flags that `flags`
+    repeats override the common ones below."""
+    import numpy as np
+    import torch
+
+    from dynamicrafter_tpu_torch import inference
+
+    wrappers = infer_kernels()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset(*wrappers)
+    t1 = time.perf_counter()
+    source = ["--random_init"] if weights is None else ["--ckpt_path", weights]
+    result = inference.main([*source, "--bf16", "--text_input",
+                             "--unconditional_guidance_scale", "7.5", "--video_length",
+                             "16", "--ddim_steps", str(steps), "--ddim_eta", "1.0",
+                             "--seed", str(SEED), "--device", "cuda", *flags])
+    wall = time.perf_counter() - t1
+    n = counts(*wrappers)
+    videos, stages = result["videos"][0], result["timings"][0]
+    stage_peaks = result["peaks"][0]
+    peak = max(result["build_peak"], *stage_peaks.values())
+    frames = np.stack([np.load(p) for p in result["paths"]])
+    levels = int(np.count_nonzero(np.bincount(frames.reshape(-1), minlength=256)))
+    log(f"[{tag}] frames {videos.shape} finite {bool(np.isfinite(videos).all())}, files "
+        f"{frames.shape} {frames.dtype} levels {levels} | {sampler}-{steps} | "
+        + " ".join(f"{k} {v:.2f}s (peak {stage_peaks[k] / 2**30:.2f} GiB)"
+                   for k, v in stages.items())
+        + f" | {1e3 * stages['ddim'] / steps:.1f} ms/step | main() wall {wall:.1f}s | peak "
+        f"allocated {peak / 2**30:.2f} GiB (building the pipeline "
+        f"{result['build_peak'] / 2**30:.2f}; {held / 2**30:.2f} held before by this "
+        f"process) | launches K1 {n[0]} K2 {n[1]} K5 {n[2]} "
+        f"| {smi_line()}")
+    check(videos.shape == expect_shape, f"{tag}: frames {videos.shape} != {expect_shape}")
+    check(bool(np.isfinite(videos).all()), f"{tag}: decoded frames are not finite")
+    check(frames.dtype == np.uint8 and frames.shape == (
+        expect_shape[0] * expect_shape[1], *expect_shape[2:]), f"{tag}: frame files")
+    check(levels > 1, f"{tag}: decoded frames are constant")
+    return n, stages, peak
+
+
+def sampler_runs(tag: str, tmp: str, flags: list, expect_shape: tuple, spacing: str,
+                 full: tuple, shallow: tuple, passes: int) -> dict:
+    """dpm@30, unipc@20 (order 2) and DDIM-50 with DeepCache-5 through
+    `inference.main` with `flags`. Each run's launches (K1, K2, K5) must be
+    `passes` UNet calls a sampler step of `full`'s counts, and under DeepCache
+    `shallow`'s at the cached steps. Returns {run: (launches, stage seconds,
+    peak)}."""
+    runs = {}
+    for name, extra, steps, label in (
+            ("dpm30", ["--sampler", "dpm"], STEPS_DPM, "DPM++(2M)"),
+            ("unipc20", ["--sampler", "unipc", "--solver_order", "2"], STEPS_UNIPC, "UniPC"),
+            (f"deepcache{DEEPCACHE}", ["--deepcache", str(DEEPCACHE)], STEPS,
+             f"DDIM with DeepCache-{DEEPCACHE}")):
+        runs[name] = run_cli(f"{tag} {name}", [*flags, *extra, "--savedir",
+                                               os.path.join(tmp, name)],
+                             expect_shape, steps, sampler=label)
+        calls = unet_calls(spacing, steps)
+        n_full = calls // DEEPCACHE if name.startswith("deepcache") else calls
+        want = tuple(passes * (n_full * f + (calls - n_full) * c) for f, c in zip(full, shallow))
+        check(runs[name][0] == want, f"{tag} {name}: launches {runs[name][0]} != {want} "
+              f"({calls} steps x {passes} passes, {n_full} full)")
+    return runs
+
+
+def certify_runs(per_call: dict, shallow: dict) -> dict:
+    """Phase 26: `dpm_certify.main` and `deepcache_certify.main` (random
+    N(0, 0.02) weights, bf16, 2-pass CFG) at CERTIFY_RESOLUTIONS. Their
+    invariants: the candidate at the reference's step count reproduces the
+    reference (relative L2 0), N = 1 equals the exact sampler (infinite
+    PSNR, SSIM 1), every other row finite. Launches (K1, K2, K5) exact:
+    `per_call[res]` a UNet call (`shallow[res]` a DeepCache shallow one);
+    dpm_certify runs 1024's passes one call each, as the inference CLI does,
+    deepcache_certify batches them. Returns the launches of each script."""
+    import numpy as np
+    import torch
+
+    from dynamicrafter_tpu_torch import deepcache_certify, dpm_certify
+
+    wrappers, smi = infer_kernels(), smi_line()
+    resolutions = CERTIFY_RESOLUTIONS.split(",")
+    dpm_flags = ["--ref_steps", str(CERTIFY_REF_STEPS), "--candidates", CERTIFY_CANDIDATES]
+    reset(*wrappers)
+    dpm_rows = dpm_certify.main(["--resolutions", CERTIFY_RESOLUTIONS, "--cfg_passes", "2",
+                                 *dpm_flags])
+    n_dpm = counts(*wrappers)
+    torch.cuda.empty_cache()
+    reset(*wrappers)
+    dc_rows, dc_flags = [], {}
+    for group, intervals in CERTIFY_INTERVALS:
+        dc_flags[group] = ["--steps", str(CERTIFY_STEPS),
+                           "--intervals", ",".join(str(n) for n in intervals)]
+        dc_rows += deepcache_certify.main(["--resolutions", group, "--cfg_passes", "2",
+                                           *dc_flags[group]])
+        torch.cuda.empty_cache()
+    n_dc = counts(*wrappers)
+    add = lambda a, n, c: tuple(x + n * y for x, y in zip(a, c))
+    want_dpm = want_dc = (0, 0, 0)
+    dpm_calls = CERTIFY_REF_STEPS + sum(int(c.split(":")[1])
+                                        for c in CERTIFY_CANDIDATES.split(","))
+    for res in resolutions:
+        want_dpm = add(want_dpm, (2 if res == "1024" else 1) * dpm_calls, per_call[res])
+        exact = set()
+        for n in next(ns for group, ns in CERTIFY_INTERVALS if res in group.split(",")):
+            n_steps = CERTIFY_STEPS if CERTIFY_STEPS % n == 0 else (CERTIFY_STEPS // n) * n
+            if n_steps not in exact:
+                exact.add(n_steps)
+                want_dc = add(want_dc, n_steps, per_call[res])
+            want_dc = add(add(want_dc, n_steps // n, per_call[res]),
+                          n_steps - n_steps // n, shallow[res])
+    for row in dpm_rows:
+        log(f"[26] dpm_certify {row['resolution']} {row['cfg_passes']}-pass, ref "
+            f"dpm@{CERTIFY_REF_STEPS}, {row['weights']} weights: {row['sampler']}@{row['steps']} "
+            f"rel_l2 {row['rel_l2_vs_ref']} latent PSNR {row['latent_psnr_db']} dB pixel PSNR "
+            f"{row['pixel_psnr_db']} dB | {row['seconds']} s on {smi}")
+    for row in dc_rows:
+        log(f"[26] deepcache_certify {row['resolution']} {row['cfg_passes']}-pass, "
+            f"{row['weights']} weights: N={row['interval_N']} at {row['steps']} steps latent PSNR "
+            f"{row['latent_psnr_db']} dB pixel PSNR {row['pixel_psnr_db']} dB SSIM "
+            f"{row['pixel_ssim']} | {row['seconds']} s on {smi}")
+    log(f"[26] {CERTIFY_RESOLUTIONS}: dpm_certify {' '.join(dpm_flags)}, deepcache_certify "
+        + "; ".join(f"{group}: {' '.join(f)}" for group, f in dc_flags.items())
+        + f" | launches K1 K2 K5 {n_dpm} (expected {want_dpm}), {n_dc} "
+        f"(expected {want_dc}) | peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    reproduce = [r for r in dpm_rows if (r["sampler"], r["steps"]) == ("dpm", CERTIFY_REF_STEPS)]
+    check(len(reproduce) == len(resolutions)
+          and all(r["rel_l2_vs_ref"] == 0.0 and r["latent_psnr_db"] is None for r in reproduce),
+          f"dpm@{CERTIFY_REF_STEPS} does not reproduce the reference: {reproduce}")
+    check(all(np.isfinite(r["rel_l2_vs_ref"]) and r["rel_l2_vs_ref"] > 0
+              and np.isfinite(r["latent_psnr_db"]) and np.isfinite(r["pixel_psnr_db"])
+              for r in dpm_rows if r not in reproduce), f"dpm_certify rows {dpm_rows}")
+    exact_rows = [r for r in dc_rows if r["interval_N"] == 1]
+    check(len(exact_rows) == len(resolutions)
+          and all(r["latent_psnr_db"] == float("inf") and r["pixel_psnr_db"] == float("inf")
+                  and r["pixel_ssim"] == 1.0 for r in exact_rows),
+          f"DeepCache N = 1 differs from the exact sampler: {exact_rows}")
+    check(all(np.isfinite(r["latent_psnr_db"]) and np.isfinite(r["pixel_psnr_db"])
+              and np.isfinite(r["pixel_ssim"]) for r in dc_rows if r["interval_N"] != 1),
+          f"deepcache_certify rows {dc_rows}")
+    check(n_dpm == want_dpm, f"dpm_certify launches {n_dpm} != {want_dpm}")
+    check(n_dc == want_dc, f"deepcache_certify launches {n_dc} != {want_dc}")
+    tag = "_".join(resolutions)
+    return {f"dpm_certify_{tag}": n_dpm, f"deepcache_certify_{tag}": n_dc}
+
+
+def sds_run(tmp: str, resolution: str, config: str, steps: int, per_call: tuple) -> tuple:
+    """`generate_guidance.main` at `resolution` (bf16, batched CFG, the
+    CLI's spacing and rescale for that width) for `steps` optimisation
+    steps: finite frames and loss curve, latents that moved, launches of
+    `per_call` a step; returns (launches, seconds per step, stage peaks)."""
+    import numpy as np
+    import torch
+
+    from dynamicrafter_tpu_torch import generate_guidance
+
+    h, w = generate_guidance.RESOLUTIONS[resolution]
+    wrappers = infer_kernels()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset(*wrappers)
+    t1 = time.perf_counter()
+    result = generate_guidance.main([
+        "--config", config, "--prompt_dir",
+        prompt_dir(os.path.join(tmp, f"p_sds{w}"), 1, size=(h, w)),
+        "--savedir", os.path.join(tmp, f"sds{w}"), "--resolution", resolution, "--random_init",
+        "--bf16", "--num_steps", str(steps), "--debug_save_interval", str(steps),
+        "--seed", str(SEED), "--device", "cuda"])
+    wall = time.perf_counter() - t1
+    n = counts(*wrappers)
+    out, clock, peak = result["outputs"][0], result["timings"][0], result["peaks"][0]
+    settings = result["pipeline"].settings
+    # the init the pipeline drew: encode noise first, then the latents
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.randn((16, h // 8, w // 8, 4), generator=g, device="cuda")
+    init = torch.randn((1, 16, h // 8, w // 8, 4), generator=g, device="cuda").cpu().numpy()
+    moved = float(np.abs(out["latents"] - init).mean())
+    secs = clock["steps"]
+    log(f"[35] SDS generate_guidance --resolution {resolution} bf16, {steps} steps, lr "
+        f"{settings.lr}, rescale {settings.guidance_rescale}, spacing {settings.timestep_spacing}: "
+        f"frames {out['videos'].shape} finite {bool(np.isfinite(out['videos']).all())} | loss "
+        + " ".join(f"{v:.4f}" for v in out["loss_curve"])
+        + f" | latents moved by mean abs {moved:.4f} | s/step first {secs[0]:.3f}, mean after "
+        f"{np.mean(secs[1:]):.4f} | conditioning {clock['conditioning']:.2f}s loop "
+        f"{clock['loop']:.2f}s decode {clock['decode']:.2f}s | peaks " + " ".join(
+            f"{k} {v / 2**30:.2f}" for k, v in peak.items())
+        + f" GiB, building {result['build_peak'] / 2**30:.2f} ({held / 2**30:.2f} held before) "
+        f"| main() wall {wall:.1f}s | "
+        f"launches K1 {n[0]} K2 {n[1]} K5 {n[2]} | {smi_line()}")
+    check(out["videos"].shape == (1, 16, h, w, 3) and bool(np.isfinite(out["videos"]).all())
+          and bool(np.isfinite(out["latents"]).all()), f"SDS {resolution} frames or latents")
+    check(out["loss_curve"].shape == (steps,) and bool(np.isfinite(out["loss_curve"]).all()),
+          f"SDS {resolution} loss curve")
+    check(0.1 * settings.lr < moved < settings.lr * (steps + 1),
+          f"SDS {resolution} latents moved by {moved}")
+    check(n == tuple(steps * c for c in per_call), f"SDS {resolution} launches {n}")
+    return n, secs, peak
+
+
+def app_run(tmp: str, resolution: str, steps: int, per_pass: tuple) -> tuple:
+    """`Image2Video(resolution).get_image` in mode i2v: a finite clip of 16
+    frames at the resolution, launches of `per_pass` a CFG pass a step
+    (sequential passes at width 1024, as the backend runs them); returns
+    (launches, stage seconds, peak bytes)."""
+    import numpy as np
+    import torch
+
+    from dynamicrafter_tpu_torch.app import RESOLUTIONS, Image2Video
+    from dynamicrafter_tpu_torch.utils.video import decode_png
+
+    spec = RESOLUTIONS[resolution]
+    wrappers = infer_kernels()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    backend = Image2Video(os.path.join(tmp, f"app{resolution}"), resolution=resolution,
+                          random_init=True, mode="i2v")
+    build_s = time.perf_counter() - t1
+    sampled = []   # what the pipeline handed the backend, before the uint8 clamp
+    sample = backend.pipe.sample
+    backend.pipe.sample = lambda *a, **k: sampled.append(sample(*a, **k)) or sampled[-1]
+    reset(*wrappers)
+    clock = {}
+    path = backend.get_image(decode_png(os.path.join(PROMPTS, "example.png")),
+                             "a fox running through snow", steps=steps, seed=SEED, timings=clock)
+    n = counts(*wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    frames = read_clip(path)
+    finite = bool(np.isfinite(sampled[0].videos).all())
+    passes = 2 if spec["width"] >= 1024 else 1
+    want = tuple(passes * unet_calls(spec["timestep_spacing"], steps) * c for c in per_pass)
+    log(f"[35] Image2Video {resolution} mode i2v, {steps} steps, {passes} UNet call(s) a step: "
+        f"{os.path.basename(path)} ({os.path.getsize(path)} bytes) {frames.shape} {frames.dtype} "
+        f"levels {len(np.unique(frames))} finite {finite} | built in {build_s:.2f}s | "
+        + " ".join(f"{k} {v:.2f}s" for k, v in clock.items())
+        + f" | peak allocated {peak / 2**30:.2f} GiB ({held / 2**30:.2f} held before) | "
+        f"launches K1 {n[0]} K2 {n[1]} K5 {n[2]} "
+        f"(expected {want}) | {smi_line()}")
+    check(finite and frames.shape == (16, spec["height"], spec["width"], 3)
+          and frames.dtype == np.uint8 and len(np.unique(frames)) > 1,
+          f"app {resolution}: frames {frames.shape}")
+    check(n == want, f"app {resolution} launches {n} != {want}")
+    # the wrapped `sample` and the pipeline refer to each other: collect now
+    del backend, sampled, sample
+    gc.collect()
+    return n, clock, peak
+
+
+def finetune_1024(root: str, per_step: tuple, per_pass: tuple) -> dict:
+    """Phase 36: the 576x1024 fine-tune's life cycle through `train.main` on
+    configs/training_1024_v1.0.yaml (--synthetic_data --bf16), each
+    checkpoint directory deleted once checked. (a) TRAIN_STEPS micro-steps
+    at accumulation 2 (two AdamW updates): finite losses, trainable weights
+    moved and frozen ones not (against the same seed's fresh pipeline),
+    launches `per_step` (K3, K4a, K4b, K2, K1, di) a micro-step, the
+    checkpoint; (c) `export_checkpoint` of it over that fresh pipeline as the
+    donor (the trained tensors read back bit for bit), `train.main
+    --pretrained` of the export for one micro-step (no update at
+    accumulation 2: the weights are the loaded ones, equal to the export),
+    and `inference.main --ckpt_path` of the export on the inference config
+    at DDIM-5 (strict load, a tiny BPE vocab; launches `per_pass` a CFG
+    pass); (b) 2 micro-steps, then --auto_resume to TRAIN_STEPS in the same
+    --logdir: the losses, weights and both AdamW moments equal (a)'s bit for
+    bit and the counters continue. Returns the launches by path."""
+    import gzip
+
+    import numpy as np
+    import torch
+
+    from dynamicrafter_tpu_torch import export_checkpoint, train
+    from dynamicrafter_tpu_torch.config import TrainingConfig
+    from dynamicrafter_tpu_torch.pipeline import DynamiCrafterPipeline
+    from dynamicrafter_tpu_torch.training.trainer import Trainer
+
+    dev = torch.device("cuda", 0)
+    wrappers = train_kernels()
+    gib = lambda b: f"{b / 2**30:.2f}"
+    common = ["--config", TRAIN_CONFIG_1024, "--synthetic_data", "--bf16", "--device", "cuda",
+              "--seed", str(SEED), "--log_every", "1", "--logdir", root]
+
+    def run(name, *flags):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        reset(*wrappers)
+        t1 = time.perf_counter()
+        r = train.main([*common, "--name", name, *flags])
+        torch.cuda.synchronize()
+        r.update(wall=time.perf_counter() - t1, launches=counts(*wrappers), held=held,
+                 peak=torch.cuda.max_memory_allocated(dev))
+        return r
+
+    def moments(trainer):
+        state = trainer.opt.optimizer.state
+        return [(state[p]["exp_avg"], state[p]["exp_avg_sq"]) for p in trainer.params.values()]
+
+    # (a) the uninterrupted run
+    a = run("whole", "--max_steps", str(TRAIN_STEPS))
+    trainer = a["trainer"]
+    hist, secs = a["metrics"], a["step_seconds"]
+    first = next(iter(trainer.params.values()))
+    updates = int(trainer.opt.optimizer.state[first]["step"])
+    weights_a = {k: p.detach().cpu() for k, p in trainer.params.items()}
+    moments_a = [(m.cpu(), v.cpu()) for m, v in moments(trainer)]
+    mngr = a["checkpoints"]
+    ckpt_a = mngr.path(mngr.latest_step())
+    ckpt_gib = os.path.getsize(ckpt_a) / 2**30
+    fresh = DynamiCrafterPipeline.for_training(TrainingConfig.from_yaml(TRAIN_CONFIG_1024).model,
+                                               dev, frozen_dtype=torch.bfloat16)
+    fresh.init_random(seed=SEED)
+    fresh_sd, trained_sd = fresh.net.state_dict(), trainer.pipe.net.state_dict()
+    moved = [k for k in trainer.params
+             if k in fresh_sd and not torch.equal(fresh_sd[k], trained_sd[k])]
+    frozen_same = all(torch.equal(v, trained_sd[k]) for k, v in fresh_sd.items()
+                      if k not in trainer.params)
+    n_trainable = sum(k in fresh_sd for k in trainer.params)
+    finite = all(np.isfinite(v) for m in hist for v in m.values())
+    log(f"[36a] train.main {TRAIN_CONFIG_1024} --synthetic_data --bf16, {TRAIN_STEPS} micro-steps "
+        f"(batch 1 x 16 at 576x1024, accumulation 2, {updates} AdamW updates): loss "
+        + " ".join(f"{m['loss']:.5f}" for m in hist) + " | grad_norm "
+        + " ".join(f"{m['grad_norm']:.4e}" for m in hist) + " | s/micro-step "
+        + " ".join(f"{s:.3f}" for s in secs) + f" (median {np.median(secs):.3f}) | main() wall "
+        f"{a['wall']:.1f}s | peak allocated {gib(a['peak'])} GiB ({gib(a['held'])} held before) "
+        f"| trainable tensors moved "
+        f"{len(moved)}/{n_trainable}, frozen unchanged {frozen_same} | checkpoint step "
+        f"{mngr.latest_step()} {ckpt_gib:.2f} GiB | launches K3 K4a K4b K2 K1 di {a['launches']} "
+        f"(expected {TRAIN_STEPS} x {per_step}) | {smi_line()}")
+    check(len(hist) == TRAIN_STEPS and finite and all(m["grad_norm"] > 0 for m in hist),
+          "1024 fine-tune losses / grad norms")
+    check(updates == TRAIN_STEPS // 2, f"1024 fine-tune made {updates} AdamW updates")
+    check(len(moved) >= n_trainable // 2 and frozen_same,
+          f"1024 fine-tune: {len(moved)}/{n_trainable} trainable moved, frozen same {frozen_same}")
+    check(mngr.latest_step() == TRAIN_STEPS, "1024 fine-tune checkpoint")
+    check(a["launches"] == tuple(TRAIN_STEPS * c for c in per_step),
+          f"1024 fine-tune launches {a['launches']}")
+    out = {"train_1024": a["launches"]}
+    del trainer, trained_sd, a
+    gc.collect()
+
+    # (c) export over the fresh pipeline as the donor, --pretrained, --ckpt_path
+    donor, exported = os.path.join(root, "donor.ckpt"), os.path.join(root, "model.ckpt")
+    t1 = time.perf_counter()
+    torch.save({"state_dict": fresh_sd}, donor)
+    donor_s = time.perf_counter() - t1
+    del fresh, fresh_sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    sd = export_checkpoint.main(["--config", TRAIN_CONFIG_1024, "--params", ckpt_a, "--base",
+                                 donor, "--out", exported])
+    export_s = time.perf_counter() - t1
+    read_back = all(torch.equal(sd[k], v) for k, v in weights_a.items())
+    os.remove(donor)
+    shutil.rmtree(os.path.join(root, "whole"))
+    pre = run("pretrained", "--max_steps", "1", "--pretrained", exported)
+    own = pre["trainer"].pipe.net.state_dict()
+    loaded = all(torch.equal(v.float().cpu(), sd[k]) for k, v in own.items())
+    pre_state = (pre["trainer"].step, pre["trainer"].opt.mini_step,
+                 len(pre["trainer"].opt.optimizer.state))
+    out["train_1024_pretrained"] = pre["launches"]
+    del pre, own, sd
+    gc.collect()
+    shutil.rmtree(os.path.join(root, "pretrained"))
+    vocab = os.path.join(root, "bpe_simple_vocab_16e6.txt.gz")
+    with gzip.open(vocab, "wt") as f:
+        f.write("#version: 0.2\nt h\nth e</w>\ns n\no w</w>")
+    n_ckpt, _, ckpt_peak = run_cli("36c inference.main --ckpt_path <exported> 576x1024", [
+        "--config", CONFIG_1024, "--prompt_dir",
+        prompt_dir(os.path.join(root, "p1024"), 1, size=(576, 1024)),
+        "--savedir", os.path.join(root, "o1024"), "--height", "576", "--width", "1024",
+        "--frame_stride", "10", "--timestep_spacing", "uniform_trailing", "--guidance_rescale",
+        "0.7", "--perframe_ae", "--bs", "1", "--vocab_path", vocab],
+        (1, 1, 16, 576, 1024, 3), STEPS_PARITY, weights=exported)
+    os.remove(exported)
+    want_ckpt = tuple(STEPS_PARITY * 2 * c for c in per_pass)
+    log(f"[36c] donor (the fresh pipeline's state dict) written in {donor_s:.1f}s; "
+        f"export_checkpoint --base donor in {export_s:.1f}s, its trained tensors equal the run's "
+        f"{read_back} | train.main --pretrained <exported> --max_steps 1: loaded weights equal the "
+        f"export {loaded}, (step, mini_step, AdamW states) {pre_state} (no update at accumulation "
+        f"2), launches {out['train_1024_pretrained']} | inference --ckpt_path at DDIM-"
+        f"{STEPS_PARITY}: strict load, launches {n_ckpt} (expected {want_ckpt}), peak "
+        f"{gib(ckpt_peak)} GiB | {smi_line()}")
+    check(read_back, "the export's trained tensors differ from the run's")
+    check(loaded and pre_state == (1, 1, 0), f"--pretrained: loaded {loaded}, state {pre_state}")
+    check(out["train_1024_pretrained"] == per_step, "--pretrained launches")
+    check(n_ckpt == want_ckpt, f"--ckpt_path launches {n_ckpt} != {want_ckpt}")
+    out["inference_1024_ckpt"] = n_ckpt
+
+    # (b) stop after 2 micro-steps, resume to TRAIN_STEPS
+    b1 = run("cut", "--max_steps", "2")
+    hist_b = b1["metrics"]
+    del b1
+    restored = {}
+    load = Trainer.load_state_dict
+
+    def recording(self, state, weights_only=False):
+        load(self, state, weights_only)
+        torch.cuda.synchronize()
+        restored.update(held=torch.cuda.memory_allocated(dev),
+                        peak=torch.cuda.max_memory_allocated(dev))
+
+    Trainer.load_state_dict = recording
+    try:
+        b2 = run("cut", "--max_steps", str(TRAIN_STEPS), "--auto_resume")
+    finally:
+        Trainer.load_state_dict = load
+    trainer = b2["trainer"]
+    hist_b += b2["metrics"]
+    same_w = all(torch.equal(p.detach().cpu(), weights_a[k]) for k, p in trainer.params.items())
+    same_m = all(torch.equal(m.cpu(), ma) and torch.equal(v.cpu(), va)
+                 for (m, v), (ma, va) in zip(moments(trainer), moments_a))
+    counters = (trainer.step, trainer.opt.mini_step,
+                int(trainer.opt.optimizer.state[next(iter(trainer.params.values()))]["step"]),
+                b2["checkpoints"].all_steps())
+    log(f"[36b] train.main --max_steps 2, then --auto_resume --max_steps {TRAIN_STEPS} in the same "
+        f"--logdir: losses " + " ".join(f"{m['loss']:.5f}" for m in hist_b)
+        + f" equal (a)'s {[m['loss'] for m in hist_b] == [m['loss'] for m in hist]} | weights "
+        f"equal (a)'s {same_w}, both AdamW moments {same_m} | (step, mini_step, AdamW step, "
+        f"checkpoints) {counters} | after the restore {gib(restored['held'])} GiB held, peak "
+        f"{gib(restored['peak'])} GiB (building and restoring); the run's peak {gib(b2['peak'])} "
+        f"GiB | resumed run wall {b2['wall']:.1f}s | launches {b2['launches']} | {smi_line()}")
+    check(same_w and same_m and [m["loss"] for m in hist_b] == [m["loss"] for m in hist],
+          "the resumed run does not end where the uninterrupted one does")
+    check(counters == (TRAIN_STEPS, 0, TRAIN_STEPS // 2, [2, TRAIN_STEPS]),
+          f"resumed counters {counters}")
+    check(b2["launches"] == tuple((TRAIN_STEPS - 2) * c for c in per_step),
+          f"resumed launches {b2['launches']}")
+    out["train_1024_resumed"] = b2["launches"]
+    del trainer, b2, weights_a, moments_a
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(root, "cut"))
+    return out
+
+
 def sp_infer_flags(tmp: str, name: str) -> list:
     """Phase 32's `inference.main` flags: the 320x512 slice at DDIM-5."""
     return ["--config", CONFIG, "--prompt_dir", os.path.join(tmp, "prompts"), "--random_init",
@@ -409,14 +960,14 @@ def sp_rank_main(rank: int, tmp: str) -> int:
 
     from dynamicrafter_tpu_torch import inference, train
     from dynamicrafter_tpu_torch.models.unet3d import UNetModel
-    from dynamicrafter_tpu_torch.ops.flash_attention import (
-        flash_bwd_di, flash_bwd_dkv, flash_bwd_dq, flash_fwd, flash_fwd_lse)
+    from dynamicrafter_tpu_torch.ops.flash_attention import flash_bwd_di, flash_fwd
     from dynamicrafter_tpu_torch.ops.small_attention import small_t_fwd_tmajor
     from dynamicrafter_tpu_torch.parallel import sharding
 
     os.chdir(REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    fast_checkpoint_io()
     dev = sharding.init_distributed("cuda", os.path.join(tmp, "store"), backend="gloo")
     out = {"rank": rank, "device": str(dev), "backend": torch.distributed.get_backend(),
            "world": torch.distributed.get_world_size()}
@@ -458,7 +1009,7 @@ def sp_rank_main(rank: int, tmp: str) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         # (b) train.main --sp SP: the ranks share each clip's frames
-        train_w = (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, small_t_fwd_tmajor, flash_fwd)
+        train_w = train_kernels()[:5]
         reset(*train_w, flash_bwd_di)
         sharding.collectives.clear()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -489,8 +1040,8 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from dynamicrafter_tpu_torch import (
-        deepcache_certify, distributed_inference, dpm_certify, export_checkpoint,
-        generate_guidance, inference, parity_check, profile_unet)
+        distributed_inference, export_checkpoint, generate_guidance, inference, parity_check,
+        profile_unet)
     from dynamicrafter_tpu_torch.parallel import sharding
     from dynamicrafter_tpu_torch.app import Image2Video
     from dynamicrafter_tpu_torch.config import ModelConfig
@@ -534,11 +1085,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    fast_checkpoint_io()
     gen = torch.Generator(device=dev).manual_seed(0)
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
 
     # -- phase 1: device and build --------------------------------------
     t_start = t0 = time.perf_counter()
@@ -896,8 +1446,7 @@ def main() -> int:
 
     # -- phase 8: one full-width training micro-step, kernels vs plain ------
     t0 = time.perf_counter()
-    train_wrappers = (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, small_t_fwd_tmajor,
-                      flash_fwd)
+    train_wrappers = train_kernels()[:5]
     tc = TrainingConfig.from_yaml(TRAIN_CONFIG)
     mc = tc.model
     pipe = DynamiCrafterPipeline.for_training(mc, dev, frozen_dtype=torch.bfloat16)
@@ -926,14 +1475,14 @@ def main() -> int:
     # the micro-step's spread on the kernel route, and where its device time goes
     micro_step = lambda: trainer.loss_and_grads(batch, draws)
     secs_after = []
-    for _ in range(10):
+    for _ in range(TIMED_STEPS):
         t1 = time.perf_counter()
         micro_step()
         torch.cuda.synchronize()
         secs_after.append(time.perf_counter() - t1)
     fam, _, window_ms, _ = profile_unet.profile_families(micro_step, 1)
     device_ms = sum(fam.values())
-    log(f"[8] micro-step on the kernel route, 10 after the first: median "
+    log(f"[8] micro-step on the kernel route, {TIMED_STEPS} after the first: median "
         f"{np.median(secs_after):.3f} s, min {min(secs_after):.3f}, max {max(secs_after):.3f} | "
         f"one profiled: {device_ms:.1f} ms of device time in a {window_ms:.1f} ms window "
         f"({100 * device_ms / window_ms:.1f} % busy): "
@@ -981,17 +1530,39 @@ def main() -> int:
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
     with tempfile.TemporaryDirectory(dir=REPO) as logdir:
+        # SampleLogger's sampler cut from the config's 50 DDIM steps through
+        # the config's own key (F3's mapping of ddim_steps to steps)
+        override = os.path.join(logdir, "sample_steps.yaml")
+        with open(override, "w") as f:
+            f.write("lightning:\n  callbacks:\n    batch_logger:\n      params:\n"
+                    f"        log_images_kwargs:\n          ddim_steps: {STEPS_SAMPLE}\n")
+        sampled, sample = [], DynamiCrafterPipeline.sample
+
+        def recording(self, *a, **k):
+            out = sample(self, *a, **k)
+            sampled.append((out.videos.shape, bool(np.isfinite(out.videos).all())))
+            return out
+
         reset(*train_wrappers, flash_bwd_di)
-        result = train.main([
-            "--config", TRAIN_CONFIG, "--synthetic_data", "--bf16",
-            "--max_steps", str(TRAIN_STEPS), "--device", "cuda", "--seed", str(SEED),
-            "--logdir", logdir, "--name", "smoke", "--log_every", "1"])
+        DynamiCrafterPipeline.sample = recording
+        try:
+            result = train.main([
+                "--config", TRAIN_CONFIG, override, "--synthetic_data", "--bf16",
+                "--max_steps", str(TRAIN_STEPS), "--device", "cuda", "--seed", str(SEED),
+                "--logdir", logdir, "--name", "smoke", "--log_every", "1",
+                "--sample_every", str(SAMPLE_EVERY), "--val_every", str(SAMPLE_EVERY)])
+        finally:
+            DynamiCrafterPipeline.sample = sample
         torch.cuda.synchronize()
         train_launches = counts(*train_wrappers)
         train_di = flash_bwd_di.launches
         train_peak = torch.cuda.max_memory_allocated(dev)
         trainer = result["trainer"]
         hist, secs = result["metrics"], result["step_seconds"]
+        sample_files = sorted(os.listdir(os.path.join(result["workdir"], "samples")))
+        with open(os.path.join(result["workdir"], "metrics.csv")) as f:
+            val_rows = [(int(r["step"]), float(r["val/loss"])) for r in csv.DictReader(f)
+                        if r.get("val/loss")]
         saved_step = result["checkpoints"].latest_step()
         state = result["checkpoints"].restore()
         ckpt_bytes = os.path.getsize(result["checkpoints"].path(saved_step))
@@ -1012,6 +1583,13 @@ def main() -> int:
                 for k in trainable if k in fresh_sd) ** 0.5
     del fresh, fresh_sd, trained_sd
     finite = all(np.isfinite(v) for m in hist for v in m.values())
+    # K3, K4a, K4b, K2, K1, di: the micro-steps', then K1 and K2 of the
+    # validations' forwards (no gradient) and of the samplers' UNet calls
+    sample_steps = list(range(SAMPLE_EVERY, TRAIN_STEPS + 1, SAMPLE_EVERY))
+    no_grad_calls = len(sample_steps) * (1 + STEPS_SAMPLE)
+    expect_9 = (*(TRAIN_STEPS * c for c in per_step[:3]),
+                TRAIN_STEPS * per_step[3] + no_grad_calls * per_call[1],
+                TRAIN_STEPS * per_step[4] + no_grad_calls * per_call[0], TRAIN_STEPS * di_per_step)
     log(f"[9] train.main {TRAIN_CONFIG} --synthetic_data --bf16, {TRAIN_STEPS} micro-steps "
         f"(accumulation {tc.accumulate_grad_batches}, {updates} optimizer updates): loss " + " ".join(f"{m['loss']:.5f}" for m in hist)
         + " | grad_norm " + " ".join(f"{m['grad_norm']:.4e}" for m in hist)
@@ -1022,16 +1600,27 @@ def main() -> int:
         f"frozen unchanged {frozen_same} | checkpoint step {saved_step} "
         f"{ckpt_bytes / 2**30:.2f} GiB reloads equal {reloaded} | launches K3 "
         f"{train_launches[0]} K4a {train_launches[1]} K4b {train_launches[2]} K2 "
-        f"{train_launches[3]} K1 {train_launches[4]} di pre-pass {train_di}")
+        f"{train_launches[3]} K1 {train_launches[4]} di pre-pass {train_di} (expected "
+        f"{expect_9}: {TRAIN_STEPS} micro-steps x {per_step}, and the validations' forwards and "
+        f"the samplers' UNet calls at {per_call} each) | --val_every {SAMPLE_EVERY}: val/loss "
+        + " ".join(f"step {k} {v:.5f}" for k, v in val_rows)
+        + f" | --sample_every {SAMPLE_EVERY} (ddim_steps {STEPS_SAMPLE} from the config): "
+        f"samples {sampled} (shape, finite), {len(sample_files)} files "
+        f"{sample_files[:2]}... | {smi}")
     check(len(hist) == TRAIN_STEPS and finite, "training losses / grad norms not finite")
+    check([k for k, _ in val_rows] == sample_steps and all(np.isfinite(v) for _, v in val_rows),
+          f"validation rows {val_rows}")
+    check(len(sampled) == len(sample_steps)
+          and all(shape == (2, 1, 16, 320, 512, 3) and ok for shape, ok in sampled)
+          and {f"step{k:07d}_{i}" for k in sample_steps for i in range(2)}
+          <= {os.path.splitext(f)[0] for f in sample_files},
+          f"SampleLogger clips {sampled}, files {sample_files}")
     check(all(m["grad_norm"] > 0 for m in hist), "zero grad_norm")
     check(delta > 0 and len(moved) >= n_trainable // 2, "trainable weights did not move")
     check(frozen_same, "a frozen weight changed")
     check(saved_step == TRAIN_STEPS and reloaded, "checkpoint missing or does not reload")
-    check(train_launches == tuple(TRAIN_STEPS * c for c in per_step)
-          and train_di == TRAIN_STEPS * di_per_step,
-          f"launches {train_launches}, di {train_di} != {TRAIN_STEPS} x {per_step}, "
-          f"{di_per_step}")
+    check(train_launches == expect_9[:5] and train_di == expect_9[5],
+          f"launches {train_launches}, di {train_di} != {expect_9}")
     phase_s["9"] = time.perf_counter() - t0
     median_9 = float(np.median(secs))
     del result, trainer, hist, secs
@@ -1160,7 +1749,7 @@ def main() -> int:
 
     # -- phase 12: full-width 256x256 UNet forward, kernels vs plain ----------
     t0 = time.perf_counter()
-    infer_wrappers = (flash_fwd, small_t_fwd_tmajor, small_t_fwd)
+    infer_wrappers = infer_kernels()
     cfg = ModelConfig.from_yaml(CONFIG_256)
     with torch.device("meta"):
         unet = UNetModel(UNetConfig.from_dict(cfg.unet))
@@ -1211,54 +1800,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_s["12"] = time.perf_counter() - t0
 
-    def prompt_dir(root, n_prompts, images_per_prompt=1):
-        """A prompt dir of copies of the example image (`load_prompt_dir`
-        resizes) and as many prompt lines."""
-        os.makedirs(root)
-        for i in range(n_prompts * images_per_prompt):
-            shutil.copy(os.path.join(PROMPTS, "example.png"), os.path.join(root, f"img{i:02d}.png"))
-        with open(os.path.join(root, "prompts.txt"), "w") as f:
-            f.write("".join(f"a clip of scene {i}, slow camera motion\n"
-                            for i in range(n_prompts)))
-        return root
-
-    def run_cli(tag, flags, expect_shape, steps, sampler="DDIM"):
-        """Drive `inference.main` with the counts at 0; returns (launches,
-        stage seconds, peak bytes) after checking the written frames. Flags
-        that `flags` repeats override the common ones below."""
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset(*infer_wrappers)
-        t1 = time.perf_counter()
-        result = inference.main(["--random_init", "--bf16", "--text_input",
-                                 "--unconditional_guidance_scale", "7.5", "--video_length",
-                                 "16", "--ddim_steps", str(steps), "--ddim_eta", "1.0",
-                                 "--seed", str(SEED), "--device", "cuda", *flags])
-        wall = time.perf_counter() - t1
-        n = counts(*infer_wrappers)
-        videos, stages = result["videos"][0], result["timings"][0]
-        stage_peaks = result["peaks"][0]
-        peak = max(result["build_peak"], *stage_peaks.values())
-        frames = np.stack([np.load(p) for p in result["paths"]])
-        log(f"[{tag}] frames {videos.shape} finite {bool(np.isfinite(videos).all())}, files "
-            f"{frames.shape} {frames.dtype} levels {len(np.unique(frames))} | {sampler}-{steps} | "
-            + " ".join(f"{k} {v:.2f}s (peak {stage_peaks[k] / 2**30:.2f} GiB)"
-                       for k, v in stages.items())
-            + f" | {1e3 * stages['ddim'] / steps:.1f} ms/step | main() wall {wall:.1f}s | peak "
-            f"allocated {peak / 2**30:.2f} GiB (building the pipeline "
-            f"{result['build_peak'] / 2**30:.2f}) | launches K1 {n[0]} K2 {n[1]} K5 {n[2]}")
-        check(videos.shape == expect_shape, f"{tag}: frames {videos.shape} != {expect_shape}")
-        check(bool(np.isfinite(videos).all()), f"{tag}: decoded frames are not finite")
-        check(frames.dtype == np.uint8 and frames.shape == (
-            expect_shape[0] * expect_shape[1], *expect_shape[2:]), f"{tag}: frame files")
-        check(len(np.unique(frames)) > 1, f"{tag}: decoded frames are constant")
-        return n, stages, peak
-
     with tempfile.TemporaryDirectory(dir=REPO) as tmp:
         # -- phase 13: the 256x256 slice end to end, 8 prompts in one batch ---
         t0 = time.perf_counter()
-        launches_256, _, _ = run_cli("13 slice 256x256 --bs 8", [
-            "--config", CONFIG_256, "--prompt_dir", prompt_dir(os.path.join(tmp, "p256"), 8),
+        launches_256, _, peak_256 = run_cli("13 slice 256x256 --bs 8", [
+            "--config", CONFIG_256, "--prompt_dir",
+            prompt_dir(os.path.join(tmp, "p256"), 8, size=(256, 256)),
             "--savedir", os.path.join(tmp, "o256"), "--height", "256", "--width", "256",
             "--frame_stride", "3", "--timestep_spacing", "uniform", "--bs", "8"],
             (8, 1, 16, 256, 256, 3), STEPS)
@@ -1294,9 +1841,17 @@ def main() -> int:
         check(bool(torch.isfinite(out).all()) and rel <= 2e-2,
               f"1024 UNet kernels vs plain rel L2 {rel} > 2e-2")
         check(per_pass_1024 == (10, 34, 0), f"launches per 1024 pass {per_pass_1024}")
+        # a DeepCache shallow call (`UNetModel.forward` with `cache=`) runs the
+        # 2 input and 3 output blocks of level 0, each with one spatial
+        # transformer (K1: L = 9216 here, but L = 1024 at 256x256, below
+        # flash's 2048) and one temporal transformer (K2: attn1 and attn2), and
+        # init_attn (K2 twice); no middle block, so no K5 at 256x256
+        shallow_1024, shallow_256 = (5, 12, 0), (0, 12, 0)
         del unet, x, out, ref
-        launches_1024, _, _ = run_cli("14 slice 576x1024 sequential CFG, tiled decode", [
-            "--config", CONFIG_1024, "--prompt_dir", prompt_dir(os.path.join(tmp, "p1024"), 1),
+        launches_1024, stages_1024, peak_1024_infer = run_cli(
+            "14 slice 576x1024 sequential CFG, tiled decode", [
+            "--config", CONFIG_1024, "--prompt_dir",
+            prompt_dir(os.path.join(tmp, "p1024"), 1, size=(576, 1024)),
             "--savedir", os.path.join(tmp, "o1024"), "--height", "576", "--width", "1024",
             "--frame_stride", "10", "--timestep_spacing", "uniform_trailing",
             "--guidance_rescale", "0.7", "--perframe_ae", "--bs", "1"],
@@ -1326,34 +1881,16 @@ def main() -> int:
 
         # -- phase 16: dpm, unipc and DeepCache on the 320x512 model -------------
         t0 = time.perf_counter()
-        frames_512 = (1, 1, 16, 320, 512, 3)
-        flags_512 = [*flags_512, "--frame_stride", "24", "--prompt_dir", PROMPTS]
-        n_dpm, st_dpm, _ = run_cli("16 --sampler dpm", [
-            *flags_512, "--sampler", "dpm", "--savedir", os.path.join(tmp, "odpm")],
-            frames_512, STEPS_DPM, sampler="DPM++(2M)")
-        n_unipc, st_unipc, _ = run_cli("16 --sampler unipc --solver_order 2", [
-            *flags_512, "--sampler", "unipc", "--solver_order", "2",
-            "--savedir", os.path.join(tmp, "ounipc")], frames_512, STEPS_UNIPC, sampler="UniPC")
-        n_dc, st_dc, _ = run_cli(f"16 --deepcache {DEEPCACHE}", [
-            *flags_512, "--deepcache", str(DEEPCACHE), "--savedir", os.path.join(tmp, "odc")],
-            frames_512, STEPS, sampler=f"DDIM with DeepCache-{DEEPCACHE}")
         # a shallow call runs the level-0 blocks only: all 5 level-0 spatial
         # transformers (K1), and of the 17 temporal transformers `init_attn`
         # and the 5 of level 0 (K2 twice each: attn1 and attn2)
-        shallow = (5, 12, 0)
-        n_full = STEPS // DEEPCACHE
-        expect_dc = tuple(n_full * f + (STEPS - n_full) * c
-                          for f, c in zip((*per_call, 0), shallow))
-        log(f"[16] launches: dpm {n_dpm} (expected {STEPS_DPM} x {per_call}), unipc {n_unipc} "
-            f"(expected {STEPS_UNIPC} x {per_call}), DeepCache-{DEEPCACHE} {n_dc} (expected "
-            f"{n_full} full x {per_call} + {STEPS - n_full} shallow x {shallow[:2]} = "
-            f"{expect_dc}) | sampler loop per clip: dpm {st_dpm['ddim']:.2f}s unipc "
-            f"{st_unipc['ddim']:.2f}s DeepCache {st_dc['ddim']:.2f}s")
-        check(n_dpm == (STEPS_DPM * per_call[0], STEPS_DPM * per_call[1], 0),
-              f"launches under dpm {n_dpm}")
-        check(n_unipc == (STEPS_UNIPC * per_call[0], STEPS_UNIPC * per_call[1], 0),
-              f"launches under unipc {n_unipc}")
-        check(n_dc == expect_dc, f"launches under DeepCache {n_dc} != {expect_dc}")
+        shallow_512 = (5, 12, 0)
+        runs_512 = sampler_runs("16 320x512", tmp, [
+            *flags_512, "--frame_stride", "24", "--prompt_dir", PROMPTS],
+            (1, 1, 16, 320, 512, 3), "uniform_trailing", (*per_call, 0), shallow_512, passes=1)
+        log(f"[16] launches as counted (a full call K1 K2 {per_call}, a DeepCache shallow one "
+            f"{shallow_512[:2]}) | sampler loop per clip: "
+            + " ".join(f"{k} {st['ddim']:.2f}s" for k, (_, st, _) in runs_512.items()))
         phase_s["16"] = time.perf_counter() - t0
 
     # -- phase 17: the DeepCache seam and a dpm step at the full-width UNet ----
@@ -1386,7 +1923,7 @@ def main() -> int:
         f"shallow call {shallow_ms:.1f} ms")
     check(cache.shape == (2, 16, 40, 64, 640), f"cache shape {tuple(cache.shape)}")
     check(rel <= 1e-3, f"shallow-from-own-cache vs full rel L2 {rel} > 1e-3")
-    check(n_shallow == shallow, f"launches of a shallow call {n_shallow} != {shallow}")
+    check(n_shallow == shallow_512, f"launches of a shallow call {n_shallow} != {shallow_512}")
     # two steps of DPM-Solver++(2M) (the second uses the history) under batched
     # CFG with guidance rescale, as the 512 preset samples
     schedule = build_schedule(
@@ -1977,7 +2514,9 @@ def main() -> int:
                   and len(np.unique(frames)) > 1, f"app {mode}: frames {frames.shape}")
             check(n_app[mode] == (per_call[0] * STEPS_APP, per_call[1] * STEPS_APP, 0),
                   f"launches in app mode {mode}: {n_app[mode]}")
-            del backend
+            # the wrapped `sample` and the pipeline refer to each other
+            del backend, sampled, sample
+            gc.collect()
             torch.cuda.empty_cache()
     phase_s["24"] = time.perf_counter() - t0
 
@@ -2109,55 +2648,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_s["25"] = time.perf_counter() - t0
 
-    # -- phase 26: the sampler-quality scripts at 320x512 --------------------
+    # -- phase 26: the sampler-quality scripts at 256x256, 320x512, 576x1024 ----
     t0 = time.perf_counter()
-    reset(*infer_wrappers)
-    # the default candidates, and dpm at the reference's count, which must
-    # reproduce the reference
-    dpm_rows = dpm_certify.main(["--resolutions", "512", "--cfg_passes", "2", "--candidates",
-                                 "dpm:120,dpm:30,ddim:50,ddim:30", "--ref_steps", "120"])
-    n_dpm_certify = counts(*infer_wrappers)
-    torch.cuda.empty_cache()
-    reset(*infer_wrappers)
-    dc_rows = deepcache_certify.main(["--resolutions", "512", "--cfg_passes", "2",
-                                      "--intervals", "1,2,3,4,5", "--steps", "50"])
-    n_dc_certify = counts(*infer_wrappers)
-    torch.cuda.empty_cache()
-    for row in dpm_rows:
-        log(f"[26] dpm_certify 512 {row['cfg_passes']}-pass, ref dpm@120, {row['weights']} "
-            f"weights: {row['sampler']}@{row['steps']} rel_l2 {row['rel_l2_vs_ref']} latent PSNR "
-            f"{row['latent_psnr_db']} dB pixel PSNR {row['pixel_psnr_db']} dB | "
-            f"{row['seconds']} s on {smi}")
-    for row in dc_rows:
-        log(f"[26] deepcache_certify 512 {row['cfg_passes']}-pass, {row['weights']} weights: "
-            f"N={row['interval_N']} at {row['steps']} steps latent PSNR {row['latent_psnr_db']} "
-            f"dB pixel PSNR {row['pixel_psnr_db']} dB SSIM {row['pixel_ssim']} | "
-            f"{row['seconds']} s on {smi}")
-    log(f"[26] launches K1 {n_dpm_certify[0]} K2 {n_dpm_certify[1]} (dpm_certify), "
-        f"K1 {n_dc_certify[0]} K2 {n_dc_certify[1]} (deepcache_certify)")
-    check(dpm_rows[0]["rel_l2_vs_ref"] == 0.0 and dpm_rows[0]["latent_psnr_db"] is None,
-          f"dpm@120 does not reproduce the reference: {dpm_rows[0]}")
-    check(all(np.isfinite(r["rel_l2_vs_ref"]) and r["rel_l2_vs_ref"] > 0
-              and np.isfinite(r["latent_psnr_db"]) and np.isfinite(r["pixel_psnr_db"])
-              for r in dpm_rows[1:]), f"dpm_certify rows {dpm_rows}")
-    check(dc_rows[0]["interval_N"] == 1 and dc_rows[0]["latent_psnr_db"] == float("inf")
-          and dc_rows[0]["pixel_psnr_db"] == float("inf") and dc_rows[0]["pixel_ssim"] == 1.0,
-          f"DeepCache N = 1 differs from the exact sampler: {dc_rows[0]}")
-    check(all(np.isfinite(r["latent_psnr_db"]) and np.isfinite(r["pixel_psnr_db"])
-              and np.isfinite(r["pixel_ssim"]) for r in dc_rows[1:]),
-          f"deepcache_certify rows {dc_rows}")
-    # one UNet call a step, both CFG passes in its batch: K1 5 and K2 34 a
-    # full call, K1 5 and K2 12 a DeepCache shallow one; the exact baselines
-    # at 50 and 48 steps, then N = 1..5 (N = 3 and 4 at 48 steps)
-    dpm_calls = 120 + 120 + 30 + 50 + 30
-    dc_steps = {n: 50 if 50 % n == 0 else 48 for n in range(1, 6)}
-    full = 50 + 48 + sum(st // n for n, st in dc_steps.items())
-    shallow = sum(st - st // n for n, st in dc_steps.items())
-    check(n_dpm_certify[:2] == (5 * dpm_calls, 34 * dpm_calls),
-          f"dpm_certify launches {n_dpm_certify} != {dpm_calls} UNet calls")
-    check(n_dc_certify[:2] == (5 * (full + shallow), 34 * full + 12 * shallow),
-          f"deepcache_certify launches {n_dc_certify} != {full} full and {shallow} shallow "
-          f"UNet calls")
+    n_certify = certify_runs(
+        {"256": per_call_256, "512": (*per_call, 0), "1024": per_pass_1024},
+        {"256": shallow_256, "512": shallow_512, "1024": shallow_1024})
     phase_s["26"] = time.perf_counter() - t0
 
     # -- phase 27: discovery and parity_check at 320x512 ----------------------
@@ -2287,7 +2782,7 @@ def main() -> int:
         result = train.main([
             "--base", TRAIN_CONFIG_INTERP, "--train", "--synthetic_data", "--bf16",
             "--max_steps", str(TRAIN_STEPS_INTERP), "--loader", "processes", "--profile_steps",
-            "2", "--log_every", "1", "--device", "cuda", "--seed", str(SEED), "--logdir",
+            "1", "--log_every", "1", "--device", "cuda", "--seed", str(SEED), "--logdir",
             logdir, "--name", "training_512_interp"])
         torch.cuda.synchronize()
         interp_launches = counts(*train_wrappers)
@@ -2306,14 +2801,14 @@ def main() -> int:
     finite = all(np.isfinite(v) for m in hist for v in m.values())
     unprofiled = secs[1:10]
     log(f"[29] train.main {TRAIN_CONFIG_INTERP} --synthetic_data --bf16 --loader processes "
-        f"--profile_steps 2, {TRAIN_STEPS_INTERP} micro-steps: interp_mode and not "
+        f"--profile_steps 1, {TRAIN_STEPS_INTERP} micro-steps: interp_mode and not "
         f"rand_cond_frame {interp_on} | loss " + " ".join(f"{m['loss']:.5f}" for m in hist)
         + " | grad_norm " + " ".join(f"{m['grad_norm']:.4e}" for m in hist)
         + " | s/micro-step " + " ".join(f"{s:.3f}" for s in secs)
         + f" (median of micro-steps 2-10 {np.median(unprofiled):.3f}, phase 9's "
         f"training_512_v1.0 median {median_9:.3f}) on {smi} | peak allocated "
         f"{interp_peak / 2**30:.2f} GiB | {len(pids)} loader workers, PIDs {list(pids)} (this "
-        f"process {os.getpid()}); /dev/shm: {shm} | trace of micro-steps 10-11 {trace_mb:.1f} MB "
+        f"process {os.getpid()}); /dev/shm: {shm} | trace of micro-step 10 {trace_mb:.1f} MB "
         "names " + " ".join(f"{k} {v}" for k, v in traced.items())
         + f" | launches K3 {interp_launches[0]} K4a {interp_launches[1]} K4b "
         f"{interp_launches[2]} K2 {interp_launches[3]} K1 {interp_launches[4]} di pre-pass "
@@ -2341,31 +2836,36 @@ def main() -> int:
         "from dynamicrafter_tpu_torch.ops.small_attention import small_t_fwd_tmajor\n"
         "ws = (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, small_t_fwd_tmajor, flash_fwd,\n"
         "      flash_bwd_di)\n"
-        "batch, iters = sys.argv[1:]\n"
-        "for policy in ('config', 'none'):\n"
-        "    for w in ws:\n"
-        "        w.launches = 0\n"
-        "    r = train_probe.main(['--res', '512', '--batch', batch, '--policies', policy,\n"
-        "                          '--iters', iters])\n"
-        "    print('ROW ' + json.dumps(dict(policy=policy, ms=r['ms_per_step'][policy],\n"
-        "        peak_gib=r['peak_gib'][policy], launches=[w.launches for w in ws])),\n"
-        "          flush=True)\n")
+        "batches, iters = sys.argv[1:]\n"
+        "for batch in batches.split(','):\n"
+        "    for policy in ('config', 'none'):\n"
+        "        for w in ws:\n"
+        "            w.launches = 0\n"
+        "        r = train_probe.main(['--res', '512', '--batch', batch, '--policies', policy,\n"
+        "                              '--iters', iters])\n"
+        "        print('ROW ' + json.dumps(dict(batch=int(batch), policy=policy,\n"
+        "            ms=r['ms_per_step'][policy], peak_gib=r['peak_gib'][policy],\n"
+        "            launches=[w.launches for w in ws])), flush=True)\n")
     probe_rows, n_probe = {}, [0] * 6
     # a step's launches (K3, K4a, K4b, K2, K1, di): K2 again in the recompute
     probe_per_step = {"config": (*per_step, di_per_step),
                       "none": (*per_step[:3], per_step[3] // 2, per_step[4], di_per_step)}
-    for b in PROBE_BATCHES:
-        done = subprocess.run([sys.executable, "-c", probe_code, str(b), str(PROBE_ITERS)],
-                              capture_output=True, text=True, timeout=900, cwd=REPO)
-        for line in done.stdout.splitlines():
-            if line.startswith("ROW "):
-                row = json.loads(line[4:])
-                probe_rows[(b, row["policy"])] = row
-            elif "FAILED" in line:
-                log(f"[30] batch {b}: {line}")
-        if done.returncode != 0:
-            log(f"[30] train_probe batch {b} exited {done.returncode}: {done.stderr[-1500:]}")
-        check(b != 2 or done.returncode == 0, f"train_probe at batch 2: {done.stderr[-3000:]}")
+    # one process for both batches (train_probe reports an out-of-memory
+    # policy as FAILED and goes on), apart from this one's allocations
+    done = subprocess.run([sys.executable, "-c", probe_code,
+                           ",".join(str(b) for b in PROBE_BATCHES), str(PROBE_ITERS)],
+                          capture_output=True, text=True, timeout=900, cwd=REPO)
+    for line in done.stdout.splitlines():
+        if line.startswith("ROW "):
+            row = json.loads(line[4:])
+            probe_rows[(row["batch"], row["policy"])] = row
+        elif "FAILED" in line:
+            log(f"[30] {line}")
+    if done.returncode != 0:
+        log(f"[30] train_probe exited {done.returncode}: {done.stderr[-1500:]}")
+    # batch 2 must run to its end; batch 4 may run out of memory, a result
+    check(done.returncode == 0 or {(2, "config"), (2, "none")} <= set(probe_rows),
+          f"train_probe at batch 2: {done.stderr[-3000:]}")
     for (b, policy), row in probe_rows.items():
         ok = row["ms"] is not None
         want = [(1 + PROBE_ITERS) * c for c in probe_per_step[policy]]
@@ -2390,7 +2890,7 @@ def main() -> int:
         try:
             backend = torch.distributed.get_backend()
             # (a) AccumulatingAdamW(mesh=) against the plain optimizer: the same
-            # weights, batches and draws, accumulation 2, EMA on, 4 micro-steps
+            # weights, batches and draws, accumulation 2, EMA on, one update
             tc = TrainingConfig.from_yaml(TRAIN_CONFIG)
             mc = tc.model
             pipe = DynamiCrafterPipeline.for_training(mc, dev, frozen_dtype=torch.bfloat16)
@@ -2408,7 +2908,7 @@ def main() -> int:
             zbatches = [{"video": torch.rand(bsz, t_len, hh, ww, 3, device=dev,
                                              generator=zgen) * 2 - 1,
                          "tokens": tokens, "fs": torch.full((bsz,), 8.0, device=dev)}
-                        for _ in range(TRAIN_STEPS)]
+                        for _ in range(TRAIN_STEPS_DP)]
 
             def rel_l2(got, want):
                 """Relative L2 over lists of tensors, on the device of `want`
@@ -2513,8 +3013,9 @@ def main() -> int:
                                                                          mesh_run["metrics"])]
             log(f"[31a] AccumulatingAdamW(mesh=) at world size 1, backend {backend}, "
                 f"{TRAIN_CONFIG} (batch {bsz} x {t_len} at {hh}x{ww}, bf16 autocast, accumulation "
-                f"{zcfg.accumulate_grad_batches}, EMA on), {TRAIN_STEPS} micro-steps from the same "
-                f"weights, batches and draws as the plain optimizer: relative L2 against plain "
+                f"{zcfg.accumulate_grad_batches}, EMA on), {TRAIN_STEPS_DP} micro-steps from the "
+                f"same weights, batches and draws as the plain optimizer: relative L2 against "
+                f"plain "
                 + " ".join(f"{k} {v:.3e}" for k, v in mesh_run["rel"].items())
                 + " | grad_norm plain / mesh " + " ".join(f"{a:.6e}/{b:.6e}" for a, b in norms)
                 + " | loss plain / mesh " + " ".join(
@@ -2547,14 +3048,14 @@ def main() -> int:
             check(mesh_run["save_calls"] == {"all_gather": gathered * mesh_run["buckets"],
                                              "barrier": 1},
                   f"the ZeRO checkpoint's collectives {mesh_run['save_calls']}")
-            check(mesh_run["adam_steps"] == TRAIN_STEPS // zcfg.accumulate_grad_batches,
+            check(mesh_run["adam_steps"] == TRAIN_STEPS_DP // zcfg.accumulate_grad_batches,
                   f"{mesh_run['adam_steps']} AdamW steps")
             check(all(c.get("reduce_scatter") == mesh_run["buckets"] for c in mesh_run["calls"])
                   and [c.get("all_gather", 0) for c in mesh_run["calls"]]
-                  == [0, mesh_run["buckets"]] * (TRAIN_STEPS // 2),
+                  == [0, mesh_run["buckets"]] * (TRAIN_STEPS_DP // 2),
                   f"collective calls per micro-step {mesh_run['calls']}")
             check(mesh_run["launches"] == plain_run["launches"]
-                  == tuple(TRAIN_STEPS * c for c in (*per_step, di_per_step)),
+                  == tuple(TRAIN_STEPS_DP * c for c in (*per_step, di_per_step)),
                   f"launches plain {plain_run['launches']} mesh {mesh_run['launches']}")
 
             # (b) train.main --dp 1 under a torchrun environment (the plain
@@ -2565,7 +3066,8 @@ def main() -> int:
             dp1_base = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
             result = train.main([
-                "--config", TRAIN_CONFIG, "--synthetic_data", "--bf16", "--max_steps", "3",
+                "--config", TRAIN_CONFIG, "--synthetic_data", "--bf16", "--max_steps",
+                str(TRAIN_STEPS_DP),
                 "--device", "cuda", "--seed", str(SEED), "--logdir", tmp, "--name", "dp1",
                 "--log_every", "1", "--dp", "1"])
             torch.cuda.synchronize()
@@ -2588,7 +3090,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             log(f"[31b] train.main {TRAIN_CONFIG} --synthetic_data --bf16 --dp 1 under RANK=0 "
                 f"WORLD_SIZE=1 LOCAL_RANK=0: mesh {dp1_mesh}, the plain optimizer (ZeRO only at "
-                f"dp > 1), 3 micro-steps: loss "
+                f"dp > 1), {TRAIN_STEPS_DP} micro-steps: loss "
                 + " ".join(f"{m['loss']:.5f}" for m in hist) + " | grad_norm "
                 + " ".join(f"{m['grad_norm']:.4e}" for m in hist) + " | s/micro-step "
                 + " ".join(f"{s:.3f}" for s in secs) + f" on {smi} | peak allocated "
@@ -2598,11 +3100,13 @@ def main() -> int:
                 f"export_checkpoint read it back in {export_s:.1f}s, exported weights equal to the "
                 f"trainer's {same} | collectives {dp1_calls} | launches K3 K4a K4b K2 K1 di "
                 f"{dp1_launches}")
-            check(len(hist) == 3 and all(np.isfinite(v) for m in hist for v in m.values())
+            check(len(hist) == TRAIN_STEPS_DP
+                  and all(np.isfinite(v) for m in hist for v in m.values())
                   and all(m["grad_norm"] > 0 for m in hist), "train.main --dp 1 metrics")
-            check(steps_saved == [3] and same, f"checkpoints {steps_saved}, export equal {same}")
+            check(steps_saved == [TRAIN_STEPS_DP] and same,
+                  f"checkpoints {steps_saved}, export equal {same}")
             check(dp1_mesh == {"dp": 1, "sp": 1}, f"mesh {dp1_mesh}")
-            check(dp1_launches == tuple(3 * c for c in (*per_step, di_per_step)),
+            check(dp1_launches == tuple(TRAIN_STEPS_DP * c for c in (*per_step, di_per_step)),
                   f"train.main --dp 1 launches {dp1_launches}")
 
             # (c) inference.main --dp 1 against the same clip with no process group
@@ -2723,7 +3227,7 @@ def main() -> int:
         del lay_in
 
         # the one-process trainer on the same batches and draws (dp 1)
-        train_w = (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, small_t_fwd_tmajor, flash_fwd)
+        train_w = train_kernels()[:5]
         reset(*train_w, flash_bwd_di)
         torch.cuda.reset_peak_memory_stats(dev)
         one_train = train.main(sp_train_flags(tmp, "one_train"))
@@ -2830,37 +3334,98 @@ def main() -> int:
     n_sp_train = [sum(t["launches"][k] for t in trn) for k in range(6)]
     phase_s["32"] = time.perf_counter() - t0
 
+    # -- phase 33: dpm, unipc and DeepCache at 576x1024, sequential CFG --------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        runs_1024 = sampler_runs("33 576x1024 --bs 1 sequential CFG", tmp, [
+            "--config", CONFIG_1024, "--prompt_dir",
+            prompt_dir(os.path.join(tmp, "p"), 1, size=(576, 1024)),
+            "--height", "576", "--width", "1024", "--frame_stride", "10", "--timestep_spacing",
+            "uniform_trailing", "--guidance_rescale", "0.7", "--perframe_ae", "--bs", "1"],
+            (1, 1, 16, 576, 1024, 3), "uniform_trailing", per_pass_1024, shallow_1024, passes=2)
+    log("[33] samplers at 576x1024, two UNet calls a step (full pass K1 K2 K5 "
+        f"{per_pass_1024}, DeepCache shallow pass {shallow_1024}): "
+        + "; ".join(f"{k} loop {st['ddim']:.2f}s, launches {n}, peak {pk / 2**30:.2f} GiB"
+                    for k, (n, st, pk) in runs_1024.items())
+        + f" | DDIM-{STEPS_1024} without DeepCache (phase 14) loop {stages_1024['ddim']:.2f}s, "
+        f"peak {peak_1024_infer / 2**30:.2f} GiB | phase {time.perf_counter() - t0:.1f}s | {smi}")
+    phase_s["33"] = time.perf_counter() - t0
+
+    # -- phase 34: dpm, unipc and DeepCache at 256x256, 8 clips a batch --------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        runs_256 = sampler_runs("34 256x256 --bs 8 batched CFG", tmp, [
+            "--config", CONFIG_256, "--prompt_dir",
+            prompt_dir(os.path.join(tmp, "p"), 8, size=(256, 256)),
+            "--height", "256", "--width", "256", "--frame_stride", "3", "--timestep_spacing",
+            "uniform", "--bs", "8"], (8, 1, 16, 256, 256, 3), "uniform", per_call_256,
+            shallow_256, passes=1)
+    log("[34] samplers at 256x256 --bs 8, one UNet call of 16 clips a step (full K1 K2 K5 "
+        f"{per_call_256}, DeepCache shallow {shallow_256}; dpm@{STEPS_DPM} takes "
+        f"{unet_calls('uniform', STEPS_DPM)} calls at 'uniform' spacing): "
+        + "; ".join(f"{k} loop {st['ddim']:.2f}s, launches {n}, peak {pk / 2**30:.2f} GiB"
+                    for k, (n, st, pk) in runs_256.items())
+        + f" | DDIM-{STEPS} (phase 13) peak {peak_256 / 2**30:.2f} GiB | phase "
+        f"{time.perf_counter() - t0:.1f}s | {smi}")
+    phase_s["34"] = time.perf_counter() - t0
+
+    # -- phase 35: SDS and the app at 256x256 and 576x1024 ---------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        n_sds_wide = {res: sds_run(tmp, res, cfg_path, STEPS_SDS_WIDE, per)[0]
+                      for res, cfg_path, per in (("256_256", CONFIG_256, per_call_256),
+                                                 ("576_1024", CONFIG_1024, per_pass_1024))}
+        n_app_wide = {res: app_run(tmp, res, STEPS_APP, per)[0]
+                      for res, per in (("256_256", per_call_256), ("576_1024", per_pass_1024))}
+    phase_s["35"] = time.perf_counter() - t0
+
+    # -- phase 36: the 576x1024 fine-tune's life cycle through train.main -------
+    t0 = time.perf_counter()
+    disk = shutil.disk_usage(REPO)
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        n_finetune = finetune_1024(tmp, per_step_1024, per_pass_1024)
+    log(f"[36] phase {time.perf_counter() - t0:.1f}s; {disk.free / 2**30:.0f} GiB free on the "
+        f"checkout's disk before it")
+    phase_s["36"] = time.perf_counter() - t0
+
     log("[wall] " + " ".join(f"phase {k} {v:.1f}s" for k, v in phase_s.items())
         + f" | total {time.perf_counter() - t_start:.1f}s")
 
+    # the paths of phases 26 and 33-36: (K1, K2, K5) and (K3, K4a, K4b, K2, K1, di)
+    infer_paths = {**n_certify,
+                   **{f"inference_1024_{k}": n for k, (n, _, _) in runs_1024.items()},
+                   **{f"inference_256_bs8_{k}": n for k, (n, _, _) in runs_256.items()},
+                   "sds_256": n_sds_wide["256_256"], "sds_1024": n_sds_wide["576_1024"],
+                   "app_256": n_app_wide["256_256"], "app_1024": n_app_wide["576_1024"],
+                   "inference_1024_ckpt": n_finetune["inference_1024_ckpt"]}
+    train_paths = {k: n_finetune[k] for k in ("train_1024", "train_1024_resumed",
+                                              "train_1024_pretrained")}
     src = "dynamicrafter_tpu_torch/csrc/"
     tpu = "dynamicrafter_tpu/ops/"
     exp = "experiments/flash_pairs/"
     # name: (source, TPU kernel, launches on the kernel's main path, on every path)
     sources = {
         "flash_fwd": (src + "flash_attention.cu", tpu + "flash_attention.py:161", launches[0],
-                      {"inference_512": launches[0], "inference_256_bs8": launches_256[0],
-                       "inference_1024": launches_1024[0], "inference_512_dpm30": n_dpm[0],
-                       "inference_512_unipc20": n_unipc[0],
-                       "inference_512_deepcache5": n_dc[0], "sds_512": n_sds[0],
+                      {"inference_512": launches[0], "train_512": train_launches[4],
+                       "inference_256_bs8": launches_256[0],
+                       "inference_1024": launches_1024[0],
+                       **{f"inference_512_{k}": n[0] for k, (n, _, _) in runs_512.items()},
+                       "sds_512": n_sds[0],
                        "app_512": n_app["i2v"][0] + n_app["loop"][0],
-                       "dpm_certify_512": n_dpm_certify[0],
-                       "deepcache_certify_512": n_dc_certify[0],
                        "parity_check_512": n_parity[0],
                        "distributed_512": n_shards[0][0] + n_shards[1][0] + n_whole[0],
-                       "inference_512_dp1": n_infer_dp[0], "inference_sp2": n_sp_infer[0]}),
+                       "inference_512_dp1": n_infer_dp[0], "inference_sp2": n_sp_infer[0],
+                       **{k: v[0] for k, v in infer_paths.items()}}),
         "small_t_fwd_tmajor": (src + "small_attention.cu", tpu + "small_attention.py:134",
                                launches[1],
                                {"inference_512": launches[1], "train_512": train_launches[3],
                                 "inference_256_bs8": launches_256[1],
                                 "inference_1024": launches_1024[1],
                                 "train_1024_per_micro_step": per_step_1024[3],
-                                "inference_512_dpm30": n_dpm[1],
-                                "inference_512_unipc20": n_unipc[1],
-                                "inference_512_deepcache5": n_dc[1], "sds_512": n_sds[1],
+                                **{f"inference_512_{k}": n[1]
+                                   for k, (n, _, _) in runs_512.items()},
+                                "sds_512": n_sds[1],
                                 "app_512": n_app["i2v"][1] + n_app["loop"][1],
-                                "dpm_certify_512": n_dpm_certify[1],
-                                "deepcache_certify_512": n_dc_certify[1],
                                 "parity_check_512": n_parity[1],
                                 "distributed_512": n_shards[0][1] + n_shards[1][1] + n_whole[1],
                                 "train_512_interp": interp_launches[3],
@@ -2868,7 +3433,9 @@ def main() -> int:
                                 "train_512_zero_dp1": mesh_run["launches"][3],
                                 "train_512_dp1": dp1_launches[3],
                                 "inference_512_dp1": n_infer_dp[1],
-                                "inference_sp2": n_sp_infer[1], "train_sp2": n_sp_train[3]}),
+                                "inference_sp2": n_sp_infer[1], "train_sp2": n_sp_train[3],
+                                **{k: v[1] for k, v in infer_paths.items()},
+                                **{k: v[3] for k, v in train_paths.items()}}),
         "flash_fwd_lse": (src + "flash_attention.cu", tpu + "flash_attention.py:32",
                           train_launches[0], {"train_512": train_launches[0],
                                               "train_1024_per_micro_step": per_step_1024[0],
@@ -2876,7 +3443,8 @@ def main() -> int:
                                               "train_probe_512": n_probe[0],
                                               "train_512_zero_dp1": mesh_run["launches"][0],
                                               "train_512_dp1": dp1_launches[0],
-                                              "train_sp2": n_sp_train[0]}),
+                                              "train_sp2": n_sp_train[0],
+                                              **{k: v[0] for k, v in train_paths.items()}}),
         "flash_bwd_dq": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:304",
                          train_launches[1], {"train_512": train_launches[1],
                                              "train_1024_per_micro_step": per_step_1024[1],
@@ -2884,7 +3452,8 @@ def main() -> int:
                                              "train_probe_512": n_probe[1],
                                              "train_512_zero_dp1": mesh_run["launches"][1],
                                              "train_512_dp1": dp1_launches[1],
-                                             "train_sp2": n_sp_train[1]}),
+                                             "train_sp2": n_sp_train[1],
+                                             **{k: v[1] for k, v in train_paths.items()}}),
         "flash_bwd_dkv": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:339",
                           train_launches[2], {"train_512": train_launches[2],
                                               "train_1024_per_micro_step": per_step_1024[2],
@@ -2892,7 +3461,8 @@ def main() -> int:
                                               "train_probe_512": n_probe[2],
                                               "train_512_zero_dp1": mesh_run["launches"][2],
                                               "train_512_dp1": dp1_launches[2],
-                                              "train_sp2": n_sp_train[2]}),
+                                              "train_sp2": n_sp_train[2],
+                                              **{k: v[2] for k, v in train_paths.items()}}),
         "flash_bwd_di": (src + "flash_attention_bwd.cu", tpu + "flash_attention.py:329",
                          train_di, {"train_512": train_di,
                                     "train_1024_per_micro_step": per_step_1024[5],
@@ -2900,10 +3470,13 @@ def main() -> int:
                                     "train_probe_512": n_probe[5],
                                     "train_512_zero_dp1": mesh_run["launches"][5],
                                     "train_512_dp1": dp1_launches[5],
-                                    "train_sp2": n_sp_train[5]}),
+                                    "train_sp2": n_sp_train[5],
+                                    **{k: v[5] for k, v in train_paths.items()}}),
         "small_t_fwd": (src + "small_attention.cu", tpu + "small_attention.py:32",
                         launches_256[2], {"inference_256_bs8": launches_256[2],
-                                          "inference_1024": launches_1024[2]}),
+                                          "inference_1024": launches_1024[2],
+                                          **{k: v[2] for k, v in infer_paths.items()
+                                             if "256" in k}}),
         "flash_fwd_packed": (src + "flash_packed.cu", tpu + "flash_attention.py:479",
                              variant_launches[0],
                              {"flash_attention_packed": variant_launches[0]}),

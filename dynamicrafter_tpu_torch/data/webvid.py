@@ -20,6 +20,7 @@ share no module.
 from __future__ import annotations
 
 import csv
+import itertools
 import os
 import random
 import threading
@@ -262,14 +263,18 @@ class DataLoader:
       * multi-host training shards the (epoch-shuffled) index list so each
         host sees a disjoint slice: pass shard_id = this process's rank and
         num_shards = the world size. The shuffle seed is (seed, epoch),
-        identical on every host, which keeps the shards disjoint.
+        identical on every host, which keeps the shards disjoint;
+      * `skip_batches` drops the first batches of the stream, so that a
+        resumed run takes the batches the interrupted one had not reached
+        (the map-style path skips index batches, reading nothing; the
+        iterable path reads and drops them).
     """
 
     def __init__(self, dataset, batch_size: int, tokenizer=None,
                  shuffle: bool = True, seed: int = 0, num_workers: int = 4,
                  prefetch: int = 4, fs_key: str = "frame_stride",
                  shard_id: int = 0, num_shards: int = 1,
-                 max_epochs: Optional[int] = None):
+                 max_epochs: Optional[int] = None, skip_batches: int = 0):
         if not 0 <= shard_id < num_shards:
             raise ValueError(f"shard_id {shard_id} outside [0, {num_shards})")
         self.dataset = dataset
@@ -283,6 +288,7 @@ class DataLoader:
         self.shard_id = shard_id
         self.num_shards = num_shards
         self.max_epochs = max_epochs
+        self.skip_batches = skip_batches
         # A shard smaller than one batch would make _index_batches yield
         # nothing forever (max_epochs=None) — a silent hang at iter() time.
         # Fail loudly at construction instead.
@@ -304,13 +310,16 @@ class DataLoader:
         return idxs[self.shard_id::self.num_shards]
 
     def _index_batches(self) -> Iterator[List[int]]:
-        epoch = 0
-        while self.max_epochs is None or epoch < self.max_epochs:
-            idxs = self._epoch_indices(epoch)
-            for i0 in range(0, len(idxs) - self.batch_size + 1,
-                            self.batch_size):
-                yield idxs[i0:i0 + self.batch_size]
-            epoch += 1
+        def every_batch():
+            epoch = 0
+            while self.max_epochs is None or epoch < self.max_epochs:
+                idxs = self._epoch_indices(epoch)
+                for i0 in range(0, len(idxs) - self.batch_size + 1,
+                                self.batch_size):
+                    yield idxs[i0:i0 + self.batch_size]
+                epoch += 1
+
+        return itertools.islice(every_batch(), self.skip_batches, None)
 
     def _iter_iterable(self) -> Iterator[Dict[str, np.ndarray]]:
         """Iterable-dataset path: each worker owns a disjoint sample_ids
@@ -358,7 +367,7 @@ class DataLoader:
         from concurrent.futures import ThreadPoolExecutor
 
         if isinstance(self.dataset, IterableVideoDataset):
-            yield from self._iter_iterable()
+            yield from itertools.islice(self._iter_iterable(), self.skip_batches, None)
             return
 
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:

@@ -235,16 +235,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     fs_key = "fps" if mc.fps_condition_type == "fps" else "frame_stride"
     t_len = pipe.unet_config.temporal_length or 16
     loader_cls = DataLoader if args.loader == "threads" else ProcessDataLoader
+    # a resumed run skips the batches its steps took: one a micro-step, and
+    # one a validation
     loader = loader_cls(_build_dataset(tc.train_data, args, t_len, log), batch_size=bs,
                         tokenizer=tokenizer, seed=args.seed, num_workers=tc.num_workers,
-                        fs_key=fs_key, shard_id=shard, num_shards=shards)
+                        fs_key=fs_key, shard_id=shard, num_shards=shards,
+                        skip_batches=trainer.step)
     val_iter = None
     if args.val_every:
         val_data = _build_dataset(tc.validation_data or tc.train_data, args, t_len, log)
         val_iter = iter(loader_cls(val_data, batch_size=bs, tokenizer=tokenizer,
                                    shuffle=False, seed=args.seed + 1,
                                    num_workers=tc.num_workers, fs_key=fs_key,
-                                   shard_id=shard, num_shards=shards))
+                                   shard_id=shard, num_shards=shards,
+                                   skip_batches=trainer.step // args.val_every))
 
     # rank 0 writes; every rank makes every collective call (a rank that
     # skipped one would hang the others)

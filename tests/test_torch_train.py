@@ -11,6 +11,7 @@ and loss to 1e-5 relative, gradients relative L2 <= 1e-4 per tensor (fp32,
 summation order), the optimizer to 1e-6 against optax.
 """
 import copy
+import csv
 import os
 
 import numpy as np
@@ -458,3 +459,33 @@ def test_train_cli_end_to_end(tmp_path):
     ema = state["ema"]
     assert set(ema) == set(trained) and any(not torch.equal(ema[k], v)
                                             for k, v in trained.items())
+
+
+def test_auto_resume_continues_the_uninterrupted_run(tmp_path):
+    """Two micro-steps, then --auto_resume to four, end where four
+    micro-steps without a stop end: the same losses, validation losses,
+    weights, EMA and AdamW moments, bit for bit. The resumed run takes the
+    batches the first one had not reached (`DataLoader(skip_batches=)`); the
+    draws follow the step. JAX's `scripts/train.py` restarts its loader at
+    the first batch on a resume, so it is no oracle for this."""
+    cfg = _tiny_train_yaml(tmp_path)
+    common = ["--config", cfg, "--logdir", str(tmp_path / "logs"), "--synthetic_data",
+              "--log_every", "1", "--val_every", "2", "--device", "cpu"]
+    whole = train.main([*common, "--name", "whole", "--max_steps", "4"])
+    first = train.main([*common, "--name", "cut", "--max_steps", "2"])
+    rest = train.main([*common, "--name", "cut", "--max_steps", "4", "--auto_resume"])
+    assert rest["trainer"].step == 4 and rest["checkpoints"].all_steps() == [2, 4]
+    assert first["metrics"] + rest["metrics"] == whole["metrics"]
+    def val(result):
+        with open(os.path.join(result["workdir"], "metrics.csv")) as f:
+            return [{k: v for k, v in row.items() if k.startswith("val/")}
+                    for row in csv.DictReader(f) if row["step"] == "4" and row["val/loss"]]
+
+    assert len(val(whole)) == 1 and val(rest) == val(whole)
+    a, b = (r["checkpoints"].restore(4) for r in (whole, rest))
+    for key in ("weights", "ema"):
+        for k, v in a[key].items():
+            torch.testing.assert_close(b[key][k], v, rtol=0, atol=0)
+    for i, s in a["optimizer"]["state"].items():
+        for name in ("exp_avg", "exp_avg_sq"):
+            torch.testing.assert_close(b["optimizer"]["state"][i][name], s[name], rtol=0, atol=0)

@@ -197,3 +197,29 @@ def test_webvid_dataset_pickles_for_worker_processes(tmp_path):
     copy = pickle.loads(pickle.dumps(ds))
     assert copy.metadata == ds.metadata and copy.resolution == (16, 16) and copy.seed == 3
     assert copy.rng.random() == first   # a fresh RNG from the same seed, on this thread
+
+
+class _RangeIterable(IterableVideoDataset):
+    def __iter__(self):
+        for i in self.sample_ids:
+            yield {"video": np.full((4, 16, 16, 3), i / 16, np.float32), "caption": f"c{i}",
+                   "frame_stride": np.int32(1)}
+
+
+@pytest.mark.parametrize("kind", ["threads", "processes", "iterable"])
+def test_skip_batches_starts_the_stream_later(kind):
+    """`skip_batches=k` gives the stream without its first k batches, past
+    an epoch's end and on a shard, for both loaders and an iterable
+    dataset (what a resumed training run reads)."""
+    if kind == "iterable":
+        make = lambda **kw: DataLoader(_RangeIterable(num_records=12), batch_size=2,
+                                       tokenizer=HashTokenizer(), num_workers=2, **kw)
+    else:
+        cls = DataLoader if kind == "threads" else ProcessDataLoader
+        make = lambda **kw: _loader(cls, 1, 2, **kw)
+    whole = _take(make(), N_BATCHES)
+    tail = _take(make(skip_batches=3), N_BATCHES - 3)
+    assert [b["captions"] for b in tail] == [b["captions"] for b in whole[3:]]
+    for a, b in zip(whole[3:], tail):
+        for key in ("video", "fs", "tokens"):
+            np.testing.assert_array_equal(a[key], b[key])
