@@ -53,10 +53,11 @@ Run from the repository root. Phases, each printing one line:
      (the `python -m dynamicrafter_tpu_torch.train` entry point): 4
      micro-steps at accumulation 2 from N(0, 0.02) weights on synthetic
      clips, with --val_every 2 and --sample_every 2 (SampleLogger's sampler
-     at 10 DDIM steps, set through the config's own log_images_kwargs);
-     checks finite losses and validation losses, the sampled clips (finite,
-     written), moved trainable and unmoved frozen weights, the checkpoint,
-     and the kernel launches of the micro-steps, validations and samples;
+     at STEPS_SAMPLE DDIM steps, set through the config's own
+     log_images_kwargs); checks finite losses and validation losses, the
+     sampled clips (finite, written), moved trainable and unmoved frozen
+     weights, the checkpoint, and the kernel launches of the micro-steps and,
+     counted apart, of the validations' and samplers' UNet calls;
  10. K5 (position-major small-sequence attention) against its plain version
      at the 256x256 middle-block shape (256, 16, 20*64) bf16 and fp32 and
      at ragged shapes (G not a multiple of the row tile, T = 8 and 32, other
@@ -147,12 +148,12 @@ Run from the repository root. Phases, each printing one line:
      frames, forward and backward through the kernels and through the plain
      versions, gradients compared;
  26. the sampler-quality scripts at 256x256, 320x512 and 576x1024 (random
-     N(0, 0.02) weights, bf16, 2-pass CFG), cut to CERTIFY_REF_STEPS and
-     CERTIFY_STEPS: `dpm_certify.main` against dpm@10, whose candidate at
-     that count must reproduce it (relative L2 0), and ddim@10, and
-     `deepcache_certify.main` at N = 1 (equal to the exact sampler: infinite
-     PSNR, SSIM 1) and 5 over 10 steps; launches exact; each row with its
-     seconds beside the card's name and power limit.
+     N(0, 0.02) weights, bf16, 2-pass CFG), cut in depth (CERTIFY_*):
+     `dpm_certify.main` against dpm@5, whose candidate at that count must
+     reproduce it (relative L2 0), and ddim@5; `deepcache_certify.main` at
+     N = 1 (equal to the exact sampler: infinite PSNR, SSIM 1) and 5 over 5
+     steps at 256x256 and 320x512, N = 1 alone at 576x1024; launches exact;
+     each row with its seconds beside the card's name and power limit.
  27. discovery and `parity_check` at 320x512: the CLI from an empty HOME and
      working directory must print one "blocked on:" line and exit 2 (unless
      `discover` finds weights there); then `parity_check.check` on the
@@ -164,9 +165,9 @@ Run from the repository root. Phases, each printing one line:
      --profile_dir: disjoint shards whose frames equal the one-process run's,
      and the first batch's trace naming K1's and K2's kernels;
  29. `train.main` on configs/training_512_interp.yaml (interp_mode, batch 2 x
-     16 at 320x512) for 11 micro-steps with --loader processes (spawned
-     workers; /dev/shm's size printed) and --profile_steps 1: finite losses,
-     launches 11 x phase 8's, the trace naming K3, K4a, K4b and K2's kernels,
+     16 at 320x512) for 12 micro-steps with --loader processes (spawned
+     workers; /dev/shm's size printed) and --profile_steps 2: finite losses,
+     launches 12 x phase 8's, the trace naming K3, K4a, K4b and K2's kernels,
      the median s/micro-step beside phase 9's;
  30. `train_probe` at 320x512, policies config and none, batch 2 and 4 (in
      one process of its own): ms/step and peak per row, launches exact for the
@@ -175,7 +176,7 @@ Run from the repository root. Phases, each printing one line:
  31. the dp axis at world size 1 over nccl (a FileStore in a temporary
      directory; RANK=0 WORLD_SIZE=1 LOCAL_RANK=0): (a) the training_512_v1.0
      step through `AccumulatingAdamW(mesh=)` (ZeRO-2) against the plain
-     optimizer, TRAIN_STEPS_DP micro-steps (one update) with EMA from the same
+     optimizer, 4 micro-steps at accumulation 2 (two updates) with EMA from the same
      weights, batches and draws: relative L2 of the parameters, EMA and both
      moments (at most 1e-5), grad_norm, ms per micro-step, peak memory and
      the collective calls of each micro-step; then the ZeRO state's way
@@ -184,7 +185,7 @@ Run from the repository root. Phases, each printing one line:
      rank 0's host (`state_dict`), written by `CheckpointManager(mesh=)`
      and read back (weights, EMA, both moments, step counters), its EMA
      through `export_checkpoint --ema`; (b) `train.main --dp 1`,
-     TRAIN_STEPS_DP micro-steps on synthetic clips (the Trainer takes the plain optimizer
+     3 micro-steps on synthetic clips (the Trainer takes the plain optimizer
      at dp 1: ZeRO has nothing to shard), its checkpoint read back by
      `export_checkpoint`; (c) `inference.main --dp 1` at DDIM-5 against the
      same clip with no process group, frames equal bit for bit; then the
@@ -273,24 +274,25 @@ STEPS_DPM = 30
 STEPS_UNIPC = 20
 DEEPCACHE = 5
 TRAIN_STEPS = 4
-TIMED_STEPS = 4
-TRAIN_STEPS_DP = 2
+TIMED_STEPS = 10
+TRAIN_STEPS_DP = 3
 SAMPLE_EVERY = 2
 STEPS_SAMPLE = 5
 STEPS_SDS = 20
 STEPS_APP = 10
 STEPS_SDS_WIDE = 5
 # the certify scripts' resolutions and depth, cut from the scripts' own
-# defaults (dpm@120 against dpm:30, ddim:50, ddim:30; N = 2..5 over 50 steps);
-# deepcache_certify by group of resolutions, N = 1 alone at 576x1024, where a
-# row's SSIM on the host takes longer than its two samplers
+# defaults (dpm@120 against dpm:30, ddim:50, ddim:30; N = 2..5 over 50 steps):
+# dpm_certify at dpm@5 against dpm:5 and ddim:5; deepcache_certify by group of
+# resolutions, (steps, intervals N): N = 1 alone at 576x1024, where a row's
+# SSIM on the host takes longer than its two samplers
 CERTIFY_RESOLUTIONS = "256,512,1024"
 CERTIFY_REF_STEPS, CERTIFY_CANDIDATES = 5, "dpm:5,ddim:5"
-CERTIFY_STEPS, CERTIFY_INTERVALS = 5, (("256,512", (1, 5)), ("1024", (1,)))
+CERTIFY_INTERVALS = (("256,512", 5, (1, 5)), ("1024", 5, (1,)))
 STEPS_PARITY = 5
-TRAIN_STEPS_INTERP = 11
+TRAIN_STEPS_INTERP = 12
 PROBE_BATCHES = (2, 4)
-PROBE_ITERS = 2
+PROBE_ITERS = 4
 SP = 2
 STEPS_SP = 5
 TRAIN_STEPS_SP = 2
@@ -417,17 +419,6 @@ def reset(*wrappers) -> None:
         w.launches = 0
 
 
-def fast_checkpoint_io() -> None:
-    """`torch.save` without a CRC32 of each record and through pinned host
-    buffers: the checkpoints this script writes (tens of GB) are read back,
-    compared and deleted at once, so a CRC guards nothing here, and both
-    defaults cost write time. `torch.load` reads either kind."""
-    from torch.utils.serialization import config
-
-    config.save.compute_crc32 = False
-    config.save.use_pinned_memory_for_d2h = True
-
-
 @functools.lru_cache(maxsize=None)
 def smi_line() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
@@ -464,25 +455,11 @@ def unet_calls(spacing: str, steps: int) -> int:
     return len(make_ddim_timesteps(spacing, steps, 1000))
 
 
-def prompt_dir(root: str, n_prompts: int, images_per_prompt: int = 1, size: tuple = None) -> str:
-    """A prompt dir of copies of the example image and as many prompt lines.
-    With `size` (height, width) the copies are the example as `load_image`
-    fits it to that size, so that `load_prompt_dir` reads the same pixels
-    without its resize (float64 numpy, slow on the host)."""
-    import numpy as np
-
-    from dynamicrafter_tpu_torch.utils.video import load_image, save_image
-
+def prompt_dir(root: str, n_prompts: int, images_per_prompt: int = 1) -> str:
+    """A prompt dir of copies of the example image and as many prompt lines."""
     os.makedirs(root)
-    example = os.path.join(PROMPTS, "example.png")
-    if size is not None:
-        example = os.path.join(root, "example.png")
-        fitted = load_image(os.path.join(PROMPTS, "example.png"), size)
-        save_image(np.round((fitted + 1) * 127.5).astype(np.uint8), example)
     for i in range(n_prompts * images_per_prompt):
-        shutil.copy(example, os.path.join(root, f"img{i:02d}.png"))
-    if size is not None:
-        os.remove(example)
+        shutil.copy(os.path.join(PROMPTS, "example.png"), os.path.join(root, f"img{i:02d}.png"))
     with open(os.path.join(root, "prompts.txt"), "w") as f:
         f.write("".join(f"a clip of scene {i}, slow camera motion\n" for i in range(n_prompts)))
     return root
@@ -582,8 +559,8 @@ def certify_runs(per_call: dict, shallow: dict) -> dict:
     torch.cuda.empty_cache()
     reset(*wrappers)
     dc_rows, dc_flags = [], {}
-    for group, intervals in CERTIFY_INTERVALS:
-        dc_flags[group] = ["--steps", str(CERTIFY_STEPS),
+    for group, steps, intervals in CERTIFY_INTERVALS:
+        dc_flags[group] = ["--steps", str(steps),
                            "--intervals", ",".join(str(n) for n in intervals)]
         dc_rows += deepcache_certify.main(["--resolutions", group, "--cfg_passes", "2",
                                            *dc_flags[group]])
@@ -596,8 +573,10 @@ def certify_runs(per_call: dict, shallow: dict) -> dict:
     for res in resolutions:
         want_dpm = add(want_dpm, (2 if res == "1024" else 1) * dpm_calls, per_call[res])
         exact = set()
-        for n in next(ns for group, ns in CERTIFY_INTERVALS if res in group.split(",")):
-            n_steps = CERTIFY_STEPS if CERTIFY_STEPS % n == 0 else (CERTIFY_STEPS // n) * n
+        steps, intervals = next((st, ns) for group, st, ns in CERTIFY_INTERVALS
+                                if res in group.split(","))
+        for n in intervals:
+            n_steps = steps if steps % n == 0 else (steps // n) * n
             if n_steps not in exact:
                 exact.add(n_steps)
                 want_dc = add(want_dc, n_steps, per_call[res])
@@ -658,7 +637,7 @@ def sds_run(tmp: str, resolution: str, config: str, steps: int, per_call: tuple)
     t1 = time.perf_counter()
     result = generate_guidance.main([
         "--config", config, "--prompt_dir",
-        prompt_dir(os.path.join(tmp, f"p_sds{w}"), 1, size=(h, w)),
+        prompt_dir(os.path.join(tmp, f"p_sds{w}"), 1),
         "--savedir", os.path.join(tmp, f"sds{w}"), "--resolution", resolution, "--random_init",
         "--bf16", "--num_steps", str(steps), "--debug_save_interval", str(steps),
         "--seed", str(SEED), "--device", "cuda"])
@@ -767,6 +746,7 @@ def finetune_1024(root: str, per_step: tuple, per_pass: tuple) -> dict:
     from dynamicrafter_tpu_torch import export_checkpoint, train
     from dynamicrafter_tpu_torch.config import TrainingConfig
     from dynamicrafter_tpu_torch.pipeline import DynamiCrafterPipeline
+    from dynamicrafter_tpu_torch.training import checkpoints
     from dynamicrafter_tpu_torch.training.trainer import Trainer
 
     dev = torch.device("cuda", 0)
@@ -838,7 +818,8 @@ def finetune_1024(root: str, per_step: tuple, per_pass: tuple) -> dict:
     # (c) export over the fresh pipeline as the donor, --pretrained, --ckpt_path
     donor, exported = os.path.join(root, "donor.ckpt"), os.path.join(root, "model.ckpt")
     t1 = time.perf_counter()
-    torch.save({"state_dict": fresh_sd}, donor)
+    # the donor stands in for a released checkpoint; only torch.load reads it
+    checkpoints.write({"state_dict": fresh_sd}, donor)
     donor_s = time.perf_counter() - t1
     del fresh, fresh_sd
     gc.collect()
@@ -864,7 +845,7 @@ def finetune_1024(root: str, per_step: tuple, per_pass: tuple) -> dict:
         f.write("#version: 0.2\nt h\nth e</w>\ns n\no w</w>")
     n_ckpt, _, ckpt_peak = run_cli("36c inference.main --ckpt_path <exported> 576x1024", [
         "--config", CONFIG_1024, "--prompt_dir",
-        prompt_dir(os.path.join(root, "p1024"), 1, size=(576, 1024)),
+        prompt_dir(os.path.join(root, "p1024"), 1),
         "--savedir", os.path.join(root, "o1024"), "--height", "576", "--width", "1024",
         "--frame_stride", "10", "--timestep_spacing", "uniform_trailing", "--guidance_rescale",
         "0.7", "--perframe_ae", "--bs", "1", "--vocab_path", vocab],
@@ -967,7 +948,6 @@ def sp_rank_main(rank: int, tmp: str) -> int:
     os.chdir(REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fast_checkpoint_io()
     dev = sharding.init_distributed("cuda", os.path.join(tmp, "store"), backend="gloo")
     out = {"rank": rank, "device": str(dev), "backend": torch.distributed.get_backend(),
            "world": torch.distributed.get_world_size()}
@@ -1085,7 +1065,6 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fast_checkpoint_io()
     gen = torch.Generator(device=dev).manual_seed(0)
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
@@ -1536,7 +1515,19 @@ def main() -> int:
         with open(override, "w") as f:
             f.write("lightning:\n  callbacks:\n    batch_logger:\n      params:\n"
                     f"        log_images_kwargs:\n          ddim_steps: {STEPS_SAMPLE}\n")
-        sampled, sample = [], DynamiCrafterPipeline.sample
+        sampled, sample, eval_step = [], DynamiCrafterPipeline.sample, Trainer.eval_step
+        # K3, K4a, K4b, K2, K1 of the samplers' and validations' calls,
+        # counted apart from the micro-steps'
+        no_grad = [0] * len(train_wrappers)
+
+        def outside_micro_steps(fn):
+            def counted(*a, **k):
+                before = counts(*train_wrappers)
+                out = fn(*a, **k)
+                no_grad[:] = [n + c - b for n, b, c in
+                              zip(no_grad, before, counts(*train_wrappers))]
+                return out
+            return counted
 
         def recording(self, *a, **k):
             out = sample(self, *a, **k)
@@ -1544,7 +1535,8 @@ def main() -> int:
             return out
 
         reset(*train_wrappers, flash_bwd_di)
-        DynamiCrafterPipeline.sample = recording
+        DynamiCrafterPipeline.sample = outside_micro_steps(recording)
+        Trainer.eval_step = outside_micro_steps(eval_step)
         try:
             result = train.main([
                 "--config", TRAIN_CONFIG, override, "--synthetic_data", "--bf16",
@@ -1552,9 +1544,10 @@ def main() -> int:
                 "--logdir", logdir, "--name", "smoke", "--log_every", "1",
                 "--sample_every", str(SAMPLE_EVERY), "--val_every", str(SAMPLE_EVERY)])
         finally:
-            DynamiCrafterPipeline.sample = sample
+            DynamiCrafterPipeline.sample, Trainer.eval_step = sample, eval_step
         torch.cuda.synchronize()
-        train_launches = counts(*train_wrappers)
+        no_grad_launches = tuple(no_grad)
+        train_launches = tuple(n - g for n, g in zip(counts(*train_wrappers), no_grad_launches))
         train_di = flash_bwd_di.launches
         train_peak = torch.cuda.max_memory_allocated(dev)
         trainer = result["trainer"]
@@ -1583,13 +1576,12 @@ def main() -> int:
                 for k in trainable if k in fresh_sd) ** 0.5
     del fresh, fresh_sd, trained_sd
     finite = all(np.isfinite(v) for m in hist for v in m.values())
-    # K3, K4a, K4b, K2, K1, di: the micro-steps', then K1 and K2 of the
-    # validations' forwards (no gradient) and of the samplers' UNet calls
+    # K3, K4a, K4b, K2, K1: the micro-steps', and apart from them K2 and K1
+    # of the validations' forwards and the samplers' UNet calls (no gradient)
     sample_steps = list(range(SAMPLE_EVERY, TRAIN_STEPS + 1, SAMPLE_EVERY))
     no_grad_calls = len(sample_steps) * (1 + STEPS_SAMPLE)
-    expect_9 = (*(TRAIN_STEPS * c for c in per_step[:3]),
-                TRAIN_STEPS * per_step[3] + no_grad_calls * per_call[1],
-                TRAIN_STEPS * per_step[4] + no_grad_calls * per_call[0], TRAIN_STEPS * di_per_step)
+    expect_9 = tuple(TRAIN_STEPS * c for c in per_step)
+    expect_no_grad = (0, 0, 0, no_grad_calls * per_call[1], no_grad_calls * per_call[0])
     log(f"[9] train.main {TRAIN_CONFIG} --synthetic_data --bf16, {TRAIN_STEPS} micro-steps "
         f"(accumulation {tc.accumulate_grad_batches}, {updates} optimizer updates): loss " + " ".join(f"{m['loss']:.5f}" for m in hist)
         + " | grad_norm " + " ".join(f"{m['grad_norm']:.4e}" for m in hist)
@@ -1598,11 +1590,12 @@ def main() -> int:
         f"{train_peak / 2**30:.2f} GiB | trainable weights moved by L2 {delta:.4e} "
         f"({len(moved)}/{n_trainable} tensors; AdamW steps below half an fp32 ulp vanish), "
         f"frozen unchanged {frozen_same} | checkpoint step {saved_step} "
-        f"{ckpt_bytes / 2**30:.2f} GiB reloads equal {reloaded} | launches K3 "
-        f"{train_launches[0]} K4a {train_launches[1]} K4b {train_launches[2]} K2 "
+        f"{ckpt_bytes / 2**30:.2f} GiB reloads equal {reloaded} | launches of the micro-steps "
+        f"K3 {train_launches[0]} K4a {train_launches[1]} K4b {train_launches[2]} K2 "
         f"{train_launches[3]} K1 {train_launches[4]} di pre-pass {train_di} (expected "
-        f"{expect_9}: {TRAIN_STEPS} micro-steps x {per_step}, and the validations' forwards and "
-        f"the samplers' UNet calls at {per_call} each) | --val_every {SAMPLE_EVERY}: val/loss "
+        f"{TRAIN_STEPS} x {per_step}, {TRAIN_STEPS * di_per_step}); of the validations' "
+        f"forwards and the samplers' UNet calls {no_grad_launches} (expected {expect_no_grad}: "
+        f"{no_grad_calls} calls at {per_call} each) | --val_every {SAMPLE_EVERY}: val/loss "
         + " ".join(f"step {k} {v:.5f}" for k, v in val_rows)
         + f" | --sample_every {SAMPLE_EVERY} (ddim_steps {STEPS_SAMPLE} from the config): "
         f"samples {sampled} (shape, finite), {len(sample_files)} files "
@@ -1619,8 +1612,10 @@ def main() -> int:
     check(delta > 0 and len(moved) >= n_trainable // 2, "trainable weights did not move")
     check(frozen_same, "a frozen weight changed")
     check(saved_step == TRAIN_STEPS and reloaded, "checkpoint missing or does not reload")
-    check(train_launches == expect_9[:5] and train_di == expect_9[5],
-          f"launches {train_launches}, di {train_di} != {expect_9}")
+    check(train_launches == expect_9 and train_di == TRAIN_STEPS * di_per_step,
+          f"micro-step launches {train_launches}, di {train_di} != {expect_9}")
+    check(no_grad_launches == expect_no_grad,
+          f"validation and sample launches {no_grad_launches} != {expect_no_grad}")
     phase_s["9"] = time.perf_counter() - t0
     median_9 = float(np.median(secs))
     del result, trainer, hist, secs
@@ -1805,7 +1800,7 @@ def main() -> int:
         t0 = time.perf_counter()
         launches_256, _, peak_256 = run_cli("13 slice 256x256 --bs 8", [
             "--config", CONFIG_256, "--prompt_dir",
-            prompt_dir(os.path.join(tmp, "p256"), 8, size=(256, 256)),
+            prompt_dir(os.path.join(tmp, "p256"), 8),
             "--savedir", os.path.join(tmp, "o256"), "--height", "256", "--width", "256",
             "--frame_stride", "3", "--timestep_spacing", "uniform", "--bs", "8"],
             (8, 1, 16, 256, 256, 3), STEPS)
@@ -1851,7 +1846,7 @@ def main() -> int:
         launches_1024, stages_1024, peak_1024_infer = run_cli(
             "14 slice 576x1024 sequential CFG, tiled decode", [
             "--config", CONFIG_1024, "--prompt_dir",
-            prompt_dir(os.path.join(tmp, "p1024"), 1, size=(576, 1024)),
+            prompt_dir(os.path.join(tmp, "p1024"), 1),
             "--savedir", os.path.join(tmp, "o1024"), "--height", "576", "--width", "1024",
             "--frame_stride", "10", "--timestep_spacing", "uniform_trailing",
             "--guidance_rescale", "0.7", "--perframe_ae", "--bs", "1"],
@@ -1861,6 +1856,13 @@ def main() -> int:
         check(launches_1024 == tuple(STEPS_1024 * 2 * c for c in per_pass_1024),
               f"launches on the 1024 slice {launches_1024} != {STEPS_1024} steps x 2 passes "
               f"x {per_pass_1024}")
+        fit_s = {}
+        for size in ((576, 1024), (256, 256)):
+            t1 = time.perf_counter()
+            load_image(os.path.join(PROMPTS, "example.png"), size)
+            fit_s[size] = time.perf_counter() - t1
+        log("[14] load_image of the 320x512 example on the host (a prompt image each run): "
+            + ", ".join(f"to {h}x{w} {sec:.4f}s" for (h, w), sec in fit_s.items()))
         phase_s["14"] = time.perf_counter() - t0
 
         # -- phase 15: interpolation and looping on the 320x512 model -----------
@@ -2782,7 +2784,7 @@ def main() -> int:
         result = train.main([
             "--base", TRAIN_CONFIG_INTERP, "--train", "--synthetic_data", "--bf16",
             "--max_steps", str(TRAIN_STEPS_INTERP), "--loader", "processes", "--profile_steps",
-            "1", "--log_every", "1", "--device", "cuda", "--seed", str(SEED), "--logdir",
+            "2", "--log_every", "1", "--device", "cuda", "--seed", str(SEED), "--logdir",
             logdir, "--name", "training_512_interp"])
         torch.cuda.synchronize()
         interp_launches = counts(*train_wrappers)
@@ -2801,14 +2803,14 @@ def main() -> int:
     finite = all(np.isfinite(v) for m in hist for v in m.values())
     unprofiled = secs[1:10]
     log(f"[29] train.main {TRAIN_CONFIG_INTERP} --synthetic_data --bf16 --loader processes "
-        f"--profile_steps 1, {TRAIN_STEPS_INTERP} micro-steps: interp_mode and not "
+        f"--profile_steps 2, {TRAIN_STEPS_INTERP} micro-steps: interp_mode and not "
         f"rand_cond_frame {interp_on} | loss " + " ".join(f"{m['loss']:.5f}" for m in hist)
         + " | grad_norm " + " ".join(f"{m['grad_norm']:.4e}" for m in hist)
         + " | s/micro-step " + " ".join(f"{s:.3f}" for s in secs)
         + f" (median of micro-steps 2-10 {np.median(unprofiled):.3f}, phase 9's "
         f"training_512_v1.0 median {median_9:.3f}) on {smi} | peak allocated "
         f"{interp_peak / 2**30:.2f} GiB | {len(pids)} loader workers, PIDs {list(pids)} (this "
-        f"process {os.getpid()}); /dev/shm: {shm} | trace of micro-step 10 {trace_mb:.1f} MB "
+        f"process {os.getpid()}); /dev/shm: {shm} | trace of micro-steps 10-11 {trace_mb:.1f} MB "
         "names " + " ".join(f"{k} {v}" for k, v in traced.items())
         + f" | launches K3 {interp_launches[0]} K4a {interp_launches[1]} K4b "
         f"{interp_launches[2]} K2 {interp_launches[3]} K1 {interp_launches[4]} di pre-pass "
@@ -2908,7 +2910,7 @@ def main() -> int:
             zbatches = [{"video": torch.rand(bsz, t_len, hh, ww, 3, device=dev,
                                              generator=zgen) * 2 - 1,
                          "tokens": tokens, "fs": torch.full((bsz,), 8.0, device=dev)}
-                        for _ in range(TRAIN_STEPS_DP)]
+                        for _ in range(TRAIN_STEPS)]
 
             def rel_l2(got, want):
                 """Relative L2 over lists of tensors, on the device of `want`
@@ -3013,7 +3015,7 @@ def main() -> int:
                                                                          mesh_run["metrics"])]
             log(f"[31a] AccumulatingAdamW(mesh=) at world size 1, backend {backend}, "
                 f"{TRAIN_CONFIG} (batch {bsz} x {t_len} at {hh}x{ww}, bf16 autocast, accumulation "
-                f"{zcfg.accumulate_grad_batches}, EMA on), {TRAIN_STEPS_DP} micro-steps from the "
+                f"{zcfg.accumulate_grad_batches}, EMA on), {TRAIN_STEPS} micro-steps from the "
                 f"same weights, batches and draws as the plain optimizer: relative L2 against "
                 f"plain "
                 + " ".join(f"{k} {v:.3e}" for k, v in mesh_run["rel"].items())
@@ -3048,14 +3050,14 @@ def main() -> int:
             check(mesh_run["save_calls"] == {"all_gather": gathered * mesh_run["buckets"],
                                              "barrier": 1},
                   f"the ZeRO checkpoint's collectives {mesh_run['save_calls']}")
-            check(mesh_run["adam_steps"] == TRAIN_STEPS_DP // zcfg.accumulate_grad_batches,
+            check(mesh_run["adam_steps"] == TRAIN_STEPS // zcfg.accumulate_grad_batches,
                   f"{mesh_run['adam_steps']} AdamW steps")
             check(all(c.get("reduce_scatter") == mesh_run["buckets"] for c in mesh_run["calls"])
                   and [c.get("all_gather", 0) for c in mesh_run["calls"]]
-                  == [0, mesh_run["buckets"]] * (TRAIN_STEPS_DP // 2),
+                  == [0, mesh_run["buckets"]] * (TRAIN_STEPS // 2),
                   f"collective calls per micro-step {mesh_run['calls']}")
             check(mesh_run["launches"] == plain_run["launches"]
-                  == tuple(TRAIN_STEPS_DP * c for c in (*per_step, di_per_step)),
+                  == tuple(TRAIN_STEPS * c for c in (*per_step, di_per_step)),
                   f"launches plain {plain_run['launches']} mesh {mesh_run['launches']}")
 
             # (b) train.main --dp 1 under a torchrun environment (the plain
@@ -3339,7 +3341,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=REPO) as tmp:
         runs_1024 = sampler_runs("33 576x1024 --bs 1 sequential CFG", tmp, [
             "--config", CONFIG_1024, "--prompt_dir",
-            prompt_dir(os.path.join(tmp, "p"), 1, size=(576, 1024)),
+            prompt_dir(os.path.join(tmp, "p"), 1),
             "--height", "576", "--width", "1024", "--frame_stride", "10", "--timestep_spacing",
             "uniform_trailing", "--guidance_rescale", "0.7", "--perframe_ae", "--bs", "1"],
             (1, 1, 16, 576, 1024, 3), "uniform_trailing", per_pass_1024, shallow_1024, passes=2)
@@ -3356,7 +3358,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=REPO) as tmp:
         runs_256 = sampler_runs("34 256x256 --bs 8 batched CFG", tmp, [
             "--config", CONFIG_256, "--prompt_dir",
-            prompt_dir(os.path.join(tmp, "p"), 8, size=(256, 256)),
+            prompt_dir(os.path.join(tmp, "p"), 8),
             "--height", "256", "--width", "256", "--frame_stride", "3", "--timestep_spacing",
             "uniform", "--bs", "8"], (8, 1, 16, 256, 256, 3), "uniform", per_call_256,
             shallow_256, passes=1)
@@ -3407,6 +3409,7 @@ def main() -> int:
     sources = {
         "flash_fwd": (src + "flash_attention.cu", tpu + "flash_attention.py:161", launches[0],
                       {"inference_512": launches[0], "train_512": train_launches[4],
+                       "train_512_val_samples": no_grad_launches[4],
                        "inference_256_bs8": launches_256[0],
                        "inference_1024": launches_1024[0],
                        **{f"inference_512_{k}": n[0] for k, (n, _, _) in runs_512.items()},
@@ -3419,6 +3422,7 @@ def main() -> int:
         "small_t_fwd_tmajor": (src + "small_attention.cu", tpu + "small_attention.py:134",
                                launches[1],
                                {"inference_512": launches[1], "train_512": train_launches[3],
+                                "train_512_val_samples": no_grad_launches[3],
                                 "inference_256_bs8": launches_256[1],
                                 "inference_1024": launches_1024[1],
                                 "train_1024_per_micro_step": per_step_1024[3],

@@ -266,8 +266,8 @@ class DataLoader:
         identical on every host, which keeps the shards disjoint;
       * `skip_batches` drops the first batches of the stream, so that a
         resumed run takes the batches the interrupted one had not reached
-        (the map-style path skips index batches, reading nothing; the
-        iterable path reads and drops them).
+        (index batches are skipped, nothing is read; an iterable dataset,
+        whose stream could only be replayed, raises ValueError).
     """
 
     def __init__(self, dataset, batch_size: int, tokenizer=None,
@@ -277,6 +277,9 @@ class DataLoader:
                  max_epochs: Optional[int] = None, skip_batches: int = 0):
         if not 0 <= shard_id < num_shards:
             raise ValueError(f"shard_id {shard_id} outside [0, {num_shards})")
+        if skip_batches and isinstance(dataset, IterableVideoDataset):
+            raise ValueError("skip_batches needs a map-style dataset: an "
+                             "IterableVideoDataset would read every skipped sample")
         self.dataset = dataset
         self.batch_size = batch_size
         self.tokenizer = tokenizer
@@ -367,7 +370,7 @@ class DataLoader:
         from concurrent.futures import ThreadPoolExecutor
 
         if isinstance(self.dataset, IterableVideoDataset):
-            yield from itertools.islice(self._iter_iterable(), self.skip_batches, None)
+            yield from self._iter_iterable()
             return
 
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:

@@ -84,7 +84,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
     args = get_parser().parse_args(argv)
     from dynamicrafter_tpu_torch.utils.weights import normalize_state_dict
 
-    state = torch.load(args.params, map_location="cpu", weights_only=True)
+    # mapped: of the training checkpoint only the exported weights are read,
+    # not the optimizer state beside them
+    state = torch.load(args.params, map_location="cpu", weights_only=True, mmap=True)
     if args.ema:
         if state.get("ema") is None:
             raise SystemExit("--ema: checkpoint has no EMA shadow params")

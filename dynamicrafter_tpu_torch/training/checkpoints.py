@@ -14,6 +14,13 @@ directory early. What is in the directory is rank 0's word: `latest_step`
 gives rank 0's on every rank, so that every rank decides alike whether to
 save or resume, and `restore` raises on every rank if one of them does not
 see the file that rank 0 names (a --logdir the ranks do not share).
+
+A checkpoint is written without a CRC32 of each record and through pinned
+host buffers (`write`): only `torch.load` reads it (`restore`,
+`export_checkpoint`), which does not check the CRC, and computing it and the
+pageable copies off the device cost seconds a checkpoint of tens of GB.
+`restore` maps the file rather than reading it. An exported checkpoint keeps
+`torch.save`'s CRCs: the JAX package's torch-free reader checks them.
 """
 from __future__ import annotations
 
@@ -28,6 +35,15 @@ import torch
 from dynamicrafter_tpu_torch.parallel.sharding import Mesh, barrier, gather_objects
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
+
+
+def write(state, path: str) -> None:
+    """`torch.save` as checkpoints are written here: no CRC32 of each
+    record, device tensors copied through pinned host buffers."""
+    from torch.utils.serialization import config
+
+    with config.patch({"save.compute_crc32": False, "save.use_pinned_memory_for_d2h": True}):
+        torch.save(state, path)
 
 
 class CheckpointManager:
@@ -76,7 +92,7 @@ class CheckpointManager:
 
     def _write(self, path: str, step: int, state: dict, metrics: Optional[dict]) -> None:
         tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(state, tmp)
+        write(state, tmp)
         os.replace(tmp, path)
         index = self._index()
         index[str(step)] = {k: float(v) for k, v in (metrics or {}).items()}
@@ -113,7 +129,8 @@ class CheckpointManager:
                     f"ranks {[r for r, s in enumerate(seen) if not s]} do not see {path}, which "
                     "rank 0 wrote: to resume, every rank needs the same checkpoint directory "
                     "(a --logdir on a filesystem that all ranks share)")
-        return torch.load(path, map_location="cpu", weights_only=True)
+        # mapped, not read: the caller copies the records it uses
+        return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
 
 
 def load_trained_weights(pipe, state: dict) -> None:

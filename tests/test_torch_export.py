@@ -173,3 +173,17 @@ def test_a_tensor_the_donor_does_not_hold_is_an_error(run, tmp_path, base):
         with pytest.raises(error, match=match):
             export_checkpoint.main(["--config", run["cfg"], "--params", str(path), *flags,
                                     "--out", str(tmp_path / "m.ckpt")])
+
+
+def test_export_reads_without_torch(run, tmp_path):
+    """The exported file keeps `torch.save`'s CRC32 of each record (training
+    checkpoints are written without it): the JAX package's torch-free reader,
+    which checks each record's CRC, reads the tensors `torch.load` reads."""
+    from dynamicrafter_tpu.utils.torch_reader import load_torch_checkpoint
+
+    out = tmp_path / "model.ckpt"
+    sd = _export(run, out)
+    got = load_torch_checkpoint(str(out))["state_dict"]
+    assert set(got) == set(sd)
+    for k, v in sd.items():
+        np.testing.assert_array_equal(got[k], v.numpy(), err_msg=k)

@@ -155,10 +155,10 @@ def test_png_loader_matches_pillow():
     np.testing.assert_array_equal(ours, ref)
 
 
-@pytest.mark.parametrize("size", [(256, 256), (96, 160)])
+@pytest.mark.parametrize("size", [(256, 256), (96, 160), (576, 1024)])
 def test_png_loader_resize_close_to_pillow(size):
-    """Downscaled: Pillow's BILINEAR filter, to within 2 uint8 levels
-    (Pillow rounds its fixed-point filter taps)."""
+    """Downscaled and upscaled: Pillow's BILINEAR filter, to within 2 uint8
+    levels (Pillow rounds its fixed-point filter taps)."""
     from dynamicrafter_tpu.utils.video import load_image as pil_load_image
 
     ours = tvideo.load_image(EXAMPLE_PNG, size)

@@ -384,6 +384,29 @@ def test_checkpoint_manager_retention(tmp_path):
     assert CheckpointManager(str(tmp_path / "c")).restore() is None
 
 
+def test_checkpoint_written_without_crc32(tmp_path):
+    """A checkpoint's records carry no CRC32 and `restore` reads them back
+    exactly; the process's own `torch.save` settings are left as they were."""
+    import zipfile
+
+    from torch.utils.serialization import config
+
+    before = config.save.compute_crc32, config.save.use_pinned_memory_for_d2h
+    w = torch.randn(64, 32, generator=torch.Generator().manual_seed(0))
+    state = {"step": 3, "weights": {"w": w}}
+    m = CheckpointManager(str(tmp_path))
+    path = m.save(3, state)
+    assert (config.save.compute_crc32, config.save.use_pinned_memory_for_d2h) == before
+    with zipfile.ZipFile(path) as z:
+        data = [i for i in z.infolist() if i.filename.split("/")[-2] == "data"]
+    assert data and all(i.CRC == 0 for i in data)
+    back = m.restore()
+    assert back["step"] == 3 and torch.equal(back["weights"]["w"], w)
+    torch.save(state, tmp_path / "default.pt")
+    with zipfile.ZipFile(tmp_path / "default.pt") as z:
+        assert any(i.CRC != 0 for i in z.infolist() if i.filename.split("/")[-2] == "data")
+
+
 def _tiny_train_yaml(tmp_path):
     cfg = copy.deepcopy(TINY_MODEL_CONFIG)
     p = cfg["model"]["params"]

@@ -209,14 +209,16 @@ class _RangeIterable(IterableVideoDataset):
 @pytest.mark.parametrize("kind", ["threads", "processes", "iterable"])
 def test_skip_batches_starts_the_stream_later(kind):
     """`skip_batches=k` gives the stream without its first k batches, past
-    an epoch's end and on a shard, for both loaders and an iterable
-    dataset (what a resumed training run reads)."""
+    an epoch's end and on a shard, for both loaders (what a resumed training
+    run reads); an iterable dataset, which could only replay its stream,
+    raises."""
     if kind == "iterable":
-        make = lambda **kw: DataLoader(_RangeIterable(num_records=12), batch_size=2,
-                                       tokenizer=HashTokenizer(), num_workers=2, **kw)
-    else:
-        cls = DataLoader if kind == "threads" else ProcessDataLoader
-        make = lambda **kw: _loader(cls, 1, 2, **kw)
+        with pytest.raises(ValueError, match="map-style"):
+            DataLoader(_RangeIterable(num_records=12), batch_size=2,
+                       tokenizer=HashTokenizer(), skip_batches=3)
+        return
+    cls = DataLoader if kind == "threads" else ProcessDataLoader
+    make = lambda **kw: _loader(cls, 1, 2, **kw)
     whole = _take(make(), N_BATCHES)
     tail = _take(make(skip_batches=3), N_BATCHES - 3)
     assert [b["captions"] for b in tail] == [b["captions"] for b in whole[3:]]
