@@ -39,6 +39,7 @@ from torch import Tensor
 from dynamicrafter_tpu_torch.ops import kernels
 from dynamicrafter_tpu_torch.ops.flash_attention import (
     _heads, _unheads, check_qkv, flash_fwd, flash_fwd_plain)
+from dynamicrafter_tpu_torch.utils import trace
 
 # the C entry point's mode codes (dct::SoftmaxMode in csrc/flash_tile.cuh)
 MODES = {"exp2": 0, "exp": 1, "nosoftmax": 2}
@@ -81,7 +82,8 @@ def run_variant(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float,
     check_qkv("run_variant", q, k, v, heads)
     n, lq, _ = q.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with trace.span("K10", n=n, lq=lq, lk=k.shape[1], heads=heads, mode=mode), \
+            torch.cuda.device(q.device):
         code = kernels.library().dct_flash_variant(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             kernels.DTYPE_CODES[q.dtype], MODES[mode], n, lq, k.shape[1], heads,

@@ -19,6 +19,7 @@ from torch import Tensor
 
 from dynamicrafter_tpu_torch.ops import kernels
 from dynamicrafter_tpu_torch.ops.flash_attention import check_qkv, flash_fwd_plain
+from dynamicrafter_tpu_torch.utils import trace
 
 
 def flash_attention_pairs(q: Tensor, k: Tensor, v: Tensor, heads: int,
@@ -29,7 +30,8 @@ def flash_attention_pairs(q: Tensor, k: Tensor, v: Tensor, heads: int,
     check_qkv("flash_attention_pairs", q, k, v, heads)
     n, lq, _ = q.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with trace.span("K9", n=n, lq=lq, lk=k.shape[1], heads=heads), \
+            torch.cuda.device(q.device):
         code = kernels.library().dct_flash_fwd_pairs(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             kernels.DTYPE_CODES[q.dtype], n, lq, k.shape[1], heads,

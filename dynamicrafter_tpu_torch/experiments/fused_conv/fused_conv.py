@@ -40,6 +40,7 @@ import torch
 from torch import Tensor
 
 from dynamicrafter_tpu_torch.ops import kernels
+from dynamicrafter_tpu_torch.utils import trace
 
 MAX_TILE_PIXELS = 128   # output pixels per block of csrc/fused_conv.cu
 PIXEL_GROUPS = 16       # fp32: a thread owns every 16th pixel of the tile
@@ -245,7 +246,8 @@ def gn_stats(x: Tensor, gn_scale: Tensor, gn_bias: Tensor, emb: Optional[Tensor]
     # scale, bias and the per-split partial sums in one allocation
     buf = torch.empty(2 * n * c + n * splits * groups * 2, dtype=torch.float32, device=x.device)
     scale, shift, part = buf[:n * c].view(n, c), buf[n * c:2 * n * c].view(n, c), buf[2 * n * c:]
-    with torch.cuda.device(x.device):
+    with trace.span("gn_stats", n=n, hw=h * w, c=c), \
+            torch.cuda.device(x.device):
         code = kernels.library().dct_gn_stats(
             x.data_ptr(), gs.data_ptr(), gb.data_ptr(), None if emb is None else emb.data_ptr(),
             part.data_ptr(), scale.data_ptr(), shift.data_ptr(), kernels.DTYPE_CODES[x.dtype],
@@ -283,7 +285,8 @@ def fused_gn_silu_conv(x: Tensor, kernel: Tensor, bias: Tensor, gn_scale: Tensor
         (th, tw), stats = pick_tile(h, w), (None, None)
     gs, gb = gn_scale.float().contiguous(), gn_bias.float().contiguous()
     out = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    with trace.span("K7", n=n, h=h, w=w, c=c, co=co), \
+            torch.cuda.device(x.device):
         code = kernels.library().dct_fused_gn_silu_conv(
             x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), gs.data_ptr(), gb.data_ptr(),
             None if emb is None else emb.data_ptr(), out.data_ptr(),

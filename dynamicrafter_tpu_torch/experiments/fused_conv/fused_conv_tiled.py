@@ -33,6 +33,7 @@ from dynamicrafter_tpu_torch.experiments.fused_conv.fused_conv import (
     MAX_TILE_PIXELS, check_conv_operands, conv3x3_plain, gn_stats, gn_stats_plain, pick_tile,
     pick_tile_tc, tensor_core_route)
 from dynamicrafter_tpu_torch.ops import kernels
+from dynamicrafter_tpu_torch.utils import trace
 
 
 def gn_prepass(x: Tensor, gn_scale: Tensor, gn_bias: Tensor, emb: Optional[Tensor],
@@ -87,7 +88,8 @@ def fused_gn_silu_conv_tiled(x: Tensor, kernel: Tensor, bias: Tensor, gn_scale: 
         xin, scale, shift = gn_prepass(x, gn_scale, gn_bias, emb, groups, eps)
         (th, tw), e = pick_tile(h, w, tile_h), None
     out = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    with trace.span("K8", n=n, h=h, w=w, c=c, co=co), \
+            torch.cuda.device(x.device):
         code = kernels.library().dct_fused_gn_silu_conv_tiled(
             xin.data_ptr(), scale.data_ptr(), shift.data_ptr(), kernel.data_ptr(),
             bias.data_ptr(), out.data_ptr(), kernels.DTYPE_CODES[x.dtype], n, h, w, c, co,

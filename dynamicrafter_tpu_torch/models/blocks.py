@@ -32,6 +32,7 @@ from dynamicrafter_tpu_torch.ops.attention import attention_axis1, dot_product_a
 from dynamicrafter_tpu_torch.ops.norms import ClipGroupNorm, GroupNorm, LayerNorm
 from dynamicrafter_tpu_torch.parallel import sharding
 from dynamicrafter_tpu_torch.parallel.sharding import FrameSplit
+from dynamicrafter_tpu_torch.utils import trace
 
 Context = Optional[Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]]
 # (text context (B, Lt, Cc), image context (B, T, Li, Cc) or None)
@@ -220,13 +221,14 @@ class SpatialTransformer(nn.Module):
         self.proj_out = proj(inner, in_channels)
 
     def forward(self, x: torch.Tensor, context: Context, t: int) -> torch.Tensor:
-        bt, c, h, w = x.shape
-        y = self.norm(x).flatten(2).transpose(1, 2).reshape(bt // t, t, h * w, c)
-        y = _proj(self.proj_in, y)
-        for block in self.transformer_blocks:
-            y = block(y, context=context)
-        y = _proj(self.proj_out, y)
-        return y.reshape(bt, h * w, c).transpose(1, 2).reshape(bt, c, h, w) + x
+        with trace.span("spatial"):
+            bt, c, h, w = x.shape
+            y = self.norm(x).flatten(2).transpose(1, 2).reshape(bt // t, t, h * w, c)
+            y = _proj(self.proj_in, y)
+            for block in self.transformer_blocks:
+                y = block(y, context=context)
+            y = _proj(self.proj_out, y)
+            return y.reshape(bt, h * w, c).transpose(1, 2).reshape(bt, c, h, w) + x
 
 
 class TemporalTransformer(nn.Module):
@@ -258,37 +260,38 @@ class TemporalTransformer(nn.Module):
         self.proj_out = proj(inner, in_channels)
 
     def forward(self, x: torch.Tensor, t: int, frames: Optional[FrameSplit] = None) -> torch.Tensor:
-        bt, c, h, w = x.shape
-        b = bt // t
-        if frames is not None:
-            if (h * w) % frames.sp:
-                # HW does not split: gather the clip, run whole, keep this
-                # rank's frames (JAX drops the 'sp' constraint here)
-                whole = sharding.sp_gather_frames(x.view(b, t, c, h, w), frames)
-                y = self.forward(whole.reshape(b * frames.t, c, h, w), frames.t)
-                return frames.slice(y.view(b, frames.t, c, h, w)).reshape(bt, c, h, w)
-        # under sp, JAX's order: the norm on this rank's frames with the
-        # clip's statistics, the all-to-all to every frame of HW/sp positions
-        # (K2 reads that layout in place), the blocks, the all-to-all back
-        y = self.norm(x.view(b, t, c, h * w).transpose(1, 2), frames)   # (B, C, T', HW)
-        y = y.permute(0, 2, 3, 1)                                # (B, T', HW, C)
-        if frames is not None:
-            y = sharding.frames_to_tokens(y, frames)             # (B, T, HW/sp, C)
-            t = frames.t
-        if not self.time_major:
-            y = y.transpose(1, 2)                                # (B, HW, T, C)
-        y = _proj(self.proj_in, y)
-        mask = None
-        if self.causal_attention:
-            mask = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
-        for block in self.transformer_blocks:
-            y = block(y, mask=mask)
-        y = _proj(self.proj_out, y)
-        if not self.time_major:
-            y = y.transpose(1, 2)                                # (B, T, HW, C)
-        if frames is not None:
-            y = sharding.tokens_to_frames(y, frames)             # (B, T/sp, HW, C)
-        return y.transpose(2, 3).reshape(bt, c, h, w) + x
+        with trace.span("temporal"):
+            bt, c, h, w = x.shape
+            b = bt // t
+            if frames is not None:
+                if (h * w) % frames.sp:
+                    # HW does not split: gather the clip, run whole, keep this
+                    # rank's frames (JAX drops the 'sp' constraint here)
+                    whole = sharding.sp_gather_frames(x.view(b, t, c, h, w), frames)
+                    y = self.forward(whole.reshape(b * frames.t, c, h, w), frames.t)
+                    return frames.slice(y.view(b, frames.t, c, h, w)).reshape(bt, c, h, w)
+            # under sp, JAX's order: the norm on this rank's frames with the
+            # clip's statistics, the all-to-all to every frame of HW/sp positions
+            # (K2 reads that layout in place), the blocks, the all-to-all back
+            y = self.norm(x.view(b, t, c, h * w).transpose(1, 2), frames)   # (B, C, T', HW)
+            y = y.permute(0, 2, 3, 1)                                # (B, T', HW, C)
+            if frames is not None:
+                y = sharding.frames_to_tokens(y, frames)             # (B, T, HW/sp, C)
+                t = frames.t
+            if not self.time_major:
+                y = y.transpose(1, 2)                                # (B, HW, T, C)
+            y = _proj(self.proj_in, y)
+            mask = None
+            if self.causal_attention:
+                mask = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+            for block in self.transformer_blocks:
+                y = block(y, mask=mask)
+            y = _proj(self.proj_out, y)
+            if not self.time_major:
+                y = y.transpose(1, 2)                                # (B, T, HW, C)
+            if frames is not None:
+                y = sharding.tokens_to_frames(y, frames)             # (B, T/sp, HW, C)
+            return y.transpose(2, 3).reshape(bt, c, h, w) + x
 
 
 def _to_clip(x: torch.Tensor, t: int) -> torch.Tensor:
@@ -398,20 +401,21 @@ class ResBlock(nn.Module):
                 frames: Optional[FrameSplit] = None) -> torch.Tensor:
         """x: (B*T, C, H, W); emb: (B, E), shared by the T frames of a clip.
         `frames` reaches the temporal convs."""
-        if self.resample is not None:
-            h = self.resample(self.in_layers[:2](x))
-            x = self.resample(x)
-            h = self.in_layers[2](h)
-        else:
-            h = self.in_layers(x)
-        emb_out = self.emb_layers(emb).to(h.dtype)[:, None].expand(-1, t, -1)
-        emb_out = emb_out.reshape(h.shape[0], -1, 1, 1)
-        if self.use_scale_shift_norm:
-            scale, shift = emb_out.chunk(2, dim=1)
-            h = self.out_layers[1:](self.out_layers[0](h) * (1 + scale) + shift)
-        else:
-            h = self.out_layers(h + emb_out)
-        h = self.skip_connection(x) + h
-        if self.temopral_conv is not None:
-            h = self.temopral_conv(h, t, frames)
-        return h
+        with trace.span("resblock"):
+            if self.resample is not None:
+                h = self.resample(self.in_layers[:2](x))
+                x = self.resample(x)
+                h = self.in_layers[2](h)
+            else:
+                h = self.in_layers(x)
+            emb_out = self.emb_layers(emb).to(h.dtype)[:, None].expand(-1, t, -1)
+            emb_out = emb_out.reshape(h.shape[0], -1, 1, 1)
+            if self.use_scale_shift_norm:
+                scale, shift = emb_out.chunk(2, dim=1)
+                h = self.out_layers[1:](self.out_layers[0](h) * (1 + scale) + shift)
+            else:
+                h = self.out_layers(h + emb_out)
+            h = self.skip_connection(x) + h
+            if self.temopral_conv is not None:
+                h = self.temopral_conv(h, t, frames)
+            return h

@@ -21,6 +21,11 @@ lse) across the boundary (`flash_residual_policy`, the JAX package's
 K3 runs once per spatial self-attention per step. Without gradients (the
 sampler) nothing is checkpointed.
 
+Each call is a span `unet` (`utils/trace.py`); each ResBlock,
+SpatialTransformer and TemporalTransformer (`init_attn` too) opens its
+span `resblock`, `spatial` or `temporal` in its own forward, so the
+recomputation of a checkpointed layer in the backward pass opens it again.
+
 The sp axis: under `parallel.sharding.use_frames(split)` x holds this
 rank's T/sp frames of each clip and the output is this rank's frames (the
 JAX UNet's T on 'sp', models/unet3d.py:284,339). Every layer runs with the
@@ -52,6 +57,7 @@ from dynamicrafter_tpu_torch.models.blocks import (
 )
 from dynamicrafter_tpu_torch.ops.norms import GroupNorm
 from dynamicrafter_tpu_torch.parallel.sharding import active_frames
+from dynamicrafter_tpu_torch.utils import trace
 
 
 def flash_residual_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -265,57 +271,59 @@ class UNetModel(nn.Module):
 
         Under an active frame split x (and `cache`) hold this rank's frames
         and context_img the whole clip's (this rank's frames are taken)."""
-        cfg = self.config
-        dtype = self.dtype
-        b, t, hh, ww, cin = x.shape
-        frames = active_frames()
-        if frames is not None:
-            if t != frames.local:
-                raise ValueError(f"x holds {t} frames; this rank's of the split clip are "
-                                 f"{frames.local}")
+        with trace.span("unet", rows=x.shape[0], shallow=cache is not None):
+            cfg = self.config
+            dtype = self.dtype
+            b, t, hh, ww, cin = x.shape
+            frames = active_frames()
+            if frames is not None:
+                if t != frames.local:
+                    raise ValueError(f"x holds {t} frames; this rank's of the split clip are "
+                                     f"{frames.local}")
+                if context_img is not None:
+                    context_img = frames.slice(context_img)
+            n_top_in = 1 + cfg.num_res_blocks
+            n_top_out = cfg.num_res_blocks + 1
+            if (cache is not None or return_cache) and len(cfg.channel_mult) < 2:
+                raise ValueError("DeepCache needs >=2 UNet levels")
+            h = x.to(dtype).permute(0, 1, 4, 2, 3).reshape(b * t, cin, hh, ww)
+            if context_text is not None:
+                context_text = context_text.to(dtype)
             if context_img is not None:
-                context_img = frames.slice(context_img)
-        n_top_in = 1 + cfg.num_res_blocks
-        n_top_out = cfg.num_res_blocks + 1
-        if (cache is not None or return_cache) and len(cfg.channel_mult) < 2:
-            raise ValueError("DeepCache needs >=2 UNet levels")
-        h = x.to(dtype).permute(0, 1, 4, 2, 3).reshape(b * t, cin, hh, ww)
-        if context_text is not None:
-            context_text = context_text.to(dtype)
-        if context_img is not None:
-            context_img = context_img.to(dtype)
-        context = (context_text, context_img)
+                context_img = context_img.to(dtype)
+            context = (context_text, context_img)
 
-        emb = self.time_embed(sched.timestep_embedding(timesteps, cfg.model_channels).to(dtype))
-        if cfg.fs_condition:
-            if fs is None:
-                fs = torch.full((b,), cfg.default_fs, dtype=torch.long, device=x.device)
-            emb = emb + self.fps_embedding(
-                sched.timestep_embedding(fs, cfg.model_channels).to(dtype))
+            emb = self.time_embed(
+                sched.timestep_embedding(timesteps, cfg.model_channels).to(dtype))
+            if cfg.fs_condition:
+                if fs is None:
+                    fs = torch.full((b,), cfg.default_fs, dtype=torch.long, device=x.device)
+                emb = emb + self.fps_embedding(
+                    sched.timestep_embedding(fs, cfg.model_channels).to(dtype))
 
-        def frames_last(a: torch.Tensor) -> torch.Tensor:
-            """(B*T, C, h, w) -> (B, T, h, w, C)."""
-            return a.view(b, t, *a.shape[1:]).permute(0, 1, 3, 4, 2)
+            def frames_last(a: torch.Tensor) -> torch.Tensor:
+                """(B*T, C, h, w) -> (B, T, h, w, C)."""
+                return a.view(b, t, *a.shape[1:]).permute(0, 1, 3, 4, 2)
 
-        hs = []
-        in_blocks = self.input_blocks if cache is None else self.input_blocks[:n_top_in]
-        for i, layers in enumerate(in_blocks):
-            h = self._run_layers(layers, h, emb, context, t, frames)
-            if i == 0 and cfg.addition_attention:
-                h = self._call(self.init_attn[0], h, t, frames)
-            hs.append(h)
-        if cache is None:
-            h = self._run_layers(self.middle_block, h, emb, context, t, frames)
-            out_blocks = self.output_blocks
-        else:
-            h = cache.to(dtype).permute(0, 1, 4, 2, 3).flatten(0, 1)
-            out_blocks = self.output_blocks[-n_top_out:]
-        seam = len(out_blocks) - n_top_out
-        cache_out = None
-        for i, layers in enumerate(out_blocks):
-            if i == seam and return_cache:
-                cache_out = frames_last(h)
-            h = torch.cat([h, hs.pop()], dim=1)
-            h = self._run_layers(layers, h, emb, context, t, frames)
-        h = frames_last(self.out(h))
-        return (h, cache_out) if return_cache else h
+            hs = []
+            in_blocks = self.input_blocks if cache is None else self.input_blocks[:n_top_in]
+            for i, layers in enumerate(in_blocks):
+                h = self._run_layers(layers, h, emb, context, t, frames)
+                if i == 0 and cfg.addition_attention:
+                    h = self._call(self.init_attn[0], h, t, frames)
+                hs.append(h)
+            if cache is None:
+                h = self._run_layers(self.middle_block, h, emb, context, t, frames)
+                out_blocks = self.output_blocks
+            else:
+                h = cache.to(dtype).permute(0, 1, 4, 2, 3).flatten(0, 1)
+                out_blocks = self.output_blocks[-n_top_out:]
+            seam = len(out_blocks) - n_top_out
+            cache_out = None
+            for i, layers in enumerate(out_blocks):
+                if i == seam and return_cache:
+                    cache_out = frames_last(h)
+                h = torch.cat([h, hs.pop()], dim=1)
+                h = self._run_layers(layers, h, emb, context, t, frames)
+            h = frames_last(self.out(h))
+            return (h, cache_out) if return_cache else h

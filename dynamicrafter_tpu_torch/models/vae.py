@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dynamicrafter_tpu_torch.ops.norms import GroupNorm
+from dynamicrafter_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,8 +238,9 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """z: (N, h, w, embed_dim) -> frames (N, H, W, out_ch)."""
-        h = z.to(self.dtype).permute(0, 3, 1, 2)
-        return self.decoder(self.post_quant_conv(h)).permute(0, 2, 3, 1)
+        with trace.span("vae_decode", shape=tuple(z.shape)):
+            h = z.to(self.dtype).permute(0, 3, 1, 2)
+            return self.decoder(self.post_quant_conv(h)).permute(0, 2, 3, 1)
 
 
 def decode_tiled(decode_fn, z: torch.Tensor, tile: int = 48, overlap: int = 8,

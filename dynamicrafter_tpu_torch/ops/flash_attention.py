@@ -3,7 +3,8 @@
 The kernel wrappers work on the transpose-free (N, L, H*D) layout. On a
 CUDA tensor each launches its hand-written kernel or raises; on a CPU
 tensor it runs the same function in plain PyTorch. Each counts its kernel
-launches in `.launches`.
+launches in `.launches` and opens a span named for its kernel around the
+launch (`utils/trace.py`; attrs: the launch shape).
 
   * `flash_fwd` (K1, `csrc/flash_attention.cu`): the forward, replacing
     `dynamicrafter_tpu/ops/flash_attention.py::_fwd_kernel_nlhd`. bf16
@@ -45,6 +46,7 @@ import torch
 from torch import Tensor
 
 from dynamicrafter_tpu_torch.ops import kernels
+from dynamicrafter_tpu_torch.utils import trace
 
 HEAD_DIM = 64  # the only head width the kernels take (all shipped configs)
 
@@ -145,7 +147,8 @@ def flash_fwd(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float) -> Tens
     check_qkv("flash_fwd", q, k, v, heads)
     n, lq, _ = q.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with trace.span("K1", n=n, lq=lq, lk=k.shape[1], heads=heads), \
+            torch.cuda.device(q.device):
         code = kernels.library().dct_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             kernels.DTYPE_CODES[q.dtype], n, lq, k.shape[1], heads,
@@ -162,7 +165,8 @@ def flash_fwd_packed(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float) 
     check_qkv("flash_fwd_packed", q, k, v, heads)
     n, lq, _ = q.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with trace.span("K6", n=n, lq=lq, lk=k.shape[1], heads=heads), \
+            torch.cuda.device(q.device):
         code = kernels.library().dct_flash_fwd_packed(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             kernels.DTYPE_CODES[q.dtype], n, lq, k.shape[1], heads,
@@ -181,7 +185,8 @@ def flash_fwd_lse(q: Tensor, k: Tensor, v: Tensor, heads: int,
     n, lq, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((n, heads, lq), device=q.device, dtype=torch.float32)
-    with torch.cuda.device(q.device):
+    with trace.span("K3", n=n, lq=lq, lk=k.shape[1], heads=heads), \
+            torch.cuda.device(q.device):
         code = kernels.library().dct_flash_fwd_lse(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             kernels.DTYPE_CODES[q.dtype], n, lq, k.shape[1], heads,
@@ -218,7 +223,8 @@ def flash_bwd_di(o: Tensor, do: Tensor, heads: int) -> Tensor:
         raise ValueError(f"flash_bwd_di: bad shapes o{tuple(o.shape)} dO{tuple(do.shape)} "
                          f"for {heads} heads of {HEAD_DIM}")
     di = torch.empty((n, heads, lq), device=o.device, dtype=torch.float32)
-    with torch.cuda.device(o.device):
+    with trace.span("di", n=n, lq=lq, heads=heads), \
+            torch.cuda.device(o.device):
         code = kernels.library().dct_flash_bwd_di(
             o.data_ptr(), do.data_ptr(), di.data_ptr(), kernels.DTYPE_CODES[o.dtype], n, lq,
             heads, kernels.stream_handle(o.device))
@@ -237,7 +243,8 @@ def flash_bwd_dq(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor, do: Te
     di = _bwd_di("flash_bwd_dq", q, o, lse, do, heads, di)
     n, lq, _ = q.shape
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with trace.span("K4a", n=n, lq=lq, lk=k.shape[1], heads=heads), \
+            torch.cuda.device(q.device):
         code = kernels.library().dct_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             None if di is None else di.data_ptr(), do.data_ptr(), dq.data_ptr(),
@@ -258,7 +265,8 @@ def flash_bwd_dkv(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor, do: T
     di = _bwd_di("flash_bwd_dkv", q, o, lse, do, heads, di)
     n, lq, _ = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
+    with trace.span("K4b", n=n, lq=lq, lk=k.shape[1], heads=heads), \
+            torch.cuda.device(q.device):
         code = kernels.library().dct_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             None if di is None else di.data_ptr(), do.data_ptr(), dk.data_ptr(),

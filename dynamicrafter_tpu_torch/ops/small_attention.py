@@ -31,7 +31,8 @@ kernels and their XLA references do, but for one: K2's SIMT kernel keeps p
 in fp32 (for fp32 inputs that is their dtype; for bf16 with a head dim
 other than 64 it is one rounding fewer).
 
-Each wrapper counts its kernel launches in `.launches`. When no input needs
+Each wrapper counts its kernel launches in `.launches` and opens the span
+K2 or K5 around the launch (`utils/trace.py`). When no input needs
 a gradient an entry point calls its kernel wrapper directly. Under a
 gradient it goes through `SmallTAttention`, whose forward is the same
 kernel and whose backward is autograd of the plain version on the saved q,
@@ -46,6 +47,7 @@ from typing import Optional
 import torch
 
 from dynamicrafter_tpu_torch.ops import kernels
+from dynamicrafter_tpu_torch.utils import trace
 
 MAX_T = 32
 
@@ -91,7 +93,8 @@ def small_t_fwd_tmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"small_t_fwd_tmajor: B={b}, heads={heads} outside the launch grid")
     out = torch.empty_like(q)
     lib = kernels.library()
-    with torch.cuda.device(q.device):
+    with trace.span("K2", b=b, t=t, g=g, heads=heads), \
+            torch.cuda.device(q.device):
         code = lib.dct_small_t_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             kernels.DTYPE_CODES[q.dtype], b, t, g, heads, d, float(scale),
@@ -135,7 +138,8 @@ def small_t_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"small_t_fwd: G={g}, heads={heads} outside the launch grid")
     out = torch.empty_like(q)
     lib = kernels.library()
-    with torch.cuda.device(q.device):
+    with trace.span("K5", g=g, t=t, heads=heads), \
+            torch.cuda.device(q.device):
         code = lib.dct_small_t_fwd_posmajor(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             kernels.DTYPE_CODES[q.dtype], g, t, heads, d, float(scale),

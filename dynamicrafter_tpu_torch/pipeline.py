@@ -14,7 +14,6 @@ device; every random draw comes from an explicit torch.Generator.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -50,6 +49,7 @@ from dynamicrafter_tpu_torch.sampling.ddim import (
 )
 from dynamicrafter_tpu_torch.sampling.dpm import dpm_sample
 from dynamicrafter_tpu_torch.sampling.unipc import unipc_sample
+from dynamicrafter_tpu_torch.utils import trace
 from dynamicrafter_tpu_torch.utils.tokenizer import HashTokenizer, default_tokenizer
 from dynamicrafter_tpu_torch.utils.weights import (
     init_normal_,
@@ -276,15 +276,19 @@ class DynamiCrafterPipeline:
 
     @torch.no_grad()
     def embed_text(self, prompts: Sequence[str]) -> torch.Tensor:
-        tokens = torch.tensor(np.asarray(self.tokenizer(list(prompts))),
-                              dtype=torch.long, device=self.device)
-        return self.text_encoder(tokens)
+        with trace.span("clip_text", rows=len(prompts)):
+            tokens = torch.tensor(np.asarray(self.tokenizer(list(prompts))),
+                                  dtype=torch.long, device=self.device)
+            return self.text_encoder(tokens)
 
     @torch.no_grad()
     def embed_image_ctx(self, images: torch.Tensor) -> torch.Tensor:
         """images: (B, H, W, 3) in [-1, 1] -> (B, T, Q, ctx_dim)."""
-        px = clip_preprocess(images, self.vision_encoder.config.image_size)
-        ctx = self.resampler(self.vision_encoder(px))
+        with trace.span("clip_vision", rows=images.shape[0]):
+            tokens = self.vision_encoder(
+                clip_preprocess(images, self.vision_encoder.config.image_size))
+        with trace.span("resampler", rows=images.shape[0]):
+            ctx = self.resampler(tokens)
         t = self.resampler.config.video_length or 1
         return ctx.reshape(ctx.shape[0], t, -1, ctx.shape[-1])
 
@@ -348,7 +352,8 @@ class DynamiCrafterPipeline:
         img = videos[:, 0]
         img_ctx = self.embed_image_ctx(img)
         text_ctx = self.embed_text(prompts)
-        z = self.encode_video(videos, encode_noise)
+        with trace.span("vae_encode", frames=videos.shape[0] * videos.shape[1]):
+            z = self.encode_video(videos, encode_noise)
         if loop_or_interp:
             cc = torch.zeros_like(z)
             cc[:, 0], cc[:, -1] = z[:, 0], z[:, -1]
@@ -406,7 +411,9 @@ class DynamiCrafterPipeline:
         x0_latents: (B, T, h, w, z), 1 = hold the latent to x0.
         `timings`, when given, receives the seconds of each stage
         (synchronised on the device), and `peaks` the peak bytes allocated
-        on a CUDA device during each stage. Under an active mesh
+        on a CUDA device during each stage; the stages are the spans
+        `conditioning`, `sampler` and `decode` of the call's `request` span
+        (`utils/trace.py`). Under an active mesh
         (`parallel.sharding.use_mesh`) the UNet's rows split over its dp
         ranks (`split_rows`) and each clip's frames over its sp ranks:
         conditioning runs whole on every rank, x_T and every later draw are
@@ -439,94 +446,79 @@ class DynamiCrafterPipeline:
                              "(reference ddim.py:199-201); use sampler='ddim'")
         if sampler != "ddim":
             eta = 0.0
-        dev = self.device
-        sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
-        clock = {} if timings is None else timings
+        with trace.span("request", sampler=sampler, steps=steps, batch=len(prompts)):
+            dev = self.device
+            stage = lambda name, key=None: trace.stage(name, timings, dev, peaks, key)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            on_dev = lambda a: None if a is None else torch.tensor(
+                np.asarray(a, dtype=np.float32), device=dev)
+            vids = on_dev(videos)
+            b, t, hh, ww, _ = vids.shape
+            f = self._latent_factor
+            lat_shape = (b, t, hh // f, ww // f, self.vae_config.z_channels)
 
-        def stage_start() -> float:
-            if peaks is not None and dev.type == "cuda":
-                torch.cuda.reset_peak_memory_stats(dev)
-            return time.perf_counter()
+            with stage("conditioning"):
+                enc = on_dev(encode_noise)
+                if enc is None:
+                    enc = torch.randn((b * t, *lat_shape[2:]), generator=gen, device=dev)
+                cond = self.build_conditioning(
+                    prompts, vids, enc, cfg_scale=cfg_scale, multiple_cond_cfg=multiple_cond_cfg,
+                    cfg_img=cfg_img, loop_or_interp=loop_or_interp, fs=fs,
+                    negative_prompt=negative_prompt)
 
-        def stage_end(name: str, t0: float) -> None:
-            sync()
-            clock[name] = time.perf_counter() - t0
-            if peaks is not None and dev.type == "cuda":
-                peaks[name] = torch.cuda.max_memory_allocated(dev)
-
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        on_dev = lambda a: None if a is None else torch.tensor(
-            np.asarray(a, dtype=np.float32), device=dev)
-        vids = on_dev(videos)
-        b, t, hh, ww, _ = vids.shape
-        f = self._latent_factor
-        lat_shape = (b, t, hh // f, ww // f, self.vae_config.z_channels)
-
-        t0 = stage_start()
-        enc = on_dev(encode_noise)
-        if enc is None:
-            enc = torch.randn((b * t, *lat_shape[2:]), generator=gen, device=dev)
-        cond = self.build_conditioning(
-            prompts, vids, enc, cfg_scale=cfg_scale, multiple_cond_cfg=multiple_cond_cfg,
-            cfg_img=cfg_img, loop_or_interp=loop_or_interp, fs=fs,
-            negative_prompt=negative_prompt)
-        stage_end("conditioning", t0)
-
-        settings = SamplerSettings(
-            steps=steps, discretize=timestep_spacing, eta=eta, cfg_scale=cfg_scale,
-            cfg_img=cfg_img, guidance_rescale=guidance_rescale,
-            parameterization=self.config.parameterization, sequential_cfg=sequential_cfg,
-            deepcache=deepcache, sampler=sampler, solver_order=solver_order,
-            use_corrector=use_corrector)
-        table = sched_lib.build_ddim_table(self.schedule, num_steps=steps,
-                                           discretize=timestep_spacing, eta=eta)
-        mesh = active_mesh()
-        split = sharding.split_frames(t, mesh)
-        if mesh is not None and mesh.sp > 1 and split is None:
-            print(f"[rank {mesh.rank}] {t} frames do not divide by sp={mesh.sp}: every rank "
-                  "runs whole clips")
-        # this rank's frames of a whole clip (frames at `dim`), and every sp
-        # rank's frames gathered into whole clips on every rank
-        mine = (lambda a, dim=1: a) if split is None else (
-            lambda a, dim=1: None if a is None else split.slice(a, dim))
-        whole = (lambda a, dim=1: a) if split is None else (
-            lambda a, dim=1: sharding.sp_gather_frames(a, split, dim))
-        if cond.concat is not None:
-            cond = cond._replace(concat=mine(cond.concat, 2))
-        model_fn = make_cfg_denoiser(self.unet if mesh is None else split_rows(self.unet, mesh),
-                                     cond, settings)
-        t0 = stage_start()
-        x_T = on_dev(x_T)
-        if x_T is not None and x_T.dim() == 5:
-            x_T = x_T[:, None].expand(b, n_samples, *x_T.shape[1:])
-        variants, inter = [], None
-        with sharding.use_frames(split):
-            for k in range(n_samples):
-                xt = mine(torch.randn(lat_shape, generator=gen, device=dev) if x_T is None
-                          else x_T[:, k])
-                blend = dict(generator=gen, mask=mine(on_dev(mask)),
-                             x0=mine(on_dev(x0_latents)))
-                if sampler == "dpm":
-                    z = dpm_sample(model_fn, xt, self.schedule, table, settings, **blend)
-                elif sampler == "unipc":
-                    z = unipc_sample(model_fn, xt, self.schedule, table, settings, **blend)
-                else:
-                    z = ddim_sample(model_fn, xt, self.schedule, table, settings, **blend,
-                                    log_every_t=log_every_t)
+            settings = SamplerSettings(
+                steps=steps, discretize=timestep_spacing, eta=eta, cfg_scale=cfg_scale,
+                cfg_img=cfg_img, guidance_rescale=guidance_rescale,
+                parameterization=self.config.parameterization, sequential_cfg=sequential_cfg,
+                deepcache=deepcache, sampler=sampler, solver_order=solver_order,
+                use_corrector=use_corrector)
+            table = sched_lib.build_ddim_table(self.schedule, num_steps=steps,
+                                               discretize=timestep_spacing, eta=eta)
+            mesh = active_mesh()
+            split = sharding.split_frames(t, mesh)
+            if mesh is not None and mesh.sp > 1 and split is None:
+                print(f"[rank {mesh.rank}] {t} frames do not divide by sp={mesh.sp}: every rank "
+                      "runs whole clips")
+            # this rank's frames of a whole clip (frames at `dim`), and every sp
+            # rank's frames gathered into whole clips on every rank
+            mine = (lambda a, dim=1: a) if split is None else (
+                lambda a, dim=1: None if a is None else split.slice(a, dim))
+            whole = (lambda a, dim=1: a) if split is None else (
+                lambda a, dim=1: sharding.sp_gather_frames(a, split, dim))
+            if cond.concat is not None:
+                cond = cond._replace(concat=mine(cond.concat, 2))
+            unet = self.unet if mesh is None else split_rows(self.unet, mesh)
+            model_fn = make_cfg_denoiser(unet, cond, settings)
+            with stage("sampler", "ddim"):
+                x_T = on_dev(x_T)
+                if x_T is not None and x_T.dim() == 5:
+                    x_T = x_T[:, None].expand(b, n_samples, *x_T.shape[1:])
+                variants, inter = [], None
+                with sharding.use_frames(split):
+                    for k in range(n_samples):
+                        xt = mine(torch.randn(lat_shape, generator=gen, device=dev) if x_T is None
+                                  else x_T[:, k])
+                        blend = dict(generator=gen, mask=mine(on_dev(mask)),
+                                     x0=mine(on_dev(x0_latents)))
+                        if sampler == "dpm":
+                            z = dpm_sample(model_fn, xt, self.schedule, table, settings, **blend)
+                        elif sampler == "unipc":
+                            z = unipc_sample(model_fn, xt, self.schedule, table, settings, **blend)
+                        else:
+                            z = ddim_sample(model_fn, xt, self.schedule, table, settings, **blend,
+                                            log_every_t=log_every_t)
+                        if log_every_t is not None:
+                            z, inter = z[0], z[1]["x_inter"]
+                        variants.append(z)
+                z_all = whole(torch.stack(variants, dim=1), 2)
+            if not decode:
                 if log_every_t is not None:
-                    z, inter = z[0], z[1]["x_inter"]
-                variants.append(z)
-        z_all = whole(torch.stack(variants, dim=1), 2)
-        stage_end("ddim", t0)
-        if not decode:
-            if log_every_t is not None:
-                return z_all.cpu().numpy(), whole(inter, 2).cpu().numpy()
-            return z_all.cpu().numpy()
-        t0 = stage_start()
-        frames = np.stack([whole(self.decode_latents(z)).cpu().numpy() for z in variants],
-                          axis=1)
-        rows = None
-        if log_every_t is not None:
-            rows = np.stack([whole(self.decode_latents(x)).cpu().numpy() for x in inter])
-        stage_end("decode", t0)
-        return PipelineOutput(videos=frames, denoise_rows=rows, latents=z_all.cpu().numpy())
+                    return z_all.cpu().numpy(), whole(inter, 2).cpu().numpy()
+                return z_all.cpu().numpy()
+            with stage("decode"):
+                frames = np.stack([whole(self.decode_latents(z)).cpu().numpy() for z in variants],
+                                  axis=1)
+                rows = None
+                if log_every_t is not None:
+                    rows = np.stack([whole(self.decode_latents(x)).cpu().numpy() for x in inter])
+            return PipelineOutput(videos=frames, denoise_rows=rows, latents=z_all.cpu().numpy())

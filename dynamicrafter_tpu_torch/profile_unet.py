@@ -13,18 +13,23 @@ sequential CFG. With `--shallow` the profiled call is the DeepCache shallow
 forward (`cache=` the deep feature of one full call on the same input): the
 call that N - 1 of every N sampler steps make under `--deepcache N`. Needs a
 CUDA device. `start_trace` / `stop_trace` are the Chrome-trace sessions
-of `inference --profile_dir` and `train --profile_steps`.
+of `inference --profile_dir` and `train --profile_steps`; the program's
+spans (`utils/trace.py`) recorded meanwhile go into the same trace as a
+process of their own.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import json
 import os
 import subprocess
 import time
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+
+from dynamicrafter_tpu_torch.utils import trace
 
 # first match wins; copies before elementwise (a copy is an elementwise kernel
 # by name), layout transposes before convolutions
@@ -84,26 +89,36 @@ def profile_families(run: Callable[[], object], iters: int):
     return by_family, by_kernel, window_ms, n_kernels
 
 
-def start_trace(device: torch.device) -> torch.profiler.profile:
+def start_trace(device: torch.device) -> Tuple[torch.profiler.profile, trace.Recording]:
     """A started `torch.profiler` session over the host and, on a CUDA
-    device, the card."""
+    device, the card, and a recording of the program's spans."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=acts)
     prof.start()
-    return prof
+    return prof, trace.recording()
 
 
-def stop_trace(prof: torch.profiler.profile, device: torch.device, out_dir: str) -> str:
-    """Stop `prof` after the device has finished; write its Chrome trace
-    `<out_dir>/trace.json` and return that path."""
+def stop_trace(session: Tuple[torch.profiler.profile, trace.Recording], device: torch.device,
+               out_dir: str) -> str:
+    """Stop `start_trace`'s session after the device has finished; write its
+    Chrome trace `<out_dir>/trace.json`, the recorded spans in it as a
+    process of their own ("spans", a track per thread, on the trace's
+    clock), and return that path."""
+    prof, rec = session
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     prof.stop()
+    rec.close()
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "trace.json")
     prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    doc["traceEvents"] += rec.chrome_events(int(doc.get("baseTimeNanoseconds", 0)))
+    with open(path, "w") as f:
+        json.dump(doc, f)
     return path
 
 

@@ -44,6 +44,7 @@ from dynamicrafter_tpu_torch.schedule import (
     DiffusionSchedule,
     rescale_noise_cfg,
 )
+from dynamicrafter_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,37 +244,39 @@ def ddim_sample(model_fn: Callable, x_T: torch.Tensor, schedule: DiffusionSchedu
     x_inter, pred_inter = [x], [x]
     cache = None
     for i, idx in enumerate(range(s - 1, -1, -1)):
-        t = int(table.timesteps[idx])
-        a_t, a_prev = table.alphas[idx], table.alphas_prev[idx]
-        sigma = table.sigmas[idx]
-        x = blend(x, t, None if mask_noise is None else mask_noise[i], generator)
-        if n_dc == 1:
-            out = model_fn(x, t)
-        elif i % n_dc == 0:
-            out, cache = model_fn(x, t, return_cache=True)
-        else:
-            out = model_fn(x, t, cache=cache)
-        if settings.parameterization == "v":
-            e_t = schedule.predict_eps_from_z_and_v(x, t, out)
-            pred_x0 = schedule.predict_start_from_z_and_v(x, t, out)
-        else:
-            e_t = out
-            pred_x0 = (x - float(table.sqrt_one_minus_alphas[idx]) * e_t) / float(np.sqrt(a_t))
-        if table.scale_arr is not None:
-            pred_x0 = pred_x0 * float(table.scale_arr_prev[idx] / table.scale_arr[idx])
-        dir_xt = float(np.sqrt(one - a_prev - sigma * sigma)) * e_t
-        x = float(np.sqrt(a_prev)) * pred_x0 + dir_xt
-        if settings.eta > 0.0:
-            if noise is not None:
-                n = noise[i].to(device=x.device, dtype=x.dtype)
-                if active_frames() is not None:
-                    n = active_frames().slice(n)
+        with trace.span("sampler_step", step=i):
+            t = int(table.timesteps[idx])
+            a_t, a_prev = table.alphas[idx], table.alphas_prev[idx]
+            sigma = table.sigmas[idx]
+            x = blend(x, t, None if mask_noise is None else mask_noise[i], generator)
+            if n_dc == 1:
+                out = model_fn(x, t)
+            elif i % n_dc == 0:
+                out, cache = model_fn(x, t, return_cache=True)
             else:
-                n = randn_frames(x, generator)
-            x = x + float(sigma) * n
-        if log_every_t is not None and (idx % log_every_t == 0 or idx == s - 1):
-            x_inter.append(x)
-            pred_inter.append(pred_x0)
+                out = model_fn(x, t, cache=cache)
+            if settings.parameterization == "v":
+                e_t = schedule.predict_eps_from_z_and_v(x, t, out)
+                pred_x0 = schedule.predict_start_from_z_and_v(x, t, out)
+            else:
+                e_t = out
+                pred_x0 = ((x - float(table.sqrt_one_minus_alphas[idx]) * e_t)
+                           / float(np.sqrt(a_t)))
+            if table.scale_arr is not None:
+                pred_x0 = pred_x0 * float(table.scale_arr_prev[idx] / table.scale_arr[idx])
+            dir_xt = float(np.sqrt(one - a_prev - sigma * sigma)) * e_t
+            x = float(np.sqrt(a_prev)) * pred_x0 + dir_xt
+            if settings.eta > 0.0:
+                if noise is not None:
+                    n = noise[i].to(device=x.device, dtype=x.dtype)
+                    if active_frames() is not None:
+                        n = active_frames().slice(n)
+                else:
+                    n = randn_frames(x, generator)
+                x = x + float(sigma) * n
+            if log_every_t is not None and (idx % log_every_t == 0 or idx == s - 1):
+                x_inter.append(x)
+                pred_inter.append(pred_x0)
     if log_every_t is not None:
         return x, {"x_inter": torch.stack(x_inter), "pred_x0": torch.stack(pred_inter)}
     return x

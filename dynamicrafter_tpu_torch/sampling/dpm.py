@@ -45,6 +45,7 @@ from dynamicrafter_tpu_torch.sampling.ddim import (
     make_mask_blend,
     reject_ode_unsupported,
 )
+from dynamicrafter_tpu_torch.utils import trace
 
 
 def _lambda_from_alpha_bar(a_bar: np.ndarray) -> np.ndarray:
@@ -126,11 +127,12 @@ def dpm_sample(model_fn: Callable, x_T: torch.Tensor, schedule: DiffusionSchedul
                             None if x0 is None else x0.to(x))
     p_prev = torch.zeros_like(x)
     for i in range(table.num_steps):
-        t = int(c["t"][i])
-        x = blend(x, t, None if mask_noise is None else mask_noise[i], generator)
-        m0 = predict_x0(schedule, settings, x, t, c["a_t"][i], model_fn(x, t))
-        p = m0 * float(c["inv_scale"][i])     # the underlying (unscaled) x0
-        x = (float(c["sig_ratio"][i]) * x + float(c["order1"][i]) * p
-             + float(c["order2"][i]) * (p - p_prev))
-        p_prev = p
+        with trace.span("sampler_step", step=i):
+            t = int(c["t"][i])
+            x = blend(x, t, None if mask_noise is None else mask_noise[i], generator)
+            m0 = predict_x0(schedule, settings, x, t, c["a_t"][i], model_fn(x, t))
+            p = m0 * float(c["inv_scale"][i])     # the underlying (unscaled) x0
+            x = (float(c["sig_ratio"][i]) * x + float(c["order1"][i]) * p
+                 + float(c["order2"][i]) * (p - p_prev))
+            p_prev = p
     return x

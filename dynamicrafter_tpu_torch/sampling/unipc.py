@@ -55,6 +55,7 @@ from dynamicrafter_tpu_torch.sampling.ddim import (
     reject_ode_unsupported,
 )
 from dynamicrafter_tpu_torch.sampling.dpm import ode_step_tables, predict_x0
+from dynamicrafter_tpu_torch.utils import trace
 
 
 def _exp_integrals(h: float, n_max: int) -> list:
@@ -149,16 +150,17 @@ def unipc_sample(model_fn: Callable, x_T: torch.Tensor, schedule: DiffusionSched
                             None if x0 is None else x0.to(x))
     hist = [torch.zeros_like(x) for _ in range(order)]   # most recent first
     for i in range(table.num_steps):
-        t = int(c["t"][i])
-        x = blend(x, t, None if mask_noise is None else mask_noise[i], generator)
-        m0 = predict_x0(schedule, settings, x, t, c["a_t"][i], model_fn(x, t))
-        nodes = [m0 * float(c["inv_scale"][i]), *hist]    # [p_k, p_{k-1}, ...]
-        # corrector for the previous step (its row is zeros at k = 0)
-        for j in range(order + 1):
-            x = x + float(c["corr_w"][i, j]) * nodes[j]
-        # predictor to the next node
-        xn = float(c["sig_ratio"][i]) * x
-        for j in range(order):
-            xn = xn + float(c["pred_w"][i, j]) * nodes[j]
-        x, hist = xn, nodes[:order]
+        with trace.span("sampler_step", step=i):
+            t = int(c["t"][i])
+            x = blend(x, t, None if mask_noise is None else mask_noise[i], generator)
+            m0 = predict_x0(schedule, settings, x, t, c["a_t"][i], model_fn(x, t))
+            nodes = [m0 * float(c["inv_scale"][i]), *hist]    # [p_k, p_{k-1}, ...]
+            # corrector for the previous step (its row is zeros at k = 0)
+            for j in range(order + 1):
+                x = x + float(c["corr_w"][i, j]) * nodes[j]
+            # predictor to the next node
+            xn = float(c["sig_ratio"][i]) * x
+            for j in range(order):
+                xn = xn + float(c["pred_w"][i, j]) * nodes[j]
+            x, hist = xn, nodes[:order]
     return x

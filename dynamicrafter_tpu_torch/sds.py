@@ -32,6 +32,7 @@ import torch
 
 from dynamicrafter_tpu_torch import schedule as sched_lib
 from dynamicrafter_tpu_torch.sampling.ddim import SamplerSettings, make_cfg_denoiser
+from dynamicrafter_tpu_torch.utils import trace
 from dynamicrafter_tpu_torch.utils.video import save_clip, save_image, to_uint8
 
 
@@ -135,21 +136,8 @@ class SDSGuidancePipeline:
         decode."""
         pipe, s = self.pipe, self.settings
         dev = pipe.device
-        on_cuda = dev.type == "cuda"
-        sync = (lambda: torch.cuda.synchronize(dev)) if on_cuda else (lambda: None)
-        clock = {} if timings is None else timings
-
-        def stage_start() -> float:
-            if peaks is not None and on_cuda:
-                torch.cuda.reset_peak_memory_stats(dev)
-            return time.perf_counter()
-
-        def stage_end(name: str, t0: float) -> None:
-            sync()
-            clock[name] = time.perf_counter() - t0
-            if peaks is not None and on_cuda:
-                peaks[name] = torch.cuda.max_memory_allocated(dev)
-
+        sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+        stage = lambda name: trace.stage(name, timings, dev, peaks)
         on_dev = lambda a: torch.tensor(np.asarray(a, dtype=np.float32), device=dev)
         vids = on_dev(videos)
         b, t = vids.shape[:2]
@@ -157,12 +145,11 @@ class SDSGuidancePipeline:
         lat_shape = (b, t, vids.shape[2] // f, vids.shape[3] // f, pipe.vae_config.z_channels)
         gen = torch.Generator(device=dev).manual_seed(seed)
 
-        t0 = stage_start()
-        enc = (on_dev(encode_noise) if encode_noise is not None
-               else torch.randn((b * t, *lat_shape[2:]), generator=gen, device=dev))
-        cond = pipe.build_conditioning(prompts, vids, enc, cfg_scale=s.cfg_scale, fs=fs,
-                                       negative_prompt=s.negative_prompt)
-        stage_end("conditioning", t0)
+        with stage("conditioning"):
+            enc = (on_dev(encode_noise) if encode_noise is not None
+                   else torch.randn((b * t, *lat_shape[2:]), generator=gen, device=dev))
+            cond = pipe.build_conditioning(prompts, vids, enc, cfg_scale=s.cfg_scale, fs=fs,
+                                           negative_prompt=s.negative_prompt)
 
         latents = (on_dev(init_latents) if init_latents is not None
                    else torch.randn(lat_shape, generator=gen, device=dev))
@@ -173,31 +160,30 @@ class SDSGuidancePipeline:
 
         dbg = _DebugWriter(debug_dir) if debug_dir else None
         losses, step_seconds = [], []
-        t0 = stage_start()
-        for step in range(self.total_steps):
-            t1 = time.perf_counter()
-            if draws is not None:
-                idx, noise = draws.t_index[step].to(dev), draws.noise[step].to(dev)
-            else:
-                idx = torch.randint(0, self.t_grid.shape[0], (b,), generator=gen, device=dev)
-                noise = torch.randn(lat_shape, generator=gen, device=dev)
-            grad, loss = self.sds_grad(model_fn, latents, self.t_grid[idx], noise)
-            latents.grad = grad
-            opt.step()
-            losses.append(loss)
-            sync()
-            step_seconds.append(time.perf_counter() - t1)
-            if dbg is not None and (step + 1) % s.log_every == 0:
-                dbg.step(step + 1 - s.log_every, pipe.decode_latents(latents).cpu().numpy())
-        stage_end("loop", t0)
-        clock["steps"] = step_seconds
+        with stage("loop"):
+            for step in range(self.total_steps):
+                t1 = time.perf_counter()
+                if draws is not None:
+                    idx, noise = draws.t_index[step].to(dev), draws.noise[step].to(dev)
+                else:
+                    idx = torch.randint(0, self.t_grid.shape[0], (b,), generator=gen, device=dev)
+                    noise = torch.randn(lat_shape, generator=gen, device=dev)
+                grad, loss = self.sds_grad(model_fn, latents, self.t_grid[idx], noise)
+                latents.grad = grad
+                opt.step()
+                losses.append(loss)
+                sync()
+                step_seconds.append(time.perf_counter() - t1)
+                if dbg is not None and (step + 1) % s.log_every == 0:
+                    dbg.step(step + 1 - s.log_every, pipe.decode_latents(latents).cpu().numpy())
+        if timings is not None:
+            timings["steps"] = step_seconds
         loss_curve = torch.stack(losses).cpu().numpy()
 
         out = {"latents": latents.cpu().numpy(), "loss_curve": loss_curve}
         if decode:
-            t0 = stage_start()
-            out["videos"] = pipe.decode_latents(latents).cpu().numpy()
-            stage_end("decode", t0)
+            with stage("decode"):
+                out["videos"] = pipe.decode_latents(latents).cpu().numpy()
         if dbg is not None:
             dbg.finish(loss_curve)
             out["debug_dir"] = debug_dir

@@ -43,6 +43,7 @@ from dynamicrafter_tpu_torch.parallel.sharding import (
 )
 from dynamicrafter_tpu_torch.schedule import extract_into_tensor
 from dynamicrafter_tpu_torch.training.ema import ema_init, ema_update
+from dynamicrafter_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,6 +240,10 @@ class AccumulatingAdamW:
     def update(self, grads: List[torch.Tensor]) -> Optional[torch.Tensor]:
         """Take one micro-step's gradients (in `params` order; consumed).
         With a mesh, returns the global norm of their dp mean."""
+        with trace.span("update", mini_step=self.mini_step):
+            return self._update(grads)
+
+    def _update(self, grads: List[torch.Tensor]) -> Optional[torch.Tensor]:
         if self.mesh is not None:
             return self._update_sharded(grads)
         k = self.cfg.accumulate_grad_batches
@@ -480,34 +485,38 @@ class Trainer:
         cfg, sched, unet = self.cfg, self.pipe.schedule, self.pipe.unet
         frames = self.frames(batch)
         mine = (lambda a: a) if frames is None else frames.slice
-        with self._autocast(), sharding.use_frames(frames):
-            z, text_ctx, img_ctx, cc = self.batch_input(batch, draws, frames)
-            t = draws.t
-            if sched.scale_arr is not None:
-                # dynamic rescale of x0 (ddpm3d.py:711-715)
-                z = z * extract_into_tensor(sched.scale_arr, t, z.dim())
-            noise = mine(draws.noise)
-            if cfg.noise_strength > 0:
-                noise = noise + cfg.noise_strength * mine(draws.offset)
-            x_noisy = sched.q_sample(z, t, noise)
-            if cfg.parameterization == "v":
-                target = sched.get_v(z, noise, t)
-            elif cfg.parameterization == "eps":
-                target = noise
-            else:
-                target = z
-            pred = unet(torch.cat([x_noisy, cc], dim=-1), t, context_text=text_ctx,
-                        context_img=img_ctx, fs=batch.get("fs"))
-        err = pred.float() - target
-        err = err.abs() if cfg.loss_type == "l1" else err.square()
-        if frames is None:
-            return combine_diffusion_losses(err.mean(dim=(1, 2, 3, 4)), t, cfg, sched,
-                                            self.logvar)
-        part = err.sum(dim=(1, 2, 3, 4)) / (err[0].numel() * frames.sp)
-        whole = sharding.sp_all_reduce(part.detach(), frames)
-        loss, _ = combine_diffusion_losses(part, t, cfg, sched, self.logvar, 1.0 / frames.sp)
-        _, metrics = combine_diffusion_losses(whole, t, cfg, sched, self.logvar)
-        return loss, metrics
+        with contextlib.ExitStack() as forward:
+            with self._autocast(), sharding.use_frames(frames):
+                with trace.span("batch_input"):
+                    z, text_ctx, img_ctx, cc = self.batch_input(batch, draws, frames)
+                forward.enter_context(trace.span("forward"))    # to the loss's end
+                t = draws.t
+                if sched.scale_arr is not None:
+                    # dynamic rescale of x0 (ddpm3d.py:711-715)
+                    z = z * extract_into_tensor(sched.scale_arr, t, z.dim())
+                noise = mine(draws.noise)
+                if cfg.noise_strength > 0:
+                    noise = noise + cfg.noise_strength * mine(draws.offset)
+                x_noisy = sched.q_sample(z, t, noise)
+                if cfg.parameterization == "v":
+                    target = sched.get_v(z, noise, t)
+                elif cfg.parameterization == "eps":
+                    target = noise
+                else:
+                    target = z
+                pred = unet(torch.cat([x_noisy, cc], dim=-1), t, context_text=text_ctx,
+                            context_img=img_ctx, fs=batch.get("fs"))
+            err = pred.float() - target
+            err = err.abs() if cfg.loss_type == "l1" else err.square()
+            if frames is None:
+                return combine_diffusion_losses(err.mean(dim=(1, 2, 3, 4)), t, cfg, sched,
+                                                self.logvar)
+            part = err.sum(dim=(1, 2, 3, 4)) / (err[0].numel() * frames.sp)
+            whole = sharding.sp_all_reduce(part.detach(), frames)
+            loss, _ = combine_diffusion_losses(part, t, cfg, sched, self.logvar,
+                                               1.0 / frames.sp)
+            _, metrics = combine_diffusion_losses(whole, t, cfg, sched, self.logvar)
+            return loss, metrics
 
     def loss_and_grads(self, batch, draws: Draws):
         """Forward and backward of one micro-step: (loss, metrics, grads),
@@ -517,7 +526,8 @@ class Trainer:
         for p in self.params.values():
             p.grad = None
         loss, metrics = self.loss(batch, draws)
-        loss.backward()
+        with trace.span("backward"):
+            loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params.values()]
         for p in self.params.values():
@@ -529,19 +539,20 @@ class Trainer:
         norm of this micro-step's raw gradients (with a mesh: the losses'
         dp means and the norm of the dp-mean gradient, as the JAX step
         reports them over its global batch)."""
-        if draws is None:
-            draws = self.draw(batch)
-        _, metrics, grads = self.loss_and_grads(batch, draws)
-        if self.mesh is not None:
-            if self.frames(batch) is not None:
-                sharding.sp_sum_(grads, self.mesh)
-            metrics = dp_mean(metrics, self.mesh)
-        if self.opt.mesh is not None:
-            metrics["grad_norm"] = self.opt.update(grads)
+        with trace.span("train_step", step=self.step):
+            if draws is None:
+                draws = self.draw(batch)
+            _, metrics, grads = self.loss_and_grads(batch, draws)
+            if self.mesh is not None:
+                if self.frames(batch) is not None:
+                    sharding.sp_sum_(grads, self.mesh)
+                metrics = dp_mean(metrics, self.mesh)
+            if self.opt.mesh is not None:
+                metrics["grad_norm"] = self.opt.update(grads)
+                return metrics
+            metrics["grad_norm"] = global_norm(grads)
+            self.opt.update(grads)
             return metrics
-        metrics["grad_norm"] = global_norm(grads)
-        self.opt.update(grads)
-        return metrics
 
     @contextlib.contextmanager
     def ema_scope(self):

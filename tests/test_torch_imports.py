@@ -53,6 +53,7 @@ MODULES = [
     "dynamicrafter_tpu_torch.utils.tokenizer",
     "dynamicrafter_tpu_torch.utils.weights",
     "dynamicrafter_tpu_torch.utils.video",
+    "dynamicrafter_tpu_torch.utils.trace",
     "dynamicrafter_tpu_torch.inference",
     "dynamicrafter_tpu_torch.profile_unet",
     "dynamicrafter_tpu_torch.training.ema",
