@@ -1047,7 +1047,10 @@ def main() -> int:
         flash_attention, flash_bwd, flash_bwd_di, flash_bwd_di_plain, flash_bwd_dkv, flash_bwd_dq,
         flash_bwd_plain, flash_fwd, flash_fwd_lse, flash_fwd_lse_plain, flash_fwd_packed,
         flash_fwd_plain)
-    from dynamicrafter_tpu_torch.ops.norms import keep_norms_fp32
+    from dynamicrafter_tpu_torch.models.blocks import _to_clip
+    from dynamicrafter_tpu_torch.ops import norms
+    from dynamicrafter_tpu_torch.ops.norms import (
+        group_norm_act, group_norm_act_plain, keep_norms_fp32, layer_norm, layer_norm_plain)
     from dynamicrafter_tpu_torch.ops.small_attention import (
         small_t_attention, small_t_attention_tmajor, small_t_fwd, small_t_fwd_plain,
         small_t_fwd_tmajor, small_t_fwd_tmajor_plain)
@@ -1215,6 +1218,93 @@ def main() -> int:
 
     phase_s["3"] = time.perf_counter() - t0
 
+    # -- phase 3b: the norm kernels against fp32 at the main path's shapes ----
+    t0 = time.perf_counter()
+    cl = lambda x: x.contiguous(memory_format=torch.channels_last)
+    rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+    # (label, x maker, per-frame emb add): the UNet's per-frame norms
+    # channels-last as its convs leave them (and one per channel), the VAE's
+    # 512x512 tile, and the clips' views the temporal blocks take
+    gn_cases = [
+        ("frame 16x320 72x128 cl +emb", lambda: cl(rnd(16, 320, 72, 128)), True),
+        ("frame 32x320 40x64 cl +emb", lambda: cl(rnd(32, 320, 40, 64)), True),
+        ("frame 32x1280 5x8 cl +emb", lambda: cl(rnd(32, 1280, 5, 8)), True),
+        ("frame 16x640 72x128 +emb", lambda: rnd(16, 640, 72, 128), True),
+        ("vae 2x128 512x512 cl", lambda: cl(rnd(2, 128, 512, 512)), False),
+        ("clip b1 320 T16 72x128 cl", lambda: _to_clip(cl(rnd(16, 320, 72, 128)), 16), False),
+        ("clip b2 320 T16 40x64 cl (transpose)",
+         lambda: cl(rnd(32, 320, 40, 64)).view(2, 16, 320, 2560).transpose(1, 2), False),
+        ("clip b1 320 T16 72x128 (transpose)",
+         lambda: rnd(1, 16, 320, 9216).transpose(1, 2), False)]
+    gn_by_shape, ln_by_shape = {}, {}
+    for label, make, per_frame in gn_cases:
+        for dtype, tol in ((torch.bfloat16, 4e-3), (torch.float32, 1e-5)):
+            x = (1.5 * make() + 0.3).to(dtype)
+            c = x.shape[1]
+            w, b = 1.0 + 0.2 * rnd(c), 0.2 * rnd(c)
+            add = (0.5 * rnd(x.shape[0], c, 1, 1)).to(dtype) if per_frame else None
+            out = group_norm_act(x, w, b, 32, 1e-6, add, True)
+            # fp32 all through from the same input (the caller's add rounded
+            # in x's dtype): the kernel rounds once, half a bf16 ulp
+            v = x if add is None else x + add
+            max_abs, rel = errors(out, group_norm_act_plain(v.float(), w, b, 32, 1e-6, None, True))
+            same = torch.equal(out, group_norm_act(x, w, b, 32, 1e-6, add, True))
+            layout = out.shape == x.shape and out.is_contiguous(memory_format=norms._layout(x))
+            row = dict(max_abs_err=max_abs, rel_l2=rel)
+            if dtype == torch.bfloat16:
+                row.update(
+                    ms=graph_ms(lambda: group_norm_act(x, w, b, 32, 1e-6, add, True)),
+                    plain_ms=graph_ms(lambda: group_norm_act_plain(x, w, b, 32, 1e-6, add, True)),
+                    library_ms=graph_ms(lambda: F.silu(F.group_norm(
+                        x if add is None else x + add, 32, w.to(dtype), b.to(dtype), 1e-6))),
+                    **bound(2 * x.numel() * x.element_size(), 0, dtype))
+                gn_by_shape[label] = row
+            log(f"[3b] group_norm_act {label} {str(dtype)[6:]} {tuple(x.shape)} stride "
+                f"{x.stride()}: max_abs {max_abs:.3e} rel_l2 {rel:.3e} against fp32 (tol {tol:g}) "
+                f"| two runs bit-identical {same} | x's layout kept {layout}"
+                + (f" | kernel {row['ms']:.4f} ms, island {row['plain_ms']:.4f}, library bf16 "
+                   f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+                   f"({100 * row['bound_ms'] / row['ms']:.1f} %)" if "ms" in row else ""))
+            check(rel <= tol, f"group_norm_act rel L2 {rel} > {tol} at {label} {dtype}")
+            check(same and layout, f"group_norm_act {label} {dtype}: runs equal {same}, "
+                                   f"layout kept {layout}")
+            del x, out, v, add
+    # the transformers' norm1..3 at each level, CLIP's towers (the text
+    # tower's last norm keeps fp32)
+    for rows, c, keep in ((16 * 72 * 128, 320, False), (16 * 36 * 64, 640, False),
+                          (16 * 18 * 32, 1280, False), (32 * 40 * 64, 320, False),
+                          (16 * 257, 1280, False), (2 * 77, 1024, True)):
+        for dtype, tol in ((torch.bfloat16, 4e-3), (torch.float32, 1e-5)):
+            x = (2.0 * rnd(rows, c) + 0.5).to(dtype)
+            w, b = 1.0 + 0.2 * rnd(c), 0.2 * rnd(c)
+            out = layer_norm(x, w, b, 1e-5, keep)
+            max_abs, rel = errors(out, layer_norm_plain(x.float(), w, b, 1e-5, True))
+            same = torch.equal(out, layer_norm(x, w, b, 1e-5, keep))
+            label = f"({rows}, {c})" + (" keep_fp32" if keep else "")
+            row = dict(max_abs_err=max_abs, rel_l2=rel)
+            if dtype == torch.bfloat16:
+                row.update(ms=graph_ms(lambda: layer_norm(x, w, b, 1e-5, keep)),
+                           plain_ms=graph_ms(lambda: layer_norm_plain(x, w, b, 1e-5, keep)),
+                           library_ms=graph_ms(lambda: F.layer_norm(
+                               x, (c,), w.to(dtype), b.to(dtype), 1e-5)),
+                           **bound(x.numel() * (x.element_size() + out.element_size()), 0,
+                                   dtype))
+                ln_by_shape[label] = row
+            log(f"[3b] layer_norm {label} {str(dtype)[6:]}: max_abs {max_abs:.3e} rel_l2 "
+                f"{rel:.3e} against fp32 (tol {tol:g}) | two runs bit-identical {same}"
+                + (f" | kernel {row['ms']:.4f} ms, island {row['plain_ms']:.4f}, library bf16 "
+                   f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+                   f"({100 * row['bound_ms'] / row['ms']:.1f} %)" if "ms" in row else ""))
+            check(rel <= (tol if dtype == torch.float32 or not keep else 1e-5),
+                  f"layer_norm rel L2 {rel} at {label} {dtype}")
+            check(same, f"layer_norm runs differ at {label} {dtype}")
+            del x, out
+    first_gn, first_ln = gn_cases[0][0], f"({16 * 72 * 128}, 320)"
+    report["group_norm_act"] = dict(gn_by_shape[first_gn], by_shape=gn_by_shape)
+    report["layer_norm"] = dict(ln_by_shape[first_ln], by_shape=ln_by_shape)
+    torch.cuda.empty_cache()
+    phase_s["3b"] = time.perf_counter() - t0
+
     # -- phase 4: full-width UNet forward, kernels vs plain ---------------
     t0 = time.perf_counter()
     cfg = ModelConfig.from_yaml(CONFIG)
@@ -1259,6 +1349,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     with tempfile.TemporaryDirectory() as savedir:
         flash_fwd.launches = small_t_fwd_tmajor.launches = 0
+        group_norm_act.launches = layer_norm.launches = norms.island_calls = 0
         t0 = time.perf_counter()
         result = inference.main([
             "--config", CONFIG, "--prompt_dir", PROMPTS, "--savedir", savedir,
@@ -1270,6 +1361,7 @@ def main() -> int:
             "--device", "cuda"])
         wall = time.perf_counter() - t0
         launches = (flash_fwd.launches, small_t_fwd_tmajor.launches)
+        norm_launches = (group_norm_act.launches, layer_norm.launches, norms.island_calls)
         frames = np.load(result["paths"][0])
         videos = result["videos"][0]
     # `sample` restarts the peak count at each stage
@@ -1279,12 +1371,16 @@ def main() -> int:
         f"levels {len(np.unique(frames))} finite {bool(np.isfinite(videos).all())} | "
         + " ".join(f"{k} {v:.2f}s" for k, v in stages.items())
         + f" | {1e3 * stages['ddim'] / STEPS:.1f} ms/step | main() wall {wall:.1f}s | "
-        f"peak allocated {peak / 2**30:.2f} GiB | launches K1 {launches[0]} K2 {launches[1]}")
+        f"peak allocated {peak / 2**30:.2f} GiB | launches K1 {launches[0]} K2 {launches[1]} "
+        f"group_norm_act {norm_launches[0]} layer_norm {norm_launches[1]} | CUDA norm calls "
+        f"on the fp32 island {norm_launches[2]}")
     check(frames.shape == (16, 320, 512, 3) and frames.dtype == np.uint8, "frame file")
     check(bool(np.isfinite(videos).all()), "decoded frames are not finite")
     check(len(np.unique(frames)) > 1, "decoded frames are constant")
     check(launches == (per_call[0] * STEPS, per_call[1] * STEPS),
           f"launches on the slice {launches} != {per_call} x {STEPS} steps")
+    check(min(norm_launches[:2]) > 0 and norm_launches[2] == 0,
+          f"norm launches on the slice (GN, LN, island) {norm_launches}")
     del result, frames, videos
     phase_s["5"] = time.perf_counter() - t0
 
@@ -3495,7 +3591,11 @@ def main() -> int:
                                      "experiments/fused_conv/fused_conv_tiled.py:28",
                                      conv_launches[1], {"bench_fused_conv": conv_launches[1]}),
         "gn_stats": (src + "fused_conv.cu", "experiments/fused_conv/fused_conv.py:54",
-                     conv_launches[2], {"bench_fused_conv": conv_launches[2]})}
+                     conv_launches[2], {"bench_fused_conv": conv_launches[2]}),
+        "group_norm_act": (src + "norms.cu", "none (the JAX package's norms are XLA fusions)",
+                           norm_launches[0], {"inference_512": norm_launches[0]}),
+        "layer_norm": (src + "norms.cu", "none (the JAX package's norms are XLA fusions)",
+                       norm_launches[1], {"inference_512": norm_launches[1]})}
     for name, (_, _, n, _) in sources.items():
         check(n > 0, f"{name} was launched no time on its main path")
     print(json.dumps({"kernels": [

@@ -327,18 +327,18 @@ class TemporalConvBlock(nn.Module):
     def forward(self, x: torch.Tensor, t: int, frames: Optional[FrameSplit] = None) -> torch.Tensor:
         """x: (B*T, C, H, W)."""
         clip = _to_clip(x, t)
-        if frames is None:
-            h = self.conv4(self.conv3(self.conv2(self.conv1(clip))))
-            return _from_clip(clip + h)
         h = clip
         for seq in (self.conv1, self.conv2, self.conv3, self.conv4):
-            h = seq[0](h, frames)
-            for layer in seq[1:-1]:                 # SiLU (and Dropout(0))
+            h = seq[0](h, frames, silu=True)        # the norm takes seq[1]'s SiLU
+            for layer in seq[2:-1]:                 # Dropout(0)
                 h = layer(h)
+            conv = seq[-1]
+            if frames is None:
+                h = conv(h)
+                continue
             # the neighbours' boundary frames stand in for the zero padding
             # along T (zeros at the clip's ends)
             prev, nxt = sharding.halo(h, frames, dim=2)
-            conv = seq[-1]
             h = F.conv3d(torch.cat([prev, h, nxt], dim=2), conv.weight, conv.bias,
                          padding=(0, *conv.padding[1:]))
         return _from_clip(clip + h)
@@ -402,19 +402,21 @@ class ResBlock(nn.Module):
         """x: (B*T, C, H, W); emb: (B, E), shared by the T frames of a clip.
         `frames` reaches the temporal convs."""
         with trace.span("resblock"):
+            # the norms take the SiLU after them (in_layers[1], out_layers[1])
+            # and the emb add before the second
+            h = self.in_layers[0](x, silu=True)
             if self.resample is not None:
-                h = self.resample(self.in_layers[:2](x))
+                h = self.resample(h)
                 x = self.resample(x)
-                h = self.in_layers[2](h)
-            else:
-                h = self.in_layers(x)
+            h = self.in_layers[2](h)
             emb_out = self.emb_layers(emb).to(h.dtype)[:, None].expand(-1, t, -1)
             emb_out = emb_out.reshape(h.shape[0], -1, 1, 1)
             if self.use_scale_shift_norm:
                 scale, shift = emb_out.chunk(2, dim=1)
                 h = self.out_layers[1:](self.out_layers[0](h) * (1 + scale) + shift)
             else:
-                h = self.out_layers(h + emb_out)
+                h = self.out_layers[3](self.out_layers[2](
+                    self.out_layers[0](h, add=emb_out, silu=True)))
             h = self.skip_connection(x) + h
             if self.temopral_conv is not None:
                 h = self.temopral_conv(h, t, frames)

@@ -325,5 +325,5 @@ class UNetModel(nn.Module):
                     cache_out = frames_last(h)
                 h = torch.cat([h, hs.pop()], dim=1)
                 h = self._run_layers(layers, h, emb, context, t, frames)
-            h = frames_last(self.out(h))
+            h = frames_last(self.out[2](self.out[0](h, silu=True)))   # out[1]'s SiLU in the norm
             return (h, cache_out) if return_cache else h

@@ -57,8 +57,8 @@ class ResnetBlock(nn.Module):
             self.nin_shortcut = nn.Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(self.dropout(F.silu(self.norm2(h))))
+        h = self.conv1(self.norm1(x, silu=True))
+        h = self.conv2(self.dropout(self.norm2(h, silu=True)))
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h
@@ -163,7 +163,7 @@ class Encoder(nn.Module):
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
         h = self.mid(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(self.norm_out(h, silu=True))
 
 
 class Decoder(nn.Module):
@@ -197,7 +197,7 @@ class Decoder(nn.Module):
             h = level(h)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(self.norm_out(h, silu=True))
 
 
 class DiagonalGaussian:

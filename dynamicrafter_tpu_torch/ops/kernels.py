@@ -100,7 +100,7 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.dct_flash_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                       i32, f32, ptr]
         lib.dct_flash_fwd.restype = i32
@@ -138,6 +138,13 @@ def library() -> ctypes.CDLL:
         lib.dct_gn_stats.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                      i32, f32, i32, i32, ptr]
         lib.dct_gn_stats.restype = i32
+        lib.dct_group_norm_scratch.argtypes = [i32, i32, i64, i32, i64, i64, i32]
+        lib.dct_group_norm_scratch.restype = i64
+        lib.dct_group_norm_act.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i64,
+                                           i32, i64, i64, i64, i64, i64, i32, f32, i32, ptr]
+        lib.dct_group_norm_act.restype = i32
+        lib.dct_layer_norm.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, i32, f32, ptr]
+        lib.dct_layer_norm.restype = i32
         lib.dct_error_string.argtypes = [i32]
         lib.dct_error_string.restype = ctypes.c_char_p
         _lib = lib

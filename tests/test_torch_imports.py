@@ -56,6 +56,7 @@ MODULES = [
     "dynamicrafter_tpu_torch.utils.trace",
     "dynamicrafter_tpu_torch.inference",
     "dynamicrafter_tpu_torch.profile_unet",
+    "dynamicrafter_tpu_torch.bench_norms",
     "dynamicrafter_tpu_torch.training.ema",
     "dynamicrafter_tpu_torch.training.trainer",
     "dynamicrafter_tpu_torch.training.checkpoints",
