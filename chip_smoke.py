@@ -20,7 +20,9 @@ Run from the repository root. Phases, each printing one line:
      9216) paths give it (bf16, on the tensor cores) and one fp32 shape; then,
      from a generator of the phase's own, the bf16 route at T = 1, 5, 16, 17
      and 32 and at head dim 32 (the SIMT route), at scales 0.125 and -0.125,
-     with NaN sentinels past the output and three runs bit-identical;
+     with NaN sentinels past the output and three runs bit-identical; and
+     K2 at SVD-XT's T 25 shapes (2, 25, G, H) for G 9216, 2304, 576 (the
+     two-tile kernel, one launch counted as two tiles);
   4. one full-width UNet forward of configs/inference_512_v1.0.yaml on a
      batched-CFG input (2, 16, 40, 64, 8), bf16, N(0, 0.02) weights,
      through the kernels and through the plain versions, compared; counts
@@ -29,7 +31,16 @@ Run from the repository root. Phases, each printing one line:
      (the `python -m dynamicrafter_tpu_torch.inference` entry point):
      DDIM-50, eta 1, CFG 7.5 batched, guidance rescale 0.7, fs 24,
      per-frame decode, random N(0, 0.02) weights; checks the written frames
-     and that both kernels ran on that path;
+     and that both kernels ran on that path (phase 3b before it holds the
+     norm kernels against fp32, SVD-XT's clips among them: the UNet's time
+     ResBlock over 2 x 25 frames with its per-clip emb add, the decoder's
+     whole 25-frame 576x1024 clip);
+ 5b. one SVD-XT clip (configs/inference_svd_xt.yaml: 25 frames at 576x1024,
+     batched CFG over 2 x 25 rows, whole-clip decode) at STEPS_SVD Euler
+     steps through `StableVideoDiffusionPipeline.sample`: finite frames,
+     stages, peak, and the launches of K1 and K2 (all two-tile) against
+     SVD_PER_CALL a UNet call, GroupNorm and LayerNorm (none on the island),
+     which the kernels line carries under `svd_1024`;
   6. K3 (flash forward with logsumexp) against its plain version at
      (32, 2560, 5*64) bf16, ragged L = 300 and Lq 77 / Lk 130 cases, and
      fp32;
@@ -301,6 +312,13 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SEED = 123
 REPO = os.path.dirname(os.path.abspath(__file__))
+SVD_CONFIG = "configs/inference_svd_xt.yaml"
+STEPS_SVD = 2
+# K2's shapes on SVD-XT's path: (B, T, G, heads), 25 frames under batched CFG
+SVD_K2_SHAPES = ((2, 25, 9216, 5), (2, 25, 2304, 10), (2, 25, 576, 20))
+# SVD-XT's UNet call: K1 in the ten spatial transformers at L 9216 and 2304,
+# K2 in the sixteen temporal self-attentions at T 25 (two m16 tiles)
+SVD_PER_CALL = (10, 16)
 
 
 def log(msg: str) -> None:
@@ -408,6 +426,156 @@ def read_clip(path: str):
     cap.release()
     check(bool(frames), f"{path}: no frame decodes")
     return np.stack(frames)
+
+
+def svd_k2(dev) -> dict:
+    """Phase 3's K2 at SVD-XT's shapes (T 25: the two-tile tensor-core
+    kernel) in bf16 against the plain version, from a generator of its own;
+    one launch a call, counted as two tiles."""
+    import torch
+    from dynamicrafter_tpu_torch.ops.small_attention import (
+        small_t_fwd_tmajor, small_t_fwd_tmajor_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    rows = {}
+    for b, t, g, h in SVD_K2_SHAPES:
+        q, k, v = (torch.randn(b, t, g, h * 64, device=dev, generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        before = small_t_fwd_tmajor.launches_by_tiles.get(2, 0)
+        out = small_t_fwd_tmajor(q, k, v, h, 0.125)
+        two = small_t_fwd_tmajor.launches_by_tiles.get(2, 0) - before
+        ref = small_t_fwd_tmajor_plain(q.float(), k.float(), v.float(), h, 0.125)
+        torch.cuda.synchronize()
+        max_abs, rel = errors(out, ref)
+        ms = cuda_ms(lambda: small_t_fwd_tmajor(q, k, v, h, 0.125), iters=50)
+        plain_ms = cuda_ms(lambda: small_t_fwd_tmajor_plain(q, k, v, h, 0.125), iters=10)
+        b2 = attention_bound(b * g, t, t, h, 64, torch.bfloat16)
+        rows[str((b, t, g, h))] = dict(max_abs_err=max_abs, rel_l2=rel, ms=ms, plain_ms=plain_ms,
+                                       **b2)
+        log(f"[3] K2 small_t_fwd_tmajor SVD-XT ({b}, {t}, {g}, {h}*64) bf16: max_abs "
+            f"{max_abs:.3e} rel_l2 {rel:.3e} (tol 1e-2) | two-tile launches {two} | kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {b2['bound_ms'] / ms:.1%} of the "
+            f"{b2['bound_ms']:.4f} ms bound ({b2['bound_by']})")
+        check(rel <= 1e-2, f"K2 rel L2 {rel} > 1e-2 at SVD-XT's {(b, t, g, h)}")
+        check(two == 1, f"K2 at T {t} took {two} two-tile launches, not 1")
+        del q, k, v, out, ref
+    return rows
+
+
+def svd_norms(dev) -> dict:
+    """Phase 3b's GroupNorm at SVD-XT's clips (eps 1e-5, SiLU) against fp32,
+    x made as the model makes it: the UNet's time ResBlock on 2 x 25 frames
+    (its first norm on the clip view of a channels-last ResBlock output, its
+    second on the Conv3d's output with the per-clip emb add) and the
+    decoder's time stack on the whole 25-frame 576x1024 clip (128 channels,
+    3.8 GB in bf16: the stats + finish + apply plan), bf16 alone there."""
+    import torch
+    from dynamicrafter_tpu_torch.models.blocks import _to_clip
+    from dynamicrafter_tpu_torch.ops.norms import group_norm_act, group_norm_act_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+
+    def clip_view(n, c, h, w, dtype):
+        x = torch.empty(n, c, h, w, device=dev, dtype=dtype,
+                        memory_format=torch.channels_last).normal_(generator=gen)
+        return _to_clip(x.mul_(1.5).add_(0.3), 25)
+
+    def conv3d_out(n, c, h, w, dtype):
+        conv = torch.nn.Conv3d(c, c, (3, 1, 1), padding=(1, 0, 0)).to(dev, dtype)
+        with torch.no_grad():
+            return conv(clip_view(n, c, h, w, dtype))
+
+    cases = [("unet clip b2 320 T25 72x128 cl view", lambda dt: clip_view(50, 320, 72, 128, dt),
+              False, (torch.bfloat16, torch.float32)),
+             ("unet clip b2 320 T25 72x128 conv3d +emb",
+              lambda dt: conv3d_out(50, 320, 72, 128, dt), True, (torch.bfloat16, torch.float32)),
+             ("unet clip b2 1280 T25 9x16 conv3d +emb",
+              lambda dt: conv3d_out(50, 1280, 9, 16, dt), True, (torch.bfloat16, torch.float32)),
+             ("vae clip b1 128 T25 576x1024 cl view",
+              lambda dt: clip_view(25, 128, 576, 1024, dt), False, (torch.bfloat16,))]
+    rows = {}
+    for label, make, emb, dtypes in cases:
+        for dtype in dtypes:
+            tol = 4e-3 if dtype == torch.bfloat16 else 1e-5
+            x = make(dtype)
+            c = x.shape[1]
+            w, b = 1.0 + 0.2 * rnd(c), 0.2 * rnd(c)
+            add = (0.5 * rnd(x.shape[0], c, 1, 1, 1)).to(dtype) if emb else None
+            out = group_norm_act(x, w, b, 32, 1e-5, add, True)
+            v = x if add is None else x + add
+            max_abs, rel = errors(out, group_norm_act_plain(v.float(), w, b, 32, 1e-5, None,
+                                                            True))
+            del v
+            same = torch.equal(out, group_norm_act(x, w, b, 32, 1e-5, add, True))
+            ms = cuda_ms(lambda: group_norm_act(x, w, b, 32, 1e-5, add, True), iters=5)
+            bd = bound(2 * x.numel() * x.element_size(), 0, dtype)
+            rows[f"{label} {str(dtype)[6:]}"] = dict(max_abs_err=max_abs, rel_l2=rel, ms=ms, **bd)
+            log(f"[3b] group_norm_act SVD-XT {label} {str(dtype)[6:]} {tuple(x.shape)} stride "
+                f"{x.stride()}: max_abs {max_abs:.3e} rel_l2 {rel:.3e} against fp32 (tol {tol:g}) "
+                f"| two runs bit-identical {same} | kernel {ms:.4f} ms, bound "
+                f"{bd['bound_ms']:.4f} ({100 * bd['bound_ms'] / ms:.1f} %)")
+            check(rel <= tol, f"group_norm_act rel L2 {rel} > {tol} at SVD-XT's {label} {dtype}")
+            check(same, f"group_norm_act runs differ at SVD-XT's {label} {dtype}")
+            del x, out, add
+            torch.cuda.empty_cache()
+    return rows
+
+
+def svd_clip(dev) -> dict:
+    """One SVD-XT clip at its published size (25 frames at 576x1024, batched
+    CFG over 2 x 25 rows, the whole-clip decode), STEPS_SVD Euler steps,
+    random N(0, 0.02) weights, bf16, through
+    `StableVideoDiffusionPipeline.sample`: finite frames, the stages, the
+    peak, and the launches of K1, K2 (by m16 tiles), GroupNorm and LayerNorm,
+    counted from zero (no norm on the fp32 island)."""
+    import numpy as np
+    import torch
+    from dynamicrafter_tpu_torch.config import SVDConfig
+    from dynamicrafter_tpu_torch.ops import norms
+    from dynamicrafter_tpu_torch.ops.flash_attention import flash_fwd
+    from dynamicrafter_tpu_torch.ops.small_attention import small_t_fwd_tmajor
+    from dynamicrafter_tpu_torch.svd_pipeline import StableVideoDiffusionPipeline
+
+    t0 = time.perf_counter()
+    pipe = StableVideoDiffusionPipeline(SVDConfig.from_yaml(SVD_CONFIG), dev, torch.bfloat16)
+    pipe.init_random(SEED)
+    built = time.perf_counter() - t0
+    image = np.random.default_rng(SEED).uniform(-1, 1, (1, 576, 1024, 3)).astype(np.float32)
+    flash_fwd.launches = small_t_fwd_tmajor.launches = 0
+    small_t_fwd_tmajor.launches_by_tiles.clear()
+    norms.group_norm_act.launches = norms.layer_norm.launches = norms.island_calls = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings = {}
+    t1 = time.perf_counter()
+    out = pipe.sample(image, steps=STEPS_SVD, seed=SEED, timings=timings)
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = dict(flash_fwd=flash_fwd.launches, small_t_fwd_tmajor=small_t_fwd_tmajor.launches,
+             small_t_fwd_tmajor_by_tiles=dict(small_t_fwd_tmajor.launches_by_tiles),
+             group_norm_act=norms.group_norm_act.launches, layer_norm=norms.layer_norm.launches,
+             island=norms.island_calls)
+    videos = out.videos
+    log(f"[5b] SVD-XT 25x576x1024 Euler-{STEPS_SVD} batched CFG, whole-clip decode: videos "
+        f"{videos.shape} finite {bool(np.isfinite(videos).all())} std {videos.std():.3e} | "
+        + " ".join(f"{k} {v:.2f}s" for k, v in timings.items())
+        + f" | sample {wall:.1f}s, modules and weights {built:.1f}s | peak allocated "
+        f"{peak / 2**30:.2f} GiB | launches K1 {n['flash_fwd']} K2 {n['small_t_fwd_tmajor']} "
+        f"(by m16 tiles {n['small_t_fwd_tmajor_by_tiles']}) group_norm_act "
+        f"{n['group_norm_act']} layer_norm {n['layer_norm']} | CUDA norm calls on the fp32 "
+        f"island {n['island']}")
+    check(videos.shape == (1, 1, 25, 576, 1024, 3), f"SVD-XT videos {videos.shape}")
+    check(bool(np.isfinite(videos).all()) and videos.std() > 0, "SVD-XT frames")
+    want = tuple(STEPS_SVD * c for c in SVD_PER_CALL)
+    check((n["flash_fwd"], n["small_t_fwd_tmajor"]) == want
+          and n["small_t_fwd_tmajor_by_tiles"] == {2: want[1]},
+          f"SVD-XT launches K1, K2 {n} != {want}, all K2 two-tile")
+    check(min(n["group_norm_act"], n["layer_norm"]) > 0 and n["island"] == 0,
+          f"SVD-XT norm launches {n}")
+    del pipe, out, videos
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n
 
 
 def counts(*wrappers) -> tuple:
@@ -1215,6 +1383,7 @@ def main() -> int:
         check(intact, f"K2 wrote past its output at {(b, t, g, h, d)}")
         check(same, f"K2 bf16 runs differ at {(b, t, g, h, d)}")
         del q, k, v, buf, first, second
+    report["small_t_fwd_tmajor"]["svd_xt"] = svd_k2(dev)
 
     phase_s["3"] = time.perf_counter() - t0
 
@@ -1300,9 +1469,10 @@ def main() -> int:
             check(same, f"layer_norm runs differ at {label} {dtype}")
             del x, out
     first_gn, first_ln = gn_cases[0][0], f"({16 * 72 * 128}, 320)"
+    torch.cuda.empty_cache()
+    gn_by_shape.update(svd_norms(dev))
     report["group_norm_act"] = dict(gn_by_shape[first_gn], by_shape=gn_by_shape)
     report["layer_norm"] = dict(ln_by_shape[first_ln], by_shape=ln_by_shape)
-    torch.cuda.empty_cache()
     phase_s["3b"] = time.perf_counter() - t0
 
     # -- phase 4: full-width UNet forward, kernels vs plain ---------------
@@ -1383,6 +1553,13 @@ def main() -> int:
           f"norm launches on the slice (GN, LN, island) {norm_launches}")
     del result, frames, videos
     phase_s["5"] = time.perf_counter() - t0
+
+    # -- phase 5b: SVD-XT at 576x1024 through its pipeline --------------------
+    t0 = time.perf_counter()
+    n_svd = svd_clip(dev)
+    report["small_t_fwd_tmajor"]["svd_1024_launches_by_tiles"] = n_svd[
+        "small_t_fwd_tmajor_by_tiles"]
+    phase_s["5b"] = time.perf_counter() - t0
 
     # -- phase 6: K3 ------------------------------------------------------
     t0 = time.perf_counter()
@@ -3514,6 +3691,7 @@ def main() -> int:
                        "parity_check_512": n_parity[0],
                        "distributed_512": n_shards[0][0] + n_shards[1][0] + n_whole[0],
                        "inference_512_dp1": n_infer_dp[0], "inference_sp2": n_sp_infer[0],
+                       "svd_1024": n_svd["flash_fwd"],
                        **{k: v[0] for k, v in infer_paths.items()}}),
         "small_t_fwd_tmajor": (src + "small_attention.cu", tpu + "small_attention.py:134",
                                launches[1],
@@ -3534,6 +3712,7 @@ def main() -> int:
                                 "train_512_dp1": dp1_launches[3],
                                 "inference_512_dp1": n_infer_dp[1],
                                 "inference_sp2": n_sp_infer[1], "train_sp2": n_sp_train[3],
+                                "svd_1024": n_svd["small_t_fwd_tmajor"],
                                 **{k: v[1] for k, v in infer_paths.items()},
                                 **{k: v[3] for k, v in train_paths.items()}}),
         "flash_fwd_lse": (src + "flash_attention.cu", tpu + "flash_attention.py:32",
@@ -3593,9 +3772,11 @@ def main() -> int:
         "gn_stats": (src + "fused_conv.cu", "experiments/fused_conv/fused_conv.py:54",
                      conv_launches[2], {"bench_fused_conv": conv_launches[2]}),
         "group_norm_act": (src + "norms.cu", "none (the JAX package's norms are XLA fusions)",
-                           norm_launches[0], {"inference_512": norm_launches[0]}),
+                           norm_launches[0], {"inference_512": norm_launches[0],
+                                              "svd_1024": n_svd["group_norm_act"]}),
         "layer_norm": (src + "norms.cu", "none (the JAX package's norms are XLA fusions)",
-                       norm_launches[1], {"inference_512": norm_launches[1]})}
+                       norm_launches[1], {"inference_512": norm_launches[1],
+                                          "svd_1024": n_svd["layer_norm"]})}
     for name, (_, _, n, _) in sources.items():
         check(n > 0, f"{name} was launched no time on its main path")
     print(json.dumps({"kernels": [

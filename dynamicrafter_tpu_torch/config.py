@@ -2,13 +2,17 @@
 
 The reference composes models from `{target: pkg.Cls, params: {...}}` nodes.
 As in the JAX package (`dynamicrafter_tpu/config.py`), `target:` names map
-onto component roles and the YAML schema is read verbatim.
+onto component roles and the YAML schema is read verbatim. Two schemas:
+DynamiCrafter's `LatentVisualDiffusion` (`ModelConfig`) and Stability's
+`sgm` `DiffusionEngine` of Stable Video Diffusion (`SVDConfig`).
 
 PyYAML is not installed everywhere the port runs, so `load_yaml` parses the
 subset of YAML that `configs/*.yaml` use: nested block mappings, block lists
-of scalars (`- 4`, at the key's indent or deeper), flow lists of scalars
-(`[1, 2]`, `[]`), `#` comments, and plain or quoted scalars resolved as
-YAML 1.1 does (int, float, bool, null, str). Anything else raises.
+of scalars (`- 4`, at the key's indent or deeper) or of mappings (`- key:
+value`, the item's further keys two columns in, as sgm's `emb_models`),
+flow lists of scalars (`[1, 2]`, `[]`), `#` comments, and plain or quoted
+scalars resolved as YAML 1.1 does (int, float, bool, null, str). Anything
+else raises.
 """
 from __future__ import annotations
 
@@ -33,6 +37,22 @@ _TARGET_ROLES = {
     "LatentVisualDiffusion": "model",
     "LatentDiffusion": "model",
     "DDPM": "model",
+    # sgm (Stable Video Diffusion)
+    "DiffusionEngine": "svd_model",
+    "VideoUNet": "video_unet",
+    "AutoencodingEngine": "video_vae",
+    "VideoDecoder": "video_decoder",
+    "Encoder": "vae_encoder",
+    "AutoencoderKLModeOnly": "vae_mode",
+    "GeneralConditioner": "conditioner",
+    "FrozenOpenCLIPImagePredictionEmbedder": "clip_image_prediction",
+    "ConcatTimestepEmbedderND": "timestep_vector",
+    "VideoPredictionEmbedderWithEncoder": "video_encoder_concat",
+    "Denoiser": "denoiser",
+    "VScalingWithEDMcNoise": "v_scaling_edm",
+    "EulerEDMSampler": "euler_edm",
+    "EDMDiscretization": "edm_discretization",
+    "LinearPredictionGuider": "linear_guider",
 }
 
 # YAML 1.1 implicit scalar resolution, as PyYAML's resolver does it
@@ -107,9 +127,15 @@ def _parse_list(lines, i: int, indent: int):
     out = []
     while i < len(lines) and lines[i][0] == indent and _is_item(lines[i][1]):
         item = lines[i][1][1:].strip()
-        if not item or (":" in item and not item.startswith(("'", '"', "["))
-                        and re.match(r"^[^'\"\[]+:(\s|$)", item)):
-            raise ValueError(f"YAML list of mappings is not supported: {item!r}")
+        if not item:
+            raise ValueError("YAML list item with a nested block is not supported")
+        if not item.startswith(("'", '"', "[")) and re.match(r"^[^'\"\[]+:(\s|$)", item):
+            # a mapping: its first key on the item's line, the rest below it
+            # two columns in
+            lines[i] = (indent + 2, item)
+            value, i = _parse_map(lines, i, indent + 2)
+            out.append(value)
+            continue
         out.append(_scalar(item))
         i += 1
     return out, i
@@ -221,6 +247,68 @@ class ModelConfig:
     @classmethod
     def from_yaml(cls, path: str) -> "ModelConfig":
         return cls(load_yaml(path))
+
+
+class SVDConfig:
+    """The `model:` node of an sgm `DiffusionEngine` YAML (Stable Video
+    Diffusion, `configs/inference_svd_xt.yaml`): the VideoUNet's params, the
+    first stage's encoder and `VideoDecoder` params, the conditioner's
+    embedders in order as (role, input_key, params), the denoiser's scaling,
+    and the sampler's EDM discretization and guider."""
+
+    def __init__(self, model_node: Dict[str, Any]):
+        if "model" in model_node:
+            model_node = model_node["model"]
+        if target_role(model_node.get("target", "")) != "svd_model":
+            raise ValueError(f"not an sgm DiffusionEngine node: {model_node.get('target')!r}")
+        p = dict(model_node.get("params", {}))
+        self.params = p
+        self.scale_factor = p.get("scale_factor", 0.18215)
+
+        def node(n: Dict[str, Any], role: str, what: str) -> Dict[str, Any]:
+            got = target_role(n.get("target", ""))
+            if got != role:
+                raise ValueError(f"{what}: target {n.get('target')!r} is not the port's {role}")
+            return dict(n.get("params", {}) or {})
+
+        self.unet = node(p["network_config"], "video_unet", "network_config")
+        den = p.get("denoiser_config", {}).get("params", {})
+        node(den.get("scaling_config", {}), "v_scaling_edm", "denoiser scaling")
+        first = node(p["first_stage_config"], "video_vae", "first_stage_config")
+        self.encoder = node(first["encoder_config"], "vae_encoder", "encoder_config")
+        self.decoder = node(first["decoder_config"], "video_decoder", "decoder_config")
+        cond = node(p["conditioner_config"], "conditioner", "conditioner_config")
+        self.embedders: List[Tuple[str, str, Dict[str, Any]]] = []
+        for e in cond["emb_models"]:
+            role = target_role(e.get("target", ""))
+            if role not in ("clip_image_prediction", "timestep_vector", "video_encoder_concat"):
+                raise ValueError(f"conditioner embedder {e.get('target')!r} is not built")
+            self.embedders.append((role, e["input_key"], dict(e.get("params", {}) or {})))
+        sampler = node(p.get("sampler_config", {"target": "EulerEDMSampler"}), "euler_edm",
+                       "sampler_config")
+        disc = node(sampler.get("discretization_config", {"target": "EDMDiscretization"}),
+                    "edm_discretization", "discretization_config")
+        guider = node(sampler.get("guider_config", {"target": "LinearPredictionGuider"}),
+                      "linear_guider", "guider_config")
+        self.sigma_min = disc.get("sigma_min", 0.002)
+        self.sigma_max = disc.get("sigma_max", 80.0)
+        self.rho = disc.get("rho", 7.0)
+        self.min_cfg = guider.get("min_scale", 1.0)
+        self.max_cfg = guider.get("max_scale", 2.5)
+        self.num_frames = guider.get("num_frames", 14)
+        self.num_steps = sampler.get("num_steps", 25)
+        if sampler.get("s_churn", 0.0):
+            raise ValueError("EulerEDMSampler with s_churn > 0 is not built")
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "SVDConfig":
+        return cls(load_yaml(path))
+
+
+def is_svd(raw: Dict[str, Any]) -> bool:
+    """Whether a parsed YAML is an sgm DiffusionEngine (SVD) configuration."""
+    node = raw.get("model", raw) if isinstance(raw, dict) else {}
+    return target_role((node or {}).get("target", "")) == "svd_model"
 
 
 def deep_update(base: Dict[str, Any], extra: Dict[str, Any]) -> Dict[str, Any]:

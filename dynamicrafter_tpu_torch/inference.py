@@ -23,6 +23,17 @@ UNet call each under --sequential_cfg, which is the default at --width >=
 trace of the first batch there. `main(prompt_shard=(i, n))` runs the i-th of
 n slices of the prompt list (`distributed_inference` passes it).
 
+A Stable Video Diffusion configuration (an sgm `DiffusionEngine`, e.g.
+`configs/inference_svd_xt.yaml`) runs `svd_pipeline.StableVideoDiffusionPipeline`
+on every image of --prompt_dir (a prompt file is not needed; text is not
+read): --video_length frames, --ddim_steps Euler EDM steps, guidance from
+--min_cfg to --max_cfg over the frames, --fps (passed as fps_id = fps - 1),
+--motion_bucket_id and --cond_aug, as diffusers' pipeline takes them:
+
+  python -m dynamicrafter_tpu_torch.inference --config configs/inference_svd_xt.yaml \
+      --prompt_dir prompts/1024 --random_init --bf16 --height 576 --width 1024 \
+      --video_length 25 --ddim_steps 25
+
 Under torchrun (WORLD_SIZE set) the ranks share each clip instead, on a
 (dp, sp) mesh of one card a process. `--dp D` splits every UNet call's rows
 over D ranks (batched CFG's passes: at --bs 1 one dp rank runs the
@@ -106,7 +117,62 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--sp", type=int, default=-1,
                    help="under torchrun: ranks that split each clip's frames (-1: those "
                         "--dp leaves)")
+    svd = p.add_argument_group("Stable Video Diffusion configurations")
+    svd.add_argument("--fps", type=int, default=7, help="the clip's frame rate (fps_id = fps - 1)")
+    svd.add_argument("--motion_bucket_id", type=int, default=127)
+    svd.add_argument("--cond_aug", type=float, default=0.02,
+                     help="scale of the noise added to the conditioning image")
+    svd.add_argument("--min_cfg", type=float, default=None,
+                     help="guidance of the first frame (default: the config's guider)")
+    svd.add_argument("--max_cfg", type=float, default=None,
+                     help="guidance of the last frame (default: the config's guider)")
     return p
+
+
+def svd_main(args: argparse.Namespace) -> dict:
+    """`main` for a Stable Video Diffusion configuration: every image of
+    --prompt_dir to a clip, one a batch."""
+    from dynamicrafter_tpu_torch.config import SVDConfig
+    from dynamicrafter_tpu_torch.svd_pipeline import StableVideoDiffusionPipeline
+    from dynamicrafter_tpu_torch.utils.video import IMG_EXTS, load_image, save_results
+
+    if "WORLD_SIZE" in os.environ or (args.dp, args.sp) not in ((1, -1), (1, 1)):
+        raise SystemExit("Stable Video Diffusion runs in one process (no --dp / --sp)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but CUDA is not available")
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    if args.ckpt_path and not args.random_init:
+        pipe = StableVideoDiffusionPipeline.from_checkpoint(args.config, args.ckpt_path,
+                                                            device, dtype)
+    else:
+        pipe = StableVideoDiffusionPipeline(SVDConfig.from_yaml(args.config), device, dtype)
+        pipe.init_random(seed=args.seed)
+        print("WARNING: random-init weights (no checkpoint): smoke run only")
+    names = sorted(f for f in os.listdir(args.prompt_dir) if f.endswith(IMG_EXTS))
+    if not names:
+        raise FileNotFoundError(f"no image found in {args.prompt_dir}")
+    start = time.perf_counter()
+    paths, timings, peaks, outputs, latents = [], [], [], [], []
+    for i, name in enumerate(names):
+        image = load_image(os.path.join(args.prompt_dir, name), (args.height, args.width))
+        clock, peak = {}, {}
+        out = pipe.sample(image[None], frames=args.video_length, steps=args.ddim_steps,
+                          min_cfg=args.min_cfg, max_cfg=args.max_cfg, fps_id=args.fps - 1,
+                          motion_bucket_id=args.motion_bucket_id, cond_aug=args.cond_aug,
+                          seed=args.seed, timings=clock, peaks=peak)
+        paths += save_results(out.videos, [name], args.savedir, save_format=args.save_format,
+                              fps=args.savefps)
+        timings.append(clock)
+        peaks.append(peak)
+        outputs.append(out.videos)
+        latents.append(out.latents)
+        print(f"[{i + 1}/{len(names)}] " + " ".join(
+            f"{k} {v:.2f}s" + (f" (peak {peak[k] / 2**30:.2f} GiB)" if k in peak else "")
+            for k, v in clock.items()))
+    print(f"done in {time.perf_counter() - start:.1f}s -> {args.savedir}")
+    return {"paths": paths, "timings": timings, "peaks": peaks, "videos": outputs,
+            "latents": latents}
 
 
 def shard_bounds(n: int, shard_id: int, num_shards: int) -> Tuple[int, int]:
@@ -138,6 +204,9 @@ def main(argv: Union[None, Sequence[str], argparse.Namespace] = None,
     if args.deepcache > 1 and args.ddim_steps % args.deepcache != 0:
         raise SystemExit(f"--deepcache {args.deepcache} must divide "
                          f"--ddim_steps {args.ddim_steps}")
+    from dynamicrafter_tpu_torch.config import is_svd, load_yaml
+    if os.path.isfile(args.config) and is_svd(load_yaml(args.config)):
+        return svd_main(args)
     from dynamicrafter_tpu_torch import profile_unet
     from dynamicrafter_tpu_torch.config import ModelConfig
     from dynamicrafter_tpu_torch.parallel import sharding

@@ -5,6 +5,14 @@ lvdm/models/autoencoder.py; JAX twin dynamicrafter_tpu/models/vae.py.
 Inside, (N, C, H, W) with Conv2d; the public `encode_moments` / `decode`
 keep the JAX channels-last layout: frames (N, H, W, 3) in [-1, 1],
 moments (N, h, w, 2*embed_dim), latents (N, h, w, embed_dim).
+
+Stable Video Diffusion's first stage (`VideoAutoencoder`) decodes with
+sgm's `VideoDecoder` (sgm/modules/autoencoding/temporal_ae.py, time_mode
+conv-only): every ResnetBlock of the decoder is followed by a time
+ResBlock over the clip, blended a x_temporal + (1 - a) x_spatial (the
+UNet's blend the other way round), and the output conv is `AE3DConv`, a
+Conv2d then a Conv3d over time. It decodes a clip's frames together; its
+mid attention runs `FrameChunkedAttnBlock`, a few frames at a time.
 """
 from __future__ import annotations
 
@@ -16,8 +24,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dynamicrafter_tpu_torch.models.blocks import _from_clip, _to_clip
+from dynamicrafter_tpu_torch.models.video_unet import TimeResBlock
 from dynamicrafter_tpu_torch.ops.norms import GroupNorm
 from dynamicrafter_tpu_torch.utils import trace
+
+# bytes of fp32 softmax a decoder's attention call may hold
+_ATTN_BYTES = 1 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,6 +254,141 @@ class AutoencoderKL(nn.Module):
         with trace.span("vae_decode", shape=tuple(z.shape)):
             h = z.to(self.dtype).permute(0, 3, 1, 2)
             return self.decoder(self.post_quant_conv(h)).permute(0, 2, 3, 1)
+
+
+class FrameChunkedAttnBlock(AttnBlock):
+    """`AttnBlock` over as many frames at a time as keep the fp32
+    probabilities within `_ATTN_BYTES`: a 576x1024 clip's mid attention is
+    L = 9216 over one 512-wide head, 340 MB of fp32 softmax a frame."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, _, h, w = x.shape
+        per = max(1, _ATTN_BYTES // (4 * (h * w) ** 2))
+        if per >= n:
+            return super().forward(x)
+        return torch.cat([super(FrameChunkedAttnBlock, self).forward(x[i:i + per])
+                          for i in range(0, n, per)])
+
+
+class VideoResnetBlock(ResnetBlock):
+    """sgm temporal_ae.VideoResBlock: the ResnetBlock, then a time ResBlock
+    (no emb) over the clip; a x_temporal + (1 - a) x_spatial, a =
+    sigmoid(mix_factor)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 video_kernel_size=(3, 1, 1), alpha: float = 0.0):
+        super().__init__(in_channels, out_channels)
+        self.time_stack = TimeResBlock(out_channels, None, tuple(video_kernel_size))
+        self.mix_factor = nn.Parameter(torch.tensor([float(alpha)]))
+
+    def forward(self, x: torch.Tensor, t: int) -> torch.Tensor:
+        x = super().forward(x)
+        with trace.span("vae_temporal"):
+            clip = _to_clip(x, t)
+            a = torch.sigmoid(self.mix_factor.float()).to(x.dtype)
+            return _from_clip(a * self.time_stack(clip) + (1.0 - a) * clip)
+
+
+class AE3DConv(nn.Conv2d):
+    """The decoder's output conv: a Conv2d, then `time_mix_conv`, a Conv3d
+    over time."""
+
+    def __init__(self, in_channels: int, out_channels: int, video_kernel_size=(3, 1, 1),
+                 **kw):
+        super().__init__(in_channels, out_channels, **kw)
+        self.time_mix_conv = nn.Conv3d(out_channels, out_channels, tuple(video_kernel_size),
+                                       padding=tuple(k // 2 for k in video_kernel_size))
+
+    def forward(self, x: torch.Tensor, t: int) -> torch.Tensor:
+        x = super().forward(x)
+        with trace.span("vae_temporal"):
+            return _from_clip(self.time_mix_conv(_to_clip(x, t)))
+
+
+class VideoDecoder(nn.Module):
+    """`Decoder`'s levels with `VideoResnetBlock`s, the frame-chunked mid
+    attention and `AE3DConv`; forward(z (B*T, zc, h, w), t)."""
+
+    def __init__(self, cfg: VAEConfig, video_kernel_size=(3, 1, 1)):
+        super().__init__()
+        num_res = len(cfg.ch_mult)
+        block_in = cfg.ch * cfg.ch_mult[-1]
+        block = lambda i, o: VideoResnetBlock(i, o, video_kernel_size)
+        if cfg.attn_resolutions:
+            raise ValueError("VideoDecoder: attention outside the mid block is not built")
+        self.conv_in = nn.Conv2d(cfg.z_channels, block_in, 3, padding=1)
+        self.mid = nn.Module()
+        self.mid.block_1 = block(block_in, block_in)
+        self.mid.attn_1 = FrameChunkedAttnBlock(block_in)
+        self.mid.block_2 = block(block_in, block_in)
+        levels = []
+        for i_level in reversed(range(num_res)):
+            level = _Level()
+            block_out = cfg.ch * cfg.ch_mult[i_level]
+            for _ in range(cfg.num_res_blocks + 1):
+                level.block.append(block(block_in, block_out))
+                block_in = block_out
+            if i_level != 0:
+                level.upsample = Upsample(block_in)
+            levels.insert(0, level)
+        self.up = nn.ModuleList(levels)
+        self.norm_out = GroupNorm(32, block_in, eps=1e-6)
+        self.conv_out = AE3DConv(block_in, cfg.out_ch, video_kernel_size, kernel_size=3,
+                                 padding=1)
+
+    def forward(self, z: torch.Tensor, t: int) -> torch.Tensor:
+        h = self.conv_in(z)
+        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h, t)), t)
+        for level in reversed(self.up):
+            for blk in level.block:
+                h = blk(h, t)
+            if hasattr(level, "upsample"):
+                h = level.upsample(h)
+        return self.conv_out(self.norm_out(h, silu=True), t)
+
+
+class VideoAutoencoder(nn.Module):
+    """sgm's AutoencodingEngine as Stable Video Diffusion samples with it:
+    the `VideoDecoder` alone, on unscaled latents (no quant convs). Its
+    encoder is not on the sampling path (the conditioning latent comes from
+    the conditioner's own encoder), so it is not built."""
+
+    def __init__(self, cfg: VAEConfig, video_kernel_size=(3, 1, 1)):
+        super().__init__()
+        self.config = cfg
+        self.decoder = VideoDecoder(cfg, video_kernel_size)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.decoder.conv_in.weight.dtype
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """z: (B, T, h, w, zc), one call over each clip's T frames ->
+        frames (B, T, H, W, out_ch)."""
+        b, t = z.shape[:2]
+        with trace.span("vae_decode", frames=b * t):
+            h = z.to(self.dtype).flatten(0, 1).permute(0, 3, 1, 2)
+            out = self.decoder(h, t).permute(0, 2, 3, 1)
+            return out.reshape(b, t, *out.shape[1:])
+
+
+class KLModeEncoder(nn.Module):
+    """sgm's AutoencoderKLModeOnly as the conditioner uses it: the KL
+    encoder and quant_conv, returning the posterior's mode."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.config = cfg
+        self.encoder = Encoder(cfg)
+        zc, ed = cfg.z_channels, cfg.embed_dim
+        self.quant_conv = nn.Conv2d(2 * zc if cfg.double_z else zc,
+                                    2 * ed if cfg.double_z else ed, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (N, H, W, 3) in [-1, 1] -> the mode (N, h, w, embed_dim)."""
+        h = x.to(self.quant_conv.weight.dtype).permute(0, 3, 1, 2)
+        moments = self.quant_conv(self.encoder(h)).permute(0, 2, 3, 1)
+        return DiagonalGaussian(moments).mode()
 
 
 def decode_tiled(decode_fn, z: torch.Tensor, tile: int = 48, overlap: int = 8,

@@ -31,7 +31,8 @@ kernels and their XLA references do, but for one: K2's SIMT kernel keeps p
 in fp32 (for fp32 inputs that is their dtype; for bf16 with a head dim
 other than 64 it is one rounding fewer).
 
-Each wrapper counts its kernel launches in `.launches` and opens the span
+Each wrapper counts its kernel launches in `.launches` (K2 also by its
+m16 tiles of T in `.launches_by_tiles`) and opens the span
 K2 or K5 around the launch (`utils/trace.py`). When no input needs
 a gradient an entry point calls its kernel wrapper directly. Under a
 gradient it goes through `SmallTAttention`, whose forward is the same
@@ -101,10 +102,13 @@ def small_t_fwd_tmajor(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kernels.stream_handle(q.device))
     kernels.check(code, "small_t_fwd_tmajor launch")
     small_t_fwd_tmajor.launches += 1
+    tiles = small_t_fwd_tmajor.launches_by_tiles
+    tiles[(t + 15) // 16] = tiles.get((t + 15) // 16, 0) + 1
     return out
 
 
 small_t_fwd_tmajor.launches = 0
+small_t_fwd_tmajor.launches_by_tiles = {}   # by m16 tiles of T: 1 for T <= 16, 2 to 32
 
 
 def small_t_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -85,10 +85,12 @@ def test_k1_kernel_matches_plain(cuda, dtype, tol, n, lq, lk, h):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("b,t,g,h", [(2, 16, 2560, 5), (2, 16, 40, 20), (1, 5, 37, 2),
-                                     (1, 16, 9216, 5), (16, 16, 1024, 5)])
+                                     (1, 16, 9216, 5), (16, 16, 1024, 5),
+                                     (2, 25, 9216, 5), (2, 25, 2304, 10), (2, 25, 576, 20)])
 def test_k2_kernel_matches_plain(cuda, dtype, tol, b, t, g, h):
-    """The 320 x 512 shapes, a ragged one, and the largest of the 576 x 1024
-    (G = 9216) and 256 x 256 --bs 8 (B = 16) paths."""
+    """The 320 x 512 shapes, a ragged one, the largest of the 576 x 1024
+    (G = 9216) and 256 x 256 --bs 8 (B = 16) paths, and Stable Video
+    Diffusion XT's three levels at T = 25 (the two-tile kernel)."""
     q, k, v = _qkv((b, t, g, h * 64), dtype, cuda)
     before = tsmall.small_t_fwd_tmajor.launches
     out = tsmall.small_t_fwd_tmajor(q, k, v, h, 0.125)

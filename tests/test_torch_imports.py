@@ -35,10 +35,12 @@ MODULES = [
     "dynamicrafter_tpu_torch.models.vae",
     "dynamicrafter_tpu_torch.models.clip",
     "dynamicrafter_tpu_torch.models.resampler",
+    "dynamicrafter_tpu_torch.models.video_unet",
     "dynamicrafter_tpu_torch.sampling.ddim",
     "dynamicrafter_tpu_torch.sampling.dpm",
     "dynamicrafter_tpu_torch.sampling.unipc",
     "dynamicrafter_tpu_torch.sampling.ancestral",
+    "dynamicrafter_tpu_torch.sampling.edm",
     "dynamicrafter_tpu_torch.experiments.flash_pairs.flash_pairs",
     "dynamicrafter_tpu_torch.experiments.flash_pairs.bench_flash_variants",
     "dynamicrafter_tpu_torch.experiments.flash_pairs.bench_flash_pairs",
@@ -47,6 +49,7 @@ MODULES = [
     "dynamicrafter_tpu_torch.experiments.fused_conv.bench_fused_conv",
     "dynamicrafter_tpu_torch.models.encoders",
     "dynamicrafter_tpu_torch.pipeline",
+    "dynamicrafter_tpu_torch.svd_pipeline",
     "dynamicrafter_tpu_torch.sds",
     "dynamicrafter_tpu_torch.generate_guidance",
     "dynamicrafter_tpu_torch.app",
