@@ -468,7 +468,7 @@ def svd_norms(dev) -> dict:
     (its first norm on the clip view of a channels-last ResBlock output, its
     second on the Conv3d's output with the per-clip emb add) and the
     decoder's time stack on the whole 25-frame 576x1024 clip (128 channels,
-    3.8 GB in bf16: the stats + finish + apply plan), bf16 alone there."""
+    3.8 GB in bf16: the streamed channels-last plan), bf16 alone there."""
     import torch
     from dynamicrafter_tpu_torch.models.blocks import _to_clip
     from dynamicrafter_tpu_torch.ops.norms import group_norm_act, group_norm_act_plain

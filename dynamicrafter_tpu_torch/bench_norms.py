@@ -13,10 +13,11 @@ input read once and the output written once at 3.35 TB/s (the fp32 affine,
 and emb, beside them); `share` is the bound over the kernel's time. GroupNorm
 rows come in both layouts the kernel reads: per channel (contiguous, or a
 clip's view of that) and channels-last (`cl`: the UNet's and the VAE's
-activations as their convs leave them, and a clip's views of those). Inputs
-of 50 MB or more do not fit in L2; smaller ones are read warm. Prints one
-line a row and returns the rows. It needs a CUDA device and raises without
-one.
+activations as their convs leave them, and a clip's views of those: SVD-XT's
+too, the decoder's whole 25-frame clip among them). Each GroupNorm row names
+the plan the kernel took (`norms.GN_PLANS`). Inputs of 50 MB or more do not
+fit in L2; smaller ones are read warm. Prints one line a row and returns the
+rows. It needs a CUDA device and raises without one.
 """
 from __future__ import annotations
 
@@ -74,6 +75,11 @@ GN_CASES = [
      .transpose(1, 2), False),
     ("cl clip b2 320 T16 40x64 silu",
      lambda d: _to_clip(_cl(torch.randn(32, 320, 40, 64, device=d)), 16), None),
+    ("cl clip b2 320 T25 72x128 silu (SVD)",
+     lambda d: _to_clip(_cl(torch.randn(50, 320, 72, 128, device=d)), 25), None),
+    ("cl clip b1 128 T25 576x1024 silu (SVD decoder)",
+     lambda d: _to_clip(torch.empty(25, 128, 576, 1024, device=d, dtype=torch.bfloat16,
+                                    memory_format=torch.channels_last).normal_(), 25), None),
 ]
 # (label, rows, width): the transformers' norm1..3 at each level, CLIP's towers
 LN_CASES = [
@@ -113,8 +119,8 @@ def graph_ms(fn: Callable[[], object]) -> float:
     return ms
 
 
-def _row(label: str, nbytes: int, fns: Dict[str, Callable[[], object]]) -> dict:
-    row = {"case": label, "bound_ms": 1e3 * nbytes / PEAK_BYTES}
+def _row(label: str, nbytes: int, fns: Dict[str, Callable[[], object]], **extra) -> dict:
+    row = {"case": label, **extra, "bound_ms": 1e3 * nbytes / PEAK_BYTES}
     for name, fn in fns.items():
         row[f"{name}_ms"] = graph_ms(fn)
     row["share_pct"] = 100.0 * row["bound_ms"] / row["kernel_ms"]
@@ -146,7 +152,11 @@ def bench_group_norm(device: torch.device) -> List[dict]:
             "library": library,
         }
         nbytes = 2 * 2 * x.numel() + 8 * c + (2 * add.numel() if add is not None else 0)
-        rows.append(_row(label, nbytes, fns))
+        before = dict(norms.group_norm_act.launches_by_plan)
+        fns["kernel"]()
+        plan = next(k for k, n in norms.group_norm_act.launches_by_plan.items()
+                    if n != before.get(k, 0))
+        rows.append(_row(label, nbytes, fns, plan=plan))
         del x
     return rows
 

@@ -1,8 +1,10 @@
 // Hopper-only building blocks (sm_90a): mbarriers, TMA tensor loads and
-// their host-side tensor maps, wgmma with A in registers and B read from
-// shared memory through a descriptor, named barriers. First
-// used by the bf16 route of fused_conv.cu (K7, K8: `fused_conv_tc_kernel`);
-// the later wgmma + TMA steps of K1/K3 and K4 are meant to share them.
+// their host-side tensor maps, bulk copies of contiguous bytes, wgmma with
+// A in registers and B read from shared memory through a descriptor, named
+// barriers. First used by the bf16 route of fused_conv.cu (K7, K8:
+// `fused_conv_tc_kernel`); the later wgmma + TMA steps of K1/K3 and K4 are
+// meant to share them. norms.cu's channels-last GroupNorm streams its rows
+// through bulk copies.
 //
 // Every device helper is issued by the threads its contract names and
 // touches only shared memory addresses of the calling block (no clusters).
@@ -84,6 +86,32 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+// One thread copies `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) of contiguous global memory into shared memory at `dst` and
+// completes them on `bar`, which must have announced them. `evict_first`
+// marks the bytes first to leave L2: they will not be read again.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar, bool evict_first) {
+  if (evict_first) {
+    uint64_t policy;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+        " [%0], [%1], %2, [%3], %4;\n"
+        ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+        : "memory");
+  }
+}
+// Orders the calling thread's earlier shared-memory accesses (generic
+// proxy) before later TMA copies into the same bytes (async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // Fetch a tensor map into the TMA unit's cache ahead of its first use.
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {

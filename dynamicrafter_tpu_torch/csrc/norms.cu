@@ -15,9 +15,11 @@
 // An element's value is v = x + add[n, c] rounded to the input dtype (the
 // caller's `x + emb_out`), y = v * scale_c + bias_c with scale_c = w_c *
 // rsqrt(var + eps), bias_c = b_c - mean * scale_c, then optionally SiLU in
-// fp32, rounded once. Statistics: each thread sums its values less the
-// first one it saw, and reads them out as (count, mean, M2); threads,
-// warps and blocks merge those by Chan's formula in a fixed order
+// fp32, rounded once. Statistics: each thread sums its values less a shift
+// (per channel: the first value it saw, read out as (count, mean, M2) and
+// merged by Chan's formula over threads and warps; channels-last: a value
+// of the group common to the block, the sums added over its threads), and
+// blocks merge theirs by Chan's formula, all in a fixed order
 // (shuffle-down trees, then by rank), so the same input gives the same
 // bits, with no atomics on the data and no E[v^2] - mean^2 over a group.
 //
@@ -31,33 +33,56 @@
 //     permuted input; a clip's views of them too); the output in the same
 //     layout. A unit is a sample, all its groups: a group's channels are
 //     interleaved with the others' at every pixel.
-// A unit is cut into chunks of at most ~48 KB (per-channel: E / splits
-// elements; channels-last: rows), fixed by the unit's shape alone, never by
-// how many units the call has, so a sample's bits do not depend on its
-// batch. Each block (256 threads; channels-last: a multiple of C / 8 and of
-// 32 near 256, each thread keeping one vector column, so its channels and
-// their affine are fixed) stages its chunk in shared memory by cp.async
-// (every copy in flight at once, folded batch by batch as it lands), learns
-// the unit's moments and writes the chunk from shared memory, so x is read
-// once. A unit of one chunk takes one block; a larger one is split over
-// blocks that are resident together (a cooperative launch, persistent
-// blocks, as many units a round as the card holds, the rounds balanced):
-// each block publishes its chunk's moments to scratch and a per-unit count
-// (zeroed by a memset before the launch), waits for the unit's other
-// blocks only (a wait of ~10 s traps rather than hang the card), then
-// merges the unit's chunks in order. A channels-last sample over what the
-// card holds at once (a clip's at 576x1024, the VAE's 512x512 tiles) takes
-// three launches in the same chunks: stats (moments a chunk and group),
-// finish (a warp a group merges them once), apply (x read again, the grid
-// in reverse so that its first blocks read what the stats pass read last,
-// while it may still be in L2). A per-channel group over what the card
-// holds is refused. Tried against the rounds kept (0.098 ms; bf16, NVIDIA
-// H100 80GB HBM3, a clip of 16 x 320 x 72 x 128 read per channel): clusters
-// of 16 blocks (the non-portable size) in chunks of ~184 KB, one block an SM
-// (0.169 ms); stats + apply from scratch (0.133); two stages a block, the
-// next round's chunk in flight, at two blocks an SM (0.114); 512-thread
-// blocks with 96 KB chunks (0.100); per-frame groups in clusters of <= 8
-// blocks meeting in distributed shared memory (within 10 % of the rounds).
+// Per channel, a unit is cut into chunks of at most ~48 KB (E / splits
+// elements), fixed by the unit's shape alone, never by how many units the
+// call has, so a sample's bits do not depend on its batch. Each block (256
+// threads) stages its chunk in shared memory by cp.async (every copy in
+// flight at once, folded batch by batch as it lands), learns the unit's
+// moments and writes the chunk from shared memory, so x is read once. A
+// unit of one chunk takes one block; a larger one is split over blocks that
+// are resident together (a cooperative launch, persistent blocks, as many
+// units a round as the card holds, the rounds balanced): each block
+// publishes its chunk's moments to scratch and a per-unit count (zeroed by
+// a memset before the launch), waits for the unit's other blocks only (a
+// wait of ~10 s traps rather than hang the card), then merges the unit's
+// chunks in order. A group over what the card holds is refused. Tried
+// against the rounds kept (0.098 ms; bf16, NVIDIA H100 80GB HBM3, a clip of
+// 16 x 320 x 72 x 128 read per channel): clusters of 16 blocks (the
+// non-portable size) in chunks of ~184 KB, one block an SM (0.169 ms);
+// stats + apply from scratch (0.133); two stages a block, the next round's
+// chunk in flight, at two blocks an SM (0.114); 512-thread blocks with 96 KB
+// chunks (0.100); per-frame groups in clusters of <= 8 blocks meeting in
+// distributed shared memory (within 10 % of the rounds).
+//
+// Channels-last, group_norm_rows_kernel: one cooperative launch of
+// persistent blocks, one an SM, each with a ring of eight 24 KB slots
+// filled by bulk copies (cp.async.bulk, one thread issuing, an mbarrier a
+// slot): a chunk is the whole rows one slot holds, a part a run of a
+// sample's chunks, a block's: at most a ring's where the card's rings hold
+// the sample, else as many parts as blocks. Each thread keeps one 16-byte
+// vector column (the block a multiple of C / 8 and of 32 threads, near
+// 512), so its channels, its one or two groups and their affine are fixed
+// and the statistics are column sums in registers (less a shift a group:
+// no E[v^2] - mean^2). A sample's parts publish their moments to scratch
+// and a per-sample count (zeroed by a memset before the launch); the last
+// to publish merges them, in order, once (a warp's lanes over the groups,
+// twelve loads in flight), and the others take its result. As a part's
+// output frees its slots, the block's next part loads into them and is
+// summed as it lands: a sample the rings hold (a frame at 576x1024: 5.9 MB
+// in 31 parts) is read from device memory once, its writes overlapping the
+// next part's reads. A larger sample (a clip at 576x1024, the VAE's tiles,
+// SVD's decoder clip) streams through the rings, each keeping its last 192
+// KB, and what they do not keep (all but 25 MB) is read again, latest
+// first, from L2 where it still is: the chunks read for the last time, and
+// the output of those the rings kept, leave L2 first. Tried against the
+// design kept (ms at 16 x 320 x 72 x 128 with emb and SiLU, and the clip of
+// 16 frames; bf16, NVIDIA H100 80GB HBM3): two blocks an SM with four
+// 24 KB slots (0.161 / 0.134, the merge then a lane's serial loads); three
+// parts of four 16 KB chunks deep in a ring of twelve (0.181 / 0.117); two
+// parts in the ring, the next summed while the last is written (spilled,
+// 0.194 / 0.129); the next part asked into L2 ahead of its loads, and the
+// rest of a streamed part read again through registers first (no gain;
+// spills); 16 KB, 32 KB and 48 KB slots (within 5 % either way).
 //
 // LayerNorm, layer_norm_kernel: one warp a row of C contiguous elements,
 // C / 8 (bf16) or C / 4 (fp32) vectors <= 32 * 10, held in registers:
@@ -73,6 +98,7 @@
 #include <mutex>
 #include <tuple>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -85,8 +111,10 @@ constexpr int kUnroll = 8;                      // loads in flight a thread
 constexpr long long kTargetChunkBytes = 48 * 1024;   // four blocks an SM
 constexpr int kMaxSmem = 227 * 1024;
 constexpr int kRowThreads = 512;                // the most threads of a channels-last block
-constexpr long long kRowChunkBytes = 40 * 1024; // its chunk, beside <= 12 KB of moments
-constexpr int kRowLoads = 4;                    // its loads in flight a thread
+constexpr int kSlots = 8;                       // its ring of bulk copies: slots,
+constexpr int kSlotBytes = 24 * 1024;           // whole rows each; one block an SM
+constexpr int kMergeLoads = 12;                 // loads in flight a lane merging a sample's parts
+constexpr int kLag = 2;                         // loads in flight ahead of the next part's sum
 
 // n / d for n < 2^31 by a multiply-high (PyTorch's IntDivider).
 struct FastDiv {
@@ -161,6 +189,19 @@ struct VecIO {
   }
   __device__ __forceinline__ static void store_raw(T* p, const Raw& u) {
     *reinterpret_cast<uint4*>(p) = u;
+  }
+  // f rounded to T, as store writes it
+  __device__ __forceinline__ static Raw pack(const float* f) {
+    Raw u;
+    if constexpr (sizeof(T) == 2) {
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    } else {
+      u = make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                     __float_as_uint(f[3]));
+    }
+    return u;
   }
 };
 template <typename T>
@@ -237,13 +278,20 @@ struct Acc {
   }
 };
 
-// How a block learns its unit's moments: from its own chunk alone or from
-// scratch written by the blocks of its round in this launch (on chip), or,
-// channels-last over what the card holds, from scratch written by earlier
-// launches (stats, finish, apply).
-enum Mode { kOnChip = 0, kStats = 1, kApply = 2 };
-
 constexpr long long kSpinCycles = 1LL << 34;   // ~10 s: a wait that long is a fault
+
+// A block's thread 0, after a __syncthreads that follows the block's
+// writes: publishes them and counts the block in (release), and sees what
+// the blocks counted before it published (acquire). Returns the count
+// before.
+__device__ __forceinline__ unsigned arrive(unsigned* count) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "l"(count)
+               : "memory");
+  return old;
+}
 
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   unsigned v;
@@ -267,6 +315,13 @@ __device__ __forceinline__ void wait_for_unit(unsigned* count, int u, int splits
     __threadfence();
   }
   __syncthreads();
+}
+
+// A 16-byte store marked first to leave L2 (policy from createpolicy).
+__device__ __forceinline__ void store_l2_hint(void* p, const uint4& v, uint64_t policy) {
+  asm volatile("st.global.L2::cache_hint.v4.b32 [%0], {%1, %2, %3, %4}, %5;\n" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "l"(policy)
+               : "memory");
 }
 
 // Wait until at most n of this thread's cp.async groups are in flight (n
@@ -511,236 +566,369 @@ struct RowParams {
   const float* w;
   const float* b;
   void* out;             // (N, P, C)
-  float* part;           // splits > 1: (N, splits, groups, 2) chunk (mean, M2)
-  float* fin;            // stats/apply: (N, groups, 2) (mean, rstd)
-  unsigned* count;       // on chip, splits > 1: (N) chunks published, zeroed first
+  float* part;           // parts > 1: (N, parts, groups, 2) part (mean, M2)
+  float* fin;            // parts > 1: (N, groups, 2) (mean, rstd)
+  unsigned* count;       // parts > 1: (N) parts published (+ 1: fin written), zeroed first
   long long sn;          // x's element stride between samples
   unsigned p;            // pixels a sample: the rows of its (P, C) matrix
-  unsigned rows;         // rows a chunk
+  unsigned rows;         // rows a chunk (a ring slot's)
+  int chunks;            // chunks a sample
+  int parts;             // blocks a sample
   int c, groups, cpg;
   int v;                 // 16-byte vectors a row
-  int k;                 // rows a block steps over: its threads / v
-  int units, splits, per_round;
+  int units;
   float eps;
   int silu;
 };
 
-// A warp: group g of unit u over its `splits` chunks from scratch, in order
-// (lane l takes chunks l, l + 32, ...); lane 0 returns (mean, rstd).
-__device__ __forceinline__ float2 merge_row_chunks(const RowParams& p, int u, int g) {
-  const int lane = threadIdx.x & 31;
-  Moments t = {0.f, 0.f, 0.f};
-  for (int s = lane; s < p.splits; s += 32) {
+// The ring's loads: thread 0 issues them, every thread counts them, so a
+// load's slot (its index mod kSlots) and the parity of its slot's phase
+// (its index / kSlots) are known to all. A chunk read for the last time
+// (the ring keeps it, or it is read again) leaves L2 first.
+struct Ring {
+  unsigned char* slots;  // kSlots x kSlotBytes
+  uint64_t* full;        // kSlots mbarriers: a phase a load
+  unsigned issued = 0, used = 0;
+  template <typename T>
+  __device__ __forceinline__ void issue(const RowParams& p, const T* xu, int s, bool once) {
     const unsigned r0 = (unsigned)s * p.rows;
-    const float nb = (float)((min(p.p, r0 + p.rows) - r0) * (unsigned)p.cpg);
-    const float* q = p.part + (((size_t)u * p.splits + s) * p.groups + g) * 2;
-    t = merge(t, {nb, __ldcg(q), __ldcg(q + 1)});
+    const unsigned bytes = min(p.rows, p.p - r0) * (unsigned)p.c * (unsigned)sizeof(T);
+    const int slot = issued % kSlots;
+    if (threadIdx.x == 0) {
+      dct::hopper::mbar_arrive_expect_tx(&full[slot], bytes);
+      dct::hopper::bulk_load(slots + (size_t)slot * kSlotBytes, xu + (long long)r0 * p.c, bytes,
+                             &full[slot], once);
+    }
+    ++issued;
   }
-  t = warp_merge(t);
-  return make_float2(t.mean, rsqrtf(t.m2 / t.n + p.eps));
-}
+  // Waits for the next load in order; returns its slot.
+  template <typename T>
+  __device__ __forceinline__ T* next() {
+    const int slot = used % kSlots;
+    dct::hopper::mbar_wait(&full[slot], (used / kSlots) & 1);
+    ++used;
+    return at<T>(used - 1);
+  }
+  // The slot of load number `load`.
+  template <typename T>
+  __device__ __forceinline__ T* at(unsigned load) const {
+    return reinterpret_cast<T*>(slots + (size_t)(load % kSlots) * kSlotBytes);
+  }
+};
 
-// One block's chunk s of sample u: rows [s * rows, (s + 1) * rows) of its
-// (P, C) matrix, one contiguous run. Thread t keeps the vector column
-// t % v (channels c0 .. c0 + kV - 1, within two groups: ga below `split`,
-// gb from it) over rows t / v, t / v + k, ...; `stage` (on chip) holds the
-// chunk, `tab` the threads' moments and the groups' (mean, rstd).
-template <typename T, int kMode>
-__device__ __forceinline__ void rows_chunk(const RowParams& p, int u, int s, T* stage,
-                                           float* tab) {
+// Persistent, one block an SM: block b takes parts b, b + grid, ... of the
+// list of every sample's parts (sample-major). A part is a run of the
+// sample's chunks: at most kSlots where the card's rings hold the sample,
+// else one part a block. Each thread sums its vector column's values, less
+// a shift common to the block (each group's value in the part's first
+// row), into the sums of its one or two groups; the block adds them a
+// group, in a fixed order. A sample of one part has its moments in the
+// block; a larger one's blocks publish their parts' to scratch, the last to
+// publish merges them all, in order, once, and the others take its result.
+// A part streams through the ring kSlots loads ahead and its last kSlots
+// chunks stay there; the block's next part starts loading into any slot
+// this one leaves free, then into each slot whose chunk is written out.
+// The rest of a larger part is read again through the ring, the latest
+// read first (it may still be in L2). A sample's parts are resident
+// together (cooperative launch, parts <= grid), a block holds at most one
+// part of a sample, and it counts a part in having waited only on earlier
+// samples: no block waits forever.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads, 1) group_norm_rows_kernel(const RowParams p) {
   constexpr int kV = dct::Vec16<T>::kVec;
   using IO = VecIO<T, kV>;
   using Raw = typename IO::Raw;
-  constexpr int kLoads = kMode == kOnChip ? 2 : kRowLoads;
+  // [ring: kSlots x kSlotBytes][mbarriers][sums: 4 floats a thread][groups' (mean, rstd)]
+  // [groups' shifts][flag]
+  Ring ring;
+  ring.slots = smem_raw;
+  ring.full = reinterpret_cast<uint64_t*>(smem_raw + kSlots * kSlotBytes);
+  float* mom = reinterpret_cast<float*>(ring.full + kSlots);
+  float* grp = mom + 4 * blockDim.x;
+  float* shift = grp + 2 * p.groups;
+  int* last = reinterpret_cast<int*>(shift + p.groups);
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int nw = nt >> 5;
-  const int c0 = (tid % p.v) * kV;
+  const int c0 = (tid % p.v) * kV;   // the thread's vector column: nt is a multiple of v
   const int ga = c0 / p.cpg, split = min(kV, (ga + 1) * p.cpg - c0);
   const int gb = split < kV ? ga + 1 : ga;
-  const unsigned r0 = (unsigned)s * p.rows;
-  const int nv = (int)((min(p.p, r0 + p.rows) - r0) * (unsigned)p.v);
-  const long long off = (long long)r0 * p.c;
-  const T* xc = static_cast<const T*>(p.x) + (long long)u * p.sn + off;
-  T* oc = static_cast<T*>(p.out) + (long long)u * p.p * p.c + off;
-  const bool has_add = p.add != nullptr;
-  Raw addv = {};
-  if (has_add) addv = IO::load_raw(static_cast<const T*>(p.add) + (long long)u * p.c + c0);
-  float* mom = tab;                 // [nt][2][3]: each thread's (n, mean, M2) of ga, gb
-  float* grp = tab + 6 * nt;        // [groups][2]: (mean, rstd)
+  const bool has_add = p.add != nullptr, silu = p.silu != 0;
+  if (tid == 0) {
+    for (int i = 0; i < kSlots; ++i) dct::hopper::mbar_init(&ring.full[i], 1);
+    dct::hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  if (kMode != kApply) {
-    Acc a, b;
-    auto fold = [&](const Raw& r) {
+  // part j of a sample: chunks [first(j), first(j + 1))
+  auto first = [&](int j) { return (int)((unsigned)j * (unsigned)p.chunks / (unsigned)p.parts); };
+  auto unit_x = [&](int u) { return static_cast<const T*>(p.x) + (long long)u * p.sn; };
+  auto vectors = [&](int s) { return (int)(min(p.rows, p.p - (unsigned)s * p.rows) * p.v); };
+
+  // The item being summed: its chunks [lo, hi) and unit u, its emb add,
+  // and a vector element's shift and sums (an element's group is fixed: no
+  // branch a value).
+  int sum_u = 0, sum_lo = 0, sum_hi = 0;
+  const T* sum_addu = nullptr;
+  Raw sum_addv = {};
+  float sh[kV] = {}, s1[kV] = {}, s2[kV] = {};
+  auto begin_sum = [&](int it) {
+    const int part = it % p.parts;
+    sum_u = it / p.parts;
+    sum_lo = first(part);
+    sum_hi = first(part + 1);
+    if (has_add) {
+      sum_addu = static_cast<const T*>(p.add) + (long long)sum_u * p.c;
+      sum_addv = IO::load_raw(sum_addu + c0);
+    }
+#pragma unroll
+    for (int i = 0; i < kV; ++i) s1[i] = s2[i] = 0.f;
+  };
+  // Sums chunk s of the item being summed, the ring's next load (a part of
+  // more than kSlots chunks refills the slot once every thread has summed
+  // it), keeping v in the part's last kSlots.
+  auto sum_chunk = [&](int s) {
+    T* st = ring.next<T>();
+    if (s == sum_lo) {   // the shifts from the first row, before any thread writes v there
+      for (int g = tid; g < p.groups; g += nt)
+        shift[g] = static_cast<float>(st[g * p.cpg]) +
+                   (has_add ? static_cast<float>(sum_addu[g * p.cpg]) : 0.f);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kV; ++i) sh[i] = shift[i < split ? ga : gb];
+    }
+    const bool keep = has_add && s >= sum_hi - kSlots;
+    const int nv = vectors(s);
+    for (int lv = tid; lv < nv; lv += nt) {
+      Raw r = IO::load_raw(st + (size_t)lv * kV);
+      if (has_add) {
+        IO::add_vec(r, sum_addv);
+        if (keep) IO::store_raw(st + (size_t)lv * kV, r);
+      }
       float f[kV];
       IO::unpack(r, f);
-      if (a.n == 0) a.k = f[0];
-      if (b.n == 0) b.k = f[kV - 1];
 #pragma unroll
       for (int i = 0; i < kV; ++i) {
-        if (i < split) {
-          const float d = f[i] - a.k;
-          a.s1 += d;
-          a.s2 = fmaf(d, d, a.s2);
+        const float d = f[i] - sh[i];
+        s1[i] += d;
+        s2[i] = fmaf(d, d, s2[i]);
+      }
+    }
+    if (s + kSlots < sum_hi) {
+      __syncthreads();
+      ring.issue(p, unit_x(sum_u), s + kSlots, s + 2 * kSlots >= sum_hi);
+    }
+  };
+  // The summed item's part's moments a group, added in order of (row,
+  // column): warp w takes groups w, w + nw, ...; written to scratch, or, a
+  // sample of one part, the sample's to grp. Returns the ring's loads used.
+  auto end_sum = [&](int it) {
+    const int part = it % p.parts;
+    float a1 = 0.f, a2 = 0.f, b1 = 0.f, b2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const bool a = i < split;
+      a1 += a ? s1[i] : 0.f;
+      a2 += a ? s2[i] : 0.f;
+      b1 += a ? 0.f : s1[i];
+      b2 += a ? 0.f : s2[i];
+    }
+    float* m = mom + 4 * tid;
+    m[0] = a1;
+    m[1] = a2;
+    m[2] = b1;
+    m[3] = b2;
+    __syncthreads();
+    const int k = nt / p.v;
+    const float part_n = (float)((min(p.p, (unsigned)sum_hi * p.rows) - (unsigned)sum_lo * p.rows) *
+                                 (unsigned)p.cpg);
+    for (int g = warp; g < p.groups; g += nw) {
+      const int jlo = g * p.cpg / kV, ncol = ((g + 1) * p.cpg - 1) / kV - jlo + 1;
+      float t1 = 0.f, t2 = 0.f;
+      for (int i = lane; i < ncol * k; i += 32) {
+        const int rr = i / ncol, j = jlo + i % ncol;
+        const float* q = mom + 4 * (rr * p.v + j) + (j * kV / p.cpg == g ? 0 : 2);
+        t1 += q[0];
+        t2 += q[1];
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        t1 += __shfl_down_sync(0xffffffffu, t1, off);
+        t2 += __shfl_down_sync(0xffffffffu, t2, off);
+      }
+      if (lane == 0) {
+        const float d = t1 / part_n, mean = shift[g] + d, m2 = fmaxf(fmaf(-t1, d, t2), 0.f);
+        if (p.parts == 1) {
+          grp[2 * g] = mean;
+          grp[2 * g + 1] = rsqrtf(m2 / part_n + p.eps);
         } else {
-          const float d = f[i] - b.k;
-          b.s1 += d;
-          b.s2 = fmaf(d, d, b.s2);
+          float* q = p.part + (((size_t)sum_u * p.parts + part) * p.groups + g) * 2;
+          q[0] = mean;
+          q[1] = m2;
         }
       }
-      a.n += split;
-      b.n += kV - split;
-    };
-    if (kMode == kOnChip) {
-      int j = 0;
-      for (int lv = tid; lv < nv; lv += nt, ++j) {
-        dct::cp_async16(stage + (size_t)lv * kV, xc + (size_t)lv * kV);
-        if (j % kBatch == kBatch - 1) dct::cp_async_commit();
-      }
-      if (j % kBatch) dct::cp_async_commit();
-      const int batches = (j + kBatch - 1) / kBatch;
-      j = 0;
-      for (int lv = tid; lv < nv; lv += nt, ++j) {
-        if (j % kBatch == 0) cp_async_wait_for(batches - 1 - j / kBatch);
-        T* st = stage + (size_t)lv * kV;
-        Raw r = IO::load_raw(st);
-        if (has_add) {
-          IO::add_vec(r, addv);
-          IO::store_raw(st, r);
-        }
-        fold(r);
-      }
-    } else {
-      for (int base = 0; base < nv; base += kLoads * nt) {
-        Raw raw[kLoads];
+    }
+    __syncthreads();
+    return ring.used;
+  };
+
+  // Thread 0 waits until item it's sample has its moments in fin.
+  auto wait_moments = [&](int it) {
+    const long long t0 = clock64();
+    while (ld_acquire(p.count + it / p.parts) <= (unsigned)p.parts) {
+      __nanosleep(32);
+      if (clock64() - t0 > kSpinCycles) __trap();
+    }
+  };
+
+  // A sample of several parts: thread 0 counts item it's part in; the
+  // last of its sample's parts to arrive merges them all: warp w takes
+  // parts w, w + nw, ... (lane l group l, twelve loads in flight), then warp
+  // 0 merges the warps' sums in order, into fin, and counts the sample's
+  // moments in.
+  auto publish = [&](int it) {
+    const int u = it / p.parts;
+    unsigned* count = p.count + u;
+    if (tid == 0) *last = arrive(count) == (unsigned)p.parts - 1;
+    __syncthreads();
+    if (!*last) return;
+    const float* pu = p.part + (size_t)u * p.parts * p.groups * 2;
+    for (int g0 = 0; g0 < p.groups; g0 += 32) {
+      const int g = g0 + lane;
+      Moments t = {0.f, 0.f, 0.f};
+      if (g < p.groups) {
+        for (int j0 = warp; j0 < p.parts; j0 += kMergeLoads * nw) {
+          float2 q[kMergeLoads];
 #pragma unroll
-        for (int i = 0; i < kLoads; ++i) {
-          const int lv = base + i * nt + tid;
-          if (lv < nv) raw[i] = IO::load_raw(xc + (size_t)lv * kV);
-        }
+          for (int i = 0; i < kMergeLoads; ++i) {
+            const int j = j0 + i * nw;
+            if (j < p.parts)
+              q[i] = __ldcg(reinterpret_cast<const float2*>(pu + ((size_t)j * p.groups + g) * 2));
+          }
 #pragma unroll
-        for (int i = 0; i < kLoads; ++i) {
-          const int lv = base + i * nt + tid;
-          if (lv < nv) {
-            if (has_add) IO::add_vec(raw[i], addv);
-            fold(raw[i]);
+          for (int i = 0; i < kMergeLoads; ++i) {
+            const int j = j0 + i * nw;
+            if (j < p.parts) {
+              const unsigned rows =
+                  min(p.p, (unsigned)first(j + 1) * p.rows) - (unsigned)first(j) * p.rows;
+              t = merge(t, {(float)(rows * (unsigned)p.cpg), q[i].x, q[i].y});
+            }
           }
         }
       }
-    }
-    const Moments ma = a.moments(), mb = b.moments();
-    float* m = mom + 6 * tid;
-    m[0] = ma.n;
-    m[1] = ma.mean;
-    m[2] = ma.m2;
-    m[3] = mb.n;
-    m[4] = mb.mean;
-    m[5] = mb.m2;
-    __syncthreads();
-    // group g's parts in order of (row, column): warp w takes groups w, w + nw, ...
-    for (int g = warp; g < p.groups; g += nw) {
-      const int jlo = g * p.cpg / kV, ncol = ((g + 1) * p.cpg - 1) / kV - jlo + 1;
-      Moments t = {0.f, 0.f, 0.f};
-      for (int it = lane; it < ncol * p.k; it += 32) {
-        const int rr = it / ncol, j = jlo + it % ncol;
-        const float* q = mom + 6 * (rr * p.v + j) + (j * kV / p.cpg == g ? 0 : 3);
-        t = merge(t, {q[0], q[1], q[2]});
-      }
-      t = warp_merge(t);
-      if (lane == 0) {
-        if (kMode == kOnChip && p.splits == 1) {
-          grp[2 * g] = t.mean;
-          grp[2 * g + 1] = rsqrtf(t.m2 / t.n + p.eps);
-        } else {
-          float* q = p.part + (((size_t)u * p.splits + s) * p.groups + g) * 2;
-          q[0] = t.mean;
-          q[1] = t.m2;
+      float* mt = mom + 3 * tid;
+      mt[0] = t.n;
+      mt[1] = t.mean;
+      mt[2] = t.m2;
+      __syncthreads();
+      if (warp == 0 && g < p.groups) {
+        Moments s = {0.f, 0.f, 0.f};
+        for (int w = 0; w < nw; ++w) {
+          const float* q = mom + 3 * (w * 32 + lane);
+          s = merge(s, {q[0], q[1], q[2]});
         }
+        p.fin[((size_t)u * p.groups + g) * 2] = s.mean;
+        p.fin[((size_t)u * p.groups + g) * 2 + 1] = rsqrtf(s.m2 / s.n + p.eps);
       }
+      __syncthreads();
     }
-    if (kMode == kStats) return;
-    if (p.splits > 1) {
-      wait_for_unit(p.count, u, p.splits);
-      for (int g = warp; g < p.groups; g += nw) {
-        const float2 mr = merge_row_chunks(p, u, g);
-        if (lane == 0) {
-          grp[2 * g] = mr.x;
-          grp[2 * g + 1] = mr.y;
-        }
-      }
-    }
-    __syncthreads();
-  }
+    if (tid == 0) arrive(count);
+  };
 
-  // the affine of the thread's kV channels, in registers
-  float sc[kV], bi[kV];
-#pragma unroll
-  for (int i = 0; i < kV; ++i) {
-    const int g = i < split ? ga : gb;
-    float mean, rstd;
-    if (kMode == kApply) {
-      const float* q = p.fin + ((size_t)u * p.groups + g) * 2;
-      mean = __ldcg(q);
-      rstd = __ldcg(q + 1);
-    } else {
-      mean = grp[2 * g];
-      rstd = grp[2 * g + 1];
+  // Each item: its chunks not yet issued (the first kSlots); its sums (of
+  // the chunks not summed during the item before) and moments; its output,
+  // with the sample's moments (in grp for a sample of one part, else from
+  // fin once thread 0 has seen them published): the chunks the ring holds
+  // (loads end - held .. end - 1), each slot then taking a chunk of the
+  // block's next item, summed kLag loads later, where the ring holds that
+  // item's part whole; then the others read again through the ring, latest
+  // first.
+  const int items = p.units * p.parts, step = gridDim.x;
+  int have = 0, summed = 0;   // the item's chunks issued and summed during the one before
+  for (int it = blockIdx.x; it < items; it += step) {
+    const int u = it / p.parts, part = it % p.parts, lo = first(part), hi = first(part + 1);
+    const int held = min(kSlots, hi - lo), again = hi - held - lo;
+    if (summed == 0) begin_sum(it);
+    for (int s = lo + have; s < lo + held; ++s) ring.issue(p, unit_x(u), s, s >= hi - kSlots);
+    const int next = it + step, nlo = first(next % p.parts), nhi = first(next % p.parts + 1);
+    const int want = next < items && again == 0 && nhi - nlo <= kSlots ? nhi - nlo : 0;
+    const T* xn = unit_x(next / p.parts);
+    int ahead = 0;
+    for (; ahead < min(want, kSlots - held); ++ahead) ring.issue(p, xn, nlo + ahead, true);
+    for (int s = lo + summed; s < hi; ++s) sum_chunk(s);
+    const unsigned end = end_sum(it);
+    if (p.parts > 1) {
+      publish(it);
+      if (tid == 0) wait_moments(it);
+      __syncthreads();
+      const float* fu = p.fin + (size_t)u * p.groups * 2;
+      for (int i = tid; i < 2 * p.groups; i += nt) grp[i] = __ldcg(fu + i);
+      __syncthreads();
     }
-    sc[i] = p.w[c0 + i] * rstd;
-    bi[i] = fmaf(-mean, sc[i], p.b[c0 + i]);
-  }
-  const bool silu = p.silu != 0;
-  for (int base = 0; base < nv; base += kLoads * nt) {
-    Raw raw[kLoads];
+    float sc[kV], bi[kV];
 #pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int lv = base + i * nt + tid;
-      if (lv < nv) raw[i] = IO::load_raw((kMode == kOnChip ? stage : xc) + (size_t)lv * kV);
+    for (int i = 0; i < kV; ++i) {
+      const int g = i < split ? ga : gb;
+      sc[i] = p.w[c0 + i] * grp[2 * g + 1];
+      bi[i] = fmaf(-grp[2 * g], sc[i], p.b[c0 + i]);
     }
-#pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int lv = base + i * nt + tid;
-      if (lv < nv) {
-        if (kMode == kApply && has_add) IO::add_vec(raw[i], addv);
+    T* ou = static_cast<T*>(p.out) + (long long)u * p.p * p.c;
+    Raw addv = {};
+    if (has_add) addv = IO::load_raw(static_cast<const T*>(p.add) + (long long)u * p.c + c0);
+    // a part the ring does not hold whole: its held chunks' output leaves
+    // L2 first, so that the rest read again finds more of itself there
+    uint64_t evict_first = 0;
+    if (again > 0)
+      asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(evict_first));
+    auto out = [&](const T* st, int s, bool reread) {
+      T* oc = ou + (long long)s * p.rows * p.c;
+      const int nv = vectors(s);
+      for (int lv = tid; lv < nv; lv += nt) {
+        Raw r = IO::load_raw(st + (size_t)lv * kV);
+        if (reread && has_add) IO::add_vec(r, addv);
         float f[kV];
-        IO::unpack(raw[i], f);
+        IO::unpack(r, f);
 #pragma unroll
         for (int q = 0; q < kV; ++q) f[q] = silu_or_not(fmaf(f[q], sc[q], bi[q]), silu);
-        IO::store(oc + (size_t)lv * kV, f);
+        if (again > 0 && !reread)
+          store_l2_hint(oc + (size_t)lv * kV, IO::pack(f), evict_first);
+        else
+          IO::store(oc + (size_t)lv * kV, f);
+      }
+    };
+    int nsum = 0;   // the next item's chunks summed here
+    for (int s = hi - held; s < hi; ++s) {
+      out(ring.at<T>(end - (unsigned)(hi - s)), s, false);
+      if (ahead < want) {   // the slot's next load comes after every thread's use of it
+        dct::hopper::fence_proxy_async();
+        __syncthreads();
+        ring.issue(p, xn, nlo + ahead++, true);
+        if (ahead - nsum > kLag) {
+          if (nsum == 0) begin_sum(next);
+          sum_chunk(nlo + nsum++);
+        }
       }
     }
-  }
-}
-
-// Persistent, as group_norm_act_kernel, over samples.
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads, 2) group_norm_rows_kernel(const RowParams p) {
-  // [stage: rows x C T][moments][groups' (mean, rstd)]
-  T* stage = reinterpret_cast<T*>(smem_raw);
-  float* tab = reinterpret_cast<float*>(stage + (size_t)p.rows * p.c);
-  for (int u = blockIdx.x / p.splits; u < p.units; u += p.per_round) {
-    rows_chunk<T, kOnChip>(p, u, blockIdx.x % p.splits, stage, tab);
+    have = ahead;
+    summed = nsum;
+    if (again > 0) {
+      dct::hopper::fence_proxy_async();
+      __syncthreads();
+      for (int j = 0; j < min(kSlots, again); ++j)
+        ring.issue(p, unit_x(u), hi - held - 1 - j, true);
+      for (int j = 0; j < again; ++j) {
+        const int s = hi - held - 1 - j;
+        out(ring.next<T>(), s, true);
+        if (j + kSlots < again) {
+          __syncthreads();
+          ring.issue(p, unit_x(u), s - kSlots, true);
+        }
+      }
+    }
+    // the ring's next loads into these slots come after every thread's
+    // reads and writes of them
+    dct::hopper::fence_proxy_async();
     __syncthreads();
   }
-}
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads, 2) group_norm_rows_stats_kernel(const RowParams p) {
-  rows_chunk<T, kStats>(p, blockIdx.x / p.splits, blockIdx.x % p.splits, nullptr,
-                        reinterpret_cast<float*>(smem_raw));
-}
-// A warp a (sample, group): its chunks' moments merged once, as (mean, rstd).
-__global__ void __launch_bounds__(256) group_norm_rows_finish_kernel(const RowParams p) {
-  const int w = blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (w >= p.units * p.groups) return;   // a whole warp returns
-  const float2 mr = merge_row_chunks(p, w / p.groups, w % p.groups);
-  if ((threadIdx.x & 31) == 0) {
-    p.fin[2 * w] = mr.x;
-    p.fin[2 * w + 1] = mr.y;
-  }
-}
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads, 2) group_norm_rows_apply_kernel(const RowParams p) {
-  const unsigned blk = gridDim.x - 1 - blockIdx.x;   // the stats pass's last chunks first
-  rows_chunk<T, kApply>(p, blk / p.splits, blk % p.splits, nullptr, nullptr);
 }
 
 // ---- plans ----------------------------------------------------------------------
@@ -776,14 +964,21 @@ int resident(K kern, int threads, size_t smem) {
   return seen[key] = per_sm * num_sms();
 }
 
+// The plans by name (ops/norms.py's GN_PLANS, in this order): per channel,
+// a block a group or cooperative rounds of them; channels-last, a block a
+// sample, a sample's parts held on chip, or streamed past what the card
+// holds and partly read again.
+enum PlanKind { kChannel = 0, kChannelRounds, kRowsBlock, kRowsHeld, kRowsStreamed };
+
 struct Plan {
   bool ok = false;
-  bool two_pass = false;   // channels-last: stats, finish, apply
-  int splits = 1;          // blocks a unit
-  unsigned chunk = 0;      // per-channel: elements a block; channels-last: rows a block
+  int kind = kChannel;
+  int splits = 1;          // blocks a unit (channels-last: parts a sample)
+  unsigned chunk = 0;      // per-channel: elements a block; channels-last: rows a ring slot
   int threads = kThreads;
-  size_t smem = 0;         // on chip: a block's dynamic shared memory
-  int per_round = 0;       // on chip: units a round
+  size_t smem = 0;         // a block's dynamic shared memory
+  int per_round = 0;       // per-channel: units a round
+  int grid = 0;            // blocks launched
   long long scratch = 0;   // floats of scratch (with the counters' words)
 };
 
@@ -814,9 +1009,11 @@ Plan plan_groups(long long ng, unsigned e, int cpg) {
   if (pl.splits == 1) {
     pl.per_round = (int)ng;
   } else {
+    pl.kind = kChannelRounds;
     rounds(pl, ng, slots);
     pl.scratch = ng * pl.splits * 2 + ng;
   }
+  pl.grid = pl.per_round * pl.splits;
   return pl;
 }
 
@@ -830,6 +1027,9 @@ int lcm32(int v) {
   return v / a * 32;
 }
 
+// A sample's chunks (whole rows, a ring slot each) and parts (runs of at
+// most kSlots chunks, or as many parts as blocks are resident where that
+// is fewer) follow from its shape and the card alone.
 template <typename T>
 Plan plan_rows(long long units, long long pixels, int c, int groups) {
   constexpr int kV = dct::Vec16<T>::kVec;
@@ -841,28 +1041,26 @@ Plan plan_rows(long long units, long long pixels, int c, int groups) {
     if ((j * kV + kV - 1) / cpg - j * kV / cpg > 1) return pl;
   const int base = lcm32(v);
   if (base > kRowThreads) return pl;
-  pl.threads = base * std::max(1, (kThreads + base / 2) / base);
+  pl.threads = base * std::max(1, (kRowThreads + base / 2) / base);
   if (pl.threads > kRowThreads) pl.threads = base;
   const long long row_bytes = (long long)c * sizeof(T);
-  pl.chunk = (unsigned)std::min<long long>(pixels, std::max(1LL, kRowChunkBytes / row_bytes));
-  const long long splits = (pixels + pl.chunk - 1) / pl.chunk;
-  if (units * splits >= 0x7fffffffLL) return pl;
-  pl.splits = (int)splits;
-  pl.smem = (size_t)pl.chunk * row_bytes + (size_t)(6 * pl.threads + 2 * groups) * sizeof(float);
+  if (row_bytes > kSlotBytes) return pl;
+  pl.chunk = (unsigned)std::min<long long>(pixels, kSlotBytes / row_bytes);
+  const long long chunks = (pixels + pl.chunk - 1) / pl.chunk;
+  pl.smem = (size_t)kSlots * kSlotBytes + kSlots * sizeof(uint64_t) +
+            (size_t)(4 * pl.threads + 3 * groups + 1) * sizeof(float);
   const int slots = resident(group_norm_rows_kernel<T>, pl.threads, pl.smem);
   if (slots == 0) return pl;
+  const long long parts = std::min<long long>(slots, (chunks + kSlots - 1) / kSlots);
+  if (units * parts >= 0x7fffffffLL) return pl;
   pl.ok = true;
-  const long long parts = units * splits * groups * 2;
-  if (splits <= slots) {
-    if (splits == 1) {
-      pl.per_round = (int)units;
-    } else {
-      rounds(pl, units, slots);
-      pl.scratch = parts + units;
-    }
+  pl.splits = (int)parts;
+  pl.grid = (int)std::min<long long>(units * parts, slots);
+  if (parts == 1) {
+    pl.kind = kRowsBlock;
   } else {
-    pl.two_pass = true;
-    pl.scratch = parts + units * groups * 2;
+    pl.kind = chunks <= parts * kSlots ? kRowsHeld : kRowsStreamed;
+    pl.scratch = units * parts * groups * 2 + units * groups * 2 + units;
   }
   return pl;
 }
@@ -882,8 +1080,8 @@ bool vec_ok(const void* x, long long hw, long long sn, long long sc, long long s
          sc % v == 0 && sr % v == 0;
 }
 
-// splits == 1: a plain launch, a block a unit; else a cooperative one, the
-// units' counters zeroed first.
+// splits == 1: a plain launch; else a cooperative one, the units' counters
+// zeroed first.
 template <typename K, typename P>
 int launch_on_chip(K kern, const P& p, const Plan& pl, unsigned* count, long long units,
                    cudaStream_t stream) {
@@ -892,14 +1090,12 @@ int launch_on_chip(K kern, const P& p, const Plan& pl, unsigned* count, long lon
   cfg.blockDim = dim3(pl.threads);
   cfg.dynamicSmemBytes = pl.smem;
   cfg.stream = stream;
-  if (pl.splits == 1) {
-    cfg.gridDim = dim3((unsigned)units);
-  } else {
+  cfg.gridDim = dim3((unsigned)pl.grid);
+  if (pl.splits > 1) {
     cudaError_t err = cudaMemsetAsync(count, 0, (size_t)units * sizeof(unsigned), stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr[0].id = cudaLaunchAttributeCooperative;
     attr[0].val.cooperative = 1;
-    cfg.gridDim = dim3((unsigned)(pl.per_round * pl.splits));
     cfg.attrs = attr;
     cfg.numAttrs = 1;
   }
@@ -918,21 +1114,13 @@ int launch_groups(GnParams p, const Plan& pl, cudaStream_t stream) {
 template <typename T>
 int launch_rows(RowParams p, const Plan& pl, cudaStream_t stream) {
   p.rows = pl.chunk;
-  p.splits = pl.splits;
-  p.per_round = pl.per_round;
-  p.k = pl.threads / p.v;
-  const size_t parts = (size_t)p.units * pl.splits * p.groups * 2;
-  if (!pl.two_pass) {
-    if (pl.splits > 1) p.count = reinterpret_cast<unsigned*>(p.part + parts);
-    return launch_on_chip(group_norm_rows_kernel<T>, p, pl, p.count, p.units, stream);
+  p.chunks = (int)((p.p + pl.chunk - 1) / pl.chunk);
+  p.parts = pl.splits;
+  if (pl.splits > 1) {
+    p.fin = p.part + (size_t)p.units * pl.splits * p.groups * 2;
+    p.count = reinterpret_cast<unsigned*>(p.fin + (size_t)p.units * p.groups * 2);
   }
-  p.fin = p.part + parts;
-  const unsigned blocks = (unsigned)((long long)p.units * pl.splits);
-  group_norm_rows_stats_kernel<T>
-      <<<blocks, pl.threads, (size_t)6 * pl.threads * sizeof(float), stream>>>(p);
-  group_norm_rows_finish_kernel<<<(unsigned)((p.units * p.groups + 7) / 8), 256, 0, stream>>>(p);
-  group_norm_rows_apply_kernel<T><<<blocks, pl.threads, 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_on_chip(group_norm_rows_kernel<T>, p, pl, p.count, p.units, stream);
 }
 
 template <typename T>
@@ -1036,6 +1224,20 @@ int launch_ln(const void* x, const float* w, const float* b, void* out, long lon
   return static_cast<int>(cudaGetLastError());
 }
 
+// The GroupNorm plan for a shape (not ok for one the kernels do not take).
+Plan plan_of(int dtype, int channels_last, long long n, int c, long long r, long long hw,
+             int groups) {
+  if (groups <= 0 || c % groups || n <= 0 || r <= 0 || hw <= 0) return Plan();
+  const long long e = (long long)(c / groups) * r * hw;
+  if (e >= 0x7fffffffLL || n * groups >= 0x7fffffffLL || r * hw >= 0x7fffffffLL ||
+      (long long)c * r * hw >= 0x7fffffffLL)
+    return Plan();
+  if (dtype == dct::kBFloat16)
+    return plan<__nv_bfloat16>(channels_last != 0, n, c, r, hw, groups, true);
+  if (dtype == dct::kFloat32) return plan<float>(channels_last != 0, n, c, r, hw, groups, true);
+  return Plan();
+}
+
 }  // namespace
 
 // Floats of scratch the GroupNorm plan needs for this shape (0: none), or
@@ -1044,19 +1246,16 @@ int launch_ln(const void* x, const float* w, const float* b, void* out, long lon
 // as (n, c, r, hw) with hw contiguous.
 extern "C" long long dct_group_norm_scratch(int dtype, int channels_last, long long n, int c,
                                             long long r, long long hw, int groups) {
-  if (groups <= 0 || c % groups || n <= 0 || r <= 0 || hw <= 0) return -1;
-  const long long e = (long long)(c / groups) * r * hw;
-  if (e >= 0x7fffffffLL || n * groups >= 0x7fffffffLL || r * hw >= 0x7fffffffLL ||
-      (long long)c * r * hw >= 0x7fffffffLL)
-    return -1;
-  Plan pl;
-  if (dtype == dct::kBFloat16)
-    pl = plan<__nv_bfloat16>(channels_last != 0, n, c, r, hw, groups, true);
-  else if (dtype == dct::kFloat32)
-    pl = plan<float>(channels_last != 0, n, c, r, hw, groups, true);
-  else
-    return -1;
+  const Plan pl = plan_of(dtype, channels_last, n, c, r, hw, groups);
   return pl.ok ? pl.scratch : -1;
+}
+
+// The GroupNorm plan for this shape, as PlanKind numbers it, or -1 for a
+// shape the kernels do not take; arguments as dct_group_norm_scratch.
+extern "C" int dct_group_norm_plan(int dtype, int channels_last, long long n, int c, long long r,
+                                   long long hw, int groups) {
+  const Plan pl = plan_of(dtype, channels_last, n, c, r, hw, groups);
+  return pl.ok ? pl.kind : -1;
 }
 
 // y = [silu](groupnorm(x [+ add])): per channel, x viewed as (N, C, R, HW)

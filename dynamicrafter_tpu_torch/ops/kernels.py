@@ -140,6 +140,8 @@ def library() -> ctypes.CDLL:
         lib.dct_gn_stats.restype = i32
         lib.dct_group_norm_scratch.argtypes = [i32, i32, i64, i32, i64, i64, i32]
         lib.dct_group_norm_scratch.restype = i64
+        lib.dct_group_norm_plan.argtypes = lib.dct_group_norm_scratch.argtypes
+        lib.dct_group_norm_plan.restype = i32
         lib.dct_group_norm_act.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i64,
                                            i32, i64, i64, i64, i64, i64, i32, f32, i32, ptr]
         lib.dct_group_norm_act.restype = i32

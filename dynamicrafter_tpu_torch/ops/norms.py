@@ -18,7 +18,9 @@ Two routes, chosen by what a call can see:
     strides but a contiguous tail, so a clip's transposed view is read
     without a copy; or channels-last, as the convs leave it, and a clip's
     views of that), adds an optional per-(n, c) `add` (ResBlock's
-    `emb_out`) and applies an optional SiLU, writing the result once;
+    `emb_out`) and applies an optional SiLU, writing the result once
+    (`group_norm_act.launches_by_plan` counts its launches by the plan the
+    kernel took, `GN_PLANS`; the `group_norm` span names it in `plan=`);
     `layer_norm` normalises rows in one read and one write.
   * the fp32 island (`group_norm_act_plain`, `layer_norm_plain`): x.float(),
     the library norm in fp32, a cast back, then SiLU. The CPU, a call that
@@ -42,6 +44,11 @@ from dynamicrafter_tpu_torch.parallel.sharding import FrameSplit, sp_all_reduce
 from dynamicrafter_tpu_torch.utils import trace
 
 LN_MAX_VECTORS = 320      # 16-byte vectors a LayerNorm row may hold
+# GroupNorm's plans, as `csrc/norms.cu`'s PlanKind numbers them: per channel
+# (a block a group, or cooperative rounds of blocks), channels-last (a block
+# a sample, a sample held on chip in several blocks' rings, or streamed past
+# what the card holds and partly read again)
+GN_PLANS = ("channel", "channel_rounds", "rows_block", "rows_held", "rows_streamed")
 
 island_calls = 0          # CUDA calls that took the fp32 island
 
@@ -96,17 +103,21 @@ def _layout(x: torch.Tensor) -> torch.memory_format:
     return torch.contiguous_format
 
 
-_scratch = {}   # (dtype, channels-last, n, c, r, hw, groups) -> floats of scratch, -1 if refused
+_plans = {}   # (dtype, channels-last, n, c, r, hw, groups) -> (floats of scratch, plan name)
 
 
-def _scratch_floats(lib, code: int, channels_last: bool, dims, groups: int) -> int:
+def _plan(lib, code: int, channels_last: bool, dims, groups: int):
+    """(floats of scratch, plan name) of the kernel's plan for a shape; (-1,
+    None) where the kernel does not take it."""
     n, c, r, hw = dims[:4]
     key = (code, channels_last, n, c, r, hw, groups)
-    need = _scratch.get(key)
-    if need is None:
-        need = _scratch[key] = lib.dct_group_norm_scratch(code, int(channels_last), n, c, r, hw,
-                                                          groups)
-    return need
+    plan = _plans.get(key)
+    if plan is None:
+        args = (code, int(channels_last), n, c, r, hw, groups)
+        kind = lib.dct_group_norm_plan(*args)
+        plan = _plans[key] = (lib.dct_group_norm_scratch(*args), GN_PLANS[kind]) \
+            if kind >= 0 else (-1, None)
+    return plan
 
 
 def group_norm_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
@@ -123,7 +134,7 @@ def group_norm_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, gr
     code = kernels.DTYPE_CODES[x.dtype]
     lib = kernels.library()
     n, c = x.shape[:2]
-    dims, fmt, channels_last, need = _rows(x), torch.contiguous_format, False, -1
+    dims, fmt, channels_last, need, plan = _rows(x), torch.contiguous_format, False, -1, None
     if dims is None:
         # a channels-last activation (the UNet's and the VAE's convs keep the
         # layout of their permuted input): each sample a (pixels, C) matrix,
@@ -132,13 +143,13 @@ def group_norm_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, gr
         fmt = _layout(x)
         if fmt != torch.contiguous_format and x.data_ptr() % 16 == 0 and n * c > 0:
             dims = (n, c, 1, x.numel() // (n * c), x.stride(0) if n > 1 else x.numel(), 1, 0)
-            need = _scratch_floats(lib, code, True, dims, groups)
+            need, plan = _plan(lib, code, True, dims, groups)
             channels_last = need >= 0
         if not channels_last:
             x = x.contiguous()
             dims = _rows(x)
     if not channels_last:
-        need = _scratch_floats(lib, code, False, dims, groups)
+        need, plan = _plan(lib, code, False, dims, groups)
     if need < 0:
         raise ValueError(f"group_norm_act: shape {tuple(x.shape)} with {groups} groups "
                          "is outside the kernel")
@@ -151,7 +162,7 @@ def group_norm_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, gr
     out = torch.empty_like(x, memory_format=fmt) if channels_last else \
         torch.empty(x.shape, dtype=x.dtype, device=x.device)
     part = torch.empty(need, dtype=torch.float32, device=x.device) if need else None
-    with trace.span("group_norm", n=n, c=c, r=r, hw=hw), torch.cuda.device(x.device):
+    with trace.span("group_norm", n=n, c=c, r=r, hw=hw, plan=plan), torch.cuda.device(x.device):
         err = lib.dct_group_norm_act(
             x.data_ptr(), None if add is None else add.data_ptr(), w.data_ptr(), b.data_ptr(),
             out.data_ptr(), None if part is None else part.data_ptr(), need, code,
@@ -159,11 +170,14 @@ def group_norm_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, gr
             kernels.stream_handle(x.device))
     kernels.check(err, "group_norm_act launch")
     group_norm_act.launches += 1
+    by_plan = group_norm_act.launches_by_plan
+    by_plan[plan] = by_plan.get(plan, 0) + 1
     return out if channels_last or fmt == torch.contiguous_format else \
         out.contiguous(memory_format=fmt)
 
 
 group_norm_act.launches = 0
+group_norm_act.launches_by_plan = {}   # by GN_PLANS name
 
 
 def layer_norm_fits(x: torch.Tensor) -> bool:

@@ -19,7 +19,9 @@ for bit; a sample's bits alone as in its batch; a tiny UNet through the
 kernels against the island within 2e-2; no launch while a graph records.
 """
 import dataclasses
+import re
 import types
+from pathlib import Path
 
 import pytest
 
@@ -210,6 +212,10 @@ def test_vae_resnet_block_is_the_parent_formula(few_torch_threads):
         assert torch.equal(m(x), m.nin_shortcut(x) + h)
 
 
+GROUP_NORM_ACT = norms.group_norm_act   # the wrapper itself, before any test stands in for it
+CSRC_NORMS = Path(norms.__file__).resolve().parents[1] / "csrc" / "norms.cu"
+
+
 @pytest.fixture
 def counting_kernels(monkeypatch):
     """The kernel wrappers replaced by counters that run the plain versions."""
@@ -289,6 +295,25 @@ def test_routed_modules_pass_their_parts(few_torch_threads, counting_kernels, mo
     assert counting_kernels == {"group_norm": 1, "layer_norm": 1}
     torch.testing.assert_close(y, _island_gn(clip, cgn.weight, cgn.bias, 32, 1e-6, silu=True),
                                atol=1e-5, rtol=1e-5)
+
+
+def test_launches_by_plan_names_the_kernels_plans(few_torch_threads, counting_kernels,
+                                                  monkeypatch):
+    """`group_norm_act.launches_by_plan` is keyed by `GN_PLANS`, the names of
+    `csrc/norms.cu`'s PlanKind in its order (the C side returns the number);
+    a call that launches nothing (the CPU, the wrapper stood in for by a
+    counter) counts under no plan."""
+    kinds = re.search(r"enum PlanKind \{([^}]*)\}", CSRC_NORMS.read_text()).group(1)
+    names = tuple(re.sub(r"(?<!^)([A-Z])", r"_\1", k.split("=")[0].strip()[1:]).lower()
+                  for k in kinds.split(","))
+    assert names == norms.GN_PLANS
+    before = dict(GROUP_NORM_ACT.launches_by_plan)
+    x, a = _gn_input("per_frame", torch.float32)
+    GROUP_NORM_ACT(x, torch.ones(64), torch.zeros(64), 32, 1e-6, a, True)
+    monkeypatch.setattr(norms, "_kernel_route", lambda x, w: True)
+    norms.GroupNorm(32, 64)(x, add=a, silu=True)
+    assert counting_kernels["group_norm"] == 1
+    assert GROUP_NORM_ACT.launches_by_plan == before
 
 
 @pytest.mark.parametrize("view,want", [
@@ -377,16 +402,35 @@ GN_SHAPES = {
     "cl_frame_320_4x8": lambda d, t, g: _cl(torch.randn(6, 320, 4, 8, generator=g, device=d)),
     "cl_frame_320_72x128": lambda d, t, g: _cl(
         torch.randn(16, 320, 72, 128, generator=g, device=d)),
+    "cl_frame_640_72x128": lambda d, t, g: _cl(
+        torch.randn(16, 640, 72, 128, generator=g, device=d)),
+    "cl_frame_960_72x128": lambda d, t, g: _cl(
+        torch.randn(16, 960, 72, 128, generator=g, device=d)),
+    "cl_frame_1280_72x128": lambda d, t, g: _cl(
+        torch.randn(16, 1280, 72, 128, generator=g, device=d)),
+    "cl_frame_320_40x64": lambda d, t, g: _cl(torch.randn(32, 320, 40, 64, generator=g, device=d)),
     "cl_frame_640_36x64": lambda d, t, g: _cl(torch.randn(16, 640, 36, 64, generator=g, device=d)),
     "cl_frame_1280_5x8": lambda d, t, g: _cl(torch.randn(32, 1280, 5, 8, generator=g, device=d)),
     "cl_vae_tile_128_512x512": lambda d, t, g: _cl(
         torch.randn(2, 128, 512, 512, generator=g, device=d)),
+    "cl_vae_tile_4x128_512x512": lambda d, t, g: _cl(
+        torch.randn(4, 128, 512, 512, generator=g, device=d)),
     "cl_clip_b1_320_72x128": lambda d, t, g: _to_clip(
         _cl(torch.randn(16, 320, 72, 128, generator=g, device=d)), 16),
     "cl_clip_b2_320_40x64": lambda d, t, g: _cl(
         torch.randn(32, 320, 40, 64, generator=g, device=d)).view(2, 16, 320, 40 * 64)
     .transpose(1, 2),
+    "cl_clip_b2_320_T25_72x128": lambda d, t, g: _to_clip(
+        _cl(torch.randn(50, 320, 72, 128, generator=g, device=d)), 25),
 }
+# the plan each channels-last shape takes: a block a sample; a sample held
+# in several blocks' rings; a sample over what the rings hold, streamed
+GN_PLAN = {"cl_frame_320_4x8": "rows_block", "cl_frame_320_72x128": "rows_held",
+           "cl_frame_1280_72x128": "rows_held", "cl_frame_1280_5x8": "rows_block",
+           "cl_vae_tile_128_512x512": "rows_streamed", "cl_vae_tile_4x128_512x512": "rows_streamed",
+           "cl_clip_b1_320_72x128": "rows_streamed", "cl_clip_b2_320_T25_72x128": "rows_streamed",
+           "frame_1280_5x8": "channel", "frame_640_72x128": "channel_rounds",
+           "clip_b1_320_72x128": "channel_rounds", "vae_tile_128_512x512": "channel_rounds"}
 
 
 @pytest.mark.cuda
@@ -414,16 +458,23 @@ def test_cuda_group_norm_matches_plain(cuda, shape, dtype):
 @pytest.mark.parametrize("shape", ["frame_1280_5x8", "frame_640_72x128", "clip_b1_320_72x128",
                                    "vae_tile_128_512x512", "cl_frame_320_4x8",
                                    "cl_frame_320_72x128", "cl_vae_tile_128_512x512",
-                                   "cl_clip_b1_320_72x128"])
+                                   "cl_clip_b1_320_72x128", "cl_frame_1280_72x128",
+                                   "cl_frame_1280_5x8", "cl_vae_tile_4x128_512x512",
+                                   "cl_clip_b2_320_T25_72x128"])
 def test_cuda_group_norm_plans_repeat_bit_for_bit(cuda, shape):
     """Each plan within bf16's tolerance of plain, and two launches equal: a
     block a group (per channel) or a sample (channels-last), rounds of
-    resident blocks, and channels-last stats, finish and apply over a
-    sample the card does not hold at once (the VAE tile, the clip)."""
+    resident blocks, a channels-last sample held in several blocks' rings,
+    and one streamed past what the rings hold (the VAE tile, the clips);
+    the launch counted under its plan."""
     g = torch.Generator(device=cuda).manual_seed(32)
     x = (2.0 * GN_SHAPES[shape](cuda, torch.bfloat16, g) - 0.3).to(torch.bfloat16)
     w, b = _affine(x.shape[1], 33, cuda)
+    before = dict(norms.group_norm_act.launches_by_plan)
     one = norms.group_norm_act(x, w, b, 32, 1e-6, silu=True)
+    after = norms.group_norm_act.launches_by_plan
+    assert {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)} == \
+        {GN_PLAN[shape]: 1}
     assert torch.equal(one, norms.group_norm_act(x, w, b, 32, 1e-6, silu=True))
     assert _rel(one, norms.group_norm_act_plain(x, w, b, 32, 1e-6, silu=True)) <= 1e-2
 
@@ -431,7 +482,9 @@ def test_cuda_group_norm_plans_repeat_bit_for_bit(cuda, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", ["frame_320_40x64", "frame_1280_5x8", "clip_b2_320_40x64",
                                    "cl_frame_320_72x128", "cl_frame_1280_5x8",
-                                   "cl_clip_b2_320_40x64"])
+                                   "cl_clip_b2_320_40x64", "cl_frame_960_72x128",
+                                   "cl_frame_320_40x64", "cl_vae_tile_4x128_512x512",
+                                   "cl_clip_b2_320_T25_72x128"])
 def test_cuda_group_norm_is_batch_invariant(cuda, shape):
     """A sample normalises to the same bits alone as in its batch (CFG's two
     passes batched or apart, a dp rank's share of the rows): the plan's
@@ -449,7 +502,8 @@ def test_cuda_group_norm_is_batch_invariant(cuda, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [64, 320], ids=["copied", "in_place"])
+@pytest.mark.parametrize("c", [64, 320, 128, 1280],
+                         ids=["copied", "in_place", "in_place_128", "in_place_1280"])
 @pytest.mark.parametrize("layout", ["channels_last", "clip_of_channels_last", "channels_last_3d"])
 def test_cuda_group_norm_keeps_a_channels_last_layout(cuda, layout, c):
     """A channels-last input (the UNet's convs keep the layout of its
